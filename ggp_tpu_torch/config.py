@@ -1,0 +1,23 @@
+"""Global configuration of the PyTorch port.
+
+Counterpart of ``ggp_tpu/config.py``: the canonical seed and the jitter
+policy. Importing this module turns TF32 off for matrix products and
+convolutions — the counterpart of the JAX package's
+``jax_default_matmul_precision="highest"``: Gram matrices formed in TF32
+lose positive-definiteness.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+BASE_SEED = 173          # split / data seed of the reference (utils/config.py:14)
+
+
+def default_jitter(dtype: torch.dtype) -> float:
+    """Relative diagonal jitter added before every Kmm factorisation:
+    1e-8 in float64, 1e-5 in float32 (``ggp_tpu/config.py`` ``default_jitter``)."""
+    return 1e-8 if dtype == torch.float64 else 1e-5

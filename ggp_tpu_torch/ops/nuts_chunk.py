@@ -1,0 +1,274 @@
+"""K transitions of iterative multinomial NUTS on the collapsed-bound
+potential: plain PyTorch beside the CUDA kernel ``nuts_chunk`` (kernel 2).
+
+Counterpart of ``ggp_tpu/ops/fused_nuts.py`` ``_warm_chunk_kernel_body``
+(``adapt=True``: dual averaging and Welford windows in the chunk) and
+``_sample_chunk_kernel_body`` (``adapt=False``: fixed step size), both
+built on ``_transition_inkernel``. Randomness comes in as slabs indexed
+per step the way the JAX kernel indexes its own: momentum row t, tree
+uniforms (t, depth, {direction, swap}), leaf uniforms (t, global leaf
+index). :func:`draw_slabs` draws them from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from . import _build
+from .vfe_bound import _check_shapes, bound_cfg, rbf_vfe_neg_logpost_vg
+
+__all__ = ["ChainState", "draw_slabs", "nuts_chunk_plain", "nuts_chunk",
+           "DIVERGENCE_THRESHOLD", "MAX_DEPTH"]
+
+DIVERGENCE_THRESHOLD = 1000.0
+MAX_DEPTH = 10               # checkpoint slots of the kernel (csrc kMaxDepth)
+STAT_FIELDS = ("potential", "accept_prob", "diverging", "depth",
+               "n_leapfrog", "energy")
+
+
+@dataclasses.dataclass
+class ChainState:
+    """Sampler state carried between chunks: position, potential and
+    gradient, diagonal inverse mass, dual-averaging state (inference/hmc.py
+    DAState) and Welford state. Scalars are 0-dim tensors."""
+    z: torch.Tensor
+    U: torch.Tensor
+    g: torch.Tensor
+    inv_mass: torch.Tensor
+    log_eps: torch.Tensor
+    log_eps_avg: torch.Tensor
+    h_avg: torch.Tensor
+    mu: torch.Tensor
+    t_da: torch.Tensor
+    wf_mean: torch.Tensor
+    wf_m2: torch.Tensor
+    wf_count: torch.Tensor
+
+    def clone(self) -> "ChainState":
+        return ChainState(**{f.name: getattr(self, f.name).clone()
+                             for f in dataclasses.fields(self)})
+
+
+def draw_slabs(K, dim, max_depth, generator, *, dtype, device):
+    """(mom (K, dim), treeu (K, max_depth, 2), leafu (K, 2**max_depth))."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    return (torch.randn((K, dim), **kw),
+            torch.rand((K, max_depth, 2), **kw),
+            torch.rand((K, 1 << max_depth), **kw))
+
+
+def _lae(a, b):
+    mx = torch.maximum(a, b)
+    return mx + torch.log1p(torch.exp(-torch.abs(a - b)))
+
+
+def _log_unif(u):
+    return torch.log(torch.clamp(u, min=1e-12))
+
+
+def _trailing_ones(x: int) -> int:
+    n = 0
+    while x & 1:
+        x >>= 1
+        n += 1
+    return n
+
+
+def _transition(pot, z0, U0, g0, eps, inv_mass, mom, treeu, leafu, max_depth):
+    """One NUTS transition (port of ``_transition_inkernel``). Returns
+    (z, U, g, accept_prob, diverging, depth, n_leaves, H0)."""
+    dt = z0.dtype
+
+    def kinetic(r):
+        return 0.5 * (inv_mass * r * r).sum()
+
+    r0 = mom / torch.sqrt(inv_mass)
+    H0 = U0 + kinetic(r0)
+    left = [z0, r0, U0, g0]
+    right = [z0, r0, U0, g0]
+    zp, Up, gp = z0, U0, g0
+    logw = torch.zeros((), dtype=dt, device=z0.device)
+    acc = torch.zeros((), dtype=dt, device=z0.device)
+    depth, nl, turning, diverging = 0, 0, False, False
+    while not turning and not diverging and depth < max_depth:
+        dirf = 1.0 if bool(treeu[depth, 0] < 0.5) else -1.0
+        fwd = dirf > 0
+        z, r, U, g = right if fwd else left
+        qz, qU, qg = z, U, g
+        eps_s = dirf * eps
+        zc, vc = {}, {}
+        slogw = torch.full((), -math.inf, dtype=dt, device=z0.device)
+        sacc = torch.zeros((), dtype=dt, device=z0.device)
+        i, sturn, sdiv = 0, False, False
+        while i < (1 << depth) and not sturn and not sdiv:
+            r_half = r - 0.5 * eps_s * g
+            z = z + eps_s * inv_mass * r_half
+            U, g = pot(z)
+            r = r_half - 0.5 * eps_s * g
+            v = inv_mass * r
+            delta = U + kinetic(r) - H0
+            delta = torch.where(torch.isnan(delta),
+                                torch.full_like(delta, math.inf), delta)
+            sdiv = bool(delta > DIVERGENCE_THRESHOLD)
+            sacc = sacc + torch.clamp(torch.exp(-delta), max=1.0)
+            lwn = _lae(slogw, -delta)
+            if bool(_log_unif(leafu[nl + i]) < (-delta - lwn)):
+                qz, qU, qg = z, U, g
+            if i % 2 == 0:
+                slot = bin(i).count("1")
+                zc[slot], vc[slot] = z, v
+            else:
+                for mm in range(1, min(_trailing_ones(i), max_depth) + 1):
+                    sj = bin(i - (1 << mm) + 1).count("1")
+                    dz = dirf * (z - zc[sj])
+                    if bool((dz * vc[sj]).sum() < 0) or bool((dz * v).sum() < 0):
+                        sturn = True
+            slogw = lwn
+            i += 1
+        ok = not sturn and not sdiv
+        if ok and bool(_log_unif(treeu[depth, 1]) < (slogw - logw)):
+            zp, Up, gp = qz, qU, qg
+        if ok:
+            logw = _lae(logw, slogw)
+            if fwd:
+                right = [z, r, U, g]
+            else:
+                left = [z, r, U, g]
+        dz = right[0] - left[0]
+        full_turn = bool((dz * inv_mass * left[1]).sum() < 0) or \
+            bool((dz * inv_mass * right[1]).sum() < 0)
+        turning = sturn or (ok and full_turn)
+        diverging = sdiv
+        acc = acc + sacc
+        nl += i
+        depth += 1
+    accept = acc / max(nl, 1)
+    return zp, Up, gp, accept, diverging, depth, nl, H0
+
+
+def nuts_chunk_plain(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
+                     n_active, adapt, eps=None, in_window=None,
+                     window_end=None, max_depth=8, target_accept=0.8,
+                     adapt_mass=True, prior_spec=None):
+    """``n_active`` (<= K) NUTS transitions from ``state``. With ``adapt``,
+    the step size is exp(log_eps) and dual averaging plus the Welford
+    windows (``in_window``/``window_end`` (K,) bools) run after each
+    transition; otherwise the step size is ``eps``. Returns (new state,
+    draws (K, dim), stats (K, 6) in the order of ``STAT_FIELDS``); rows of
+    inactive steps are zero."""
+    from ..inference.hmc import (DAState, WelfordState, da_update,
+                                 welford_init, welford_update, welford_variance)
+    K = mom.shape[0]
+    dim = state.z.shape[0]
+    s = state.clone()
+    draws = torch.zeros((K, dim), dtype=X.dtype, device=X.device)
+    stats = torch.zeros((K, 6), dtype=X.dtype, device=X.device)
+
+    def pot(z):
+        return rbf_vfe_neg_logpost_vg(z, X, y, Z, jitter, prior_spec=prior_spec)
+
+    for t in range(int(n_active)):
+        step = torch.exp(s.log_eps) if adapt else eps
+        zp, Up, gp, accept, div, depth, nl, H0 = _transition(
+            pot, s.z, s.U, s.g, step, s.inv_mass, mom[t], treeu[t], leafu[t],
+            max_depth)
+        s.z, s.U, s.g = zp, Up, gp
+        if adapt:
+            da = da_update(DAState(s.log_eps, s.log_eps_avg, s.h_avg, s.mu, s.t_da),
+                           accept, target_accept)
+            s.log_eps, s.log_eps_avg, s.h_avg, s.mu, s.t_da = da
+            if adapt_mass:
+                wf = WelfordState(s.wf_mean, s.wf_m2, s.wf_count)
+                if bool(in_window[t]):
+                    wf = welford_update(wf, zp)
+                if bool(window_end[t]):       # window end: new mass, fresh DA
+                    s.inv_mass = welford_variance(wf)
+                    wf = welford_init(dim, dtype=X.dtype, device=X.device)
+                    s.log_eps_avg = da.log_eps
+                    s.mu = math.log(10.0) + da.log_eps
+                    s.h_avg = torch.zeros_like(da.h_avg)
+                    s.t_da = torch.zeros_like(da.t)
+                s.wf_mean, s.wf_m2, s.wf_count = wf
+        draws[t] = zp
+        stats[t] = torch.stack([Up, accept, torch.as_tensor(float(div), dtype=X.dtype,
+                                                            device=X.device),
+                                torch.as_tensor(float(depth), dtype=X.dtype, device=X.device),
+                                torch.as_tensor(float(nl), dtype=X.dtype, device=X.device),
+                                H0])
+    return s, draws, stats
+
+
+_STATE = ("U", "log_eps", "log_eps_avg", "h_avg", "mu", "t_da", "wf_count")
+
+
+def _call_nuts(state, X, y, Z, jitter, mom, treeu, leafu, n_active, adapt, eps,
+               in_window, window_end, max_depth, target_accept, adapt_mass,
+               prior_spec, stream):
+    n, d = X.shape
+    m = Z.shape[0]
+    K, dim = mom.shape
+    dev, dt = X.device, X.dtype
+    scal = torch.zeros(11, dtype=dt, device=dev)
+    scal[:7] = torch.stack([getattr(state, k).reshape(()) for k in _STATE])
+    scal[7] = float(n_active)
+    scal[8] = 0.0 if eps is None else eps
+    vecs = [state.z.clone(), state.g.clone(), state.inv_mass.clone(),
+            state.wf_mean.clone(), state.wf_m2.clone()]
+    if in_window is None:
+        flags = torch.zeros(2 * K, dtype=torch.int32, device=dev)
+    else:
+        flags = torch.cat([in_window, window_end]).to(device=dev, dtype=torch.int32)
+    draws = torch.empty((K, dim), dtype=dt, device=dev)
+    stats = torch.empty((K, 6), dtype=dt, device=dev)
+    work = _build.scratch(n, m, d, 0, X)
+    cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
+                    pivot_floor=None, prior_spec=prior_spec, DIM=dim,
+                    MAX_DEPTH=max_depth, K=K, ADAPT=int(adapt),
+                    TARGET=target_accept, ADAPT_MASS=int(adapt_mass))
+    P = _build.ptr
+    err = _build.kernel_fn("ggp_nuts_chunk", dt)(
+        ctypes.cast(cfg, ctypes.c_void_p), P(scal), *[P(v) for v in vecs],
+        P(flags), P(mom), P(treeu), P(leafu), P(X), P(y), P(Z), P(draws),
+        P(stats), P(work), stream)
+    _build.check(err, "nuts_chunk")
+    new = ChainState(z=vecs[0], U=scal[0], g=vecs[1], inv_mass=vecs[2],
+                     log_eps=scal[1], log_eps_avg=scal[2], h_avg=scal[3],
+                     mu=scal[4], t_da=scal[5], wf_mean=vecs[3], wf_m2=vecs[4],
+                     wf_count=scal[6])
+    return new, draws, stats
+
+
+def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
+               n_active, adapt, eps=None, in_window=None, window_end=None,
+               max_depth=8, target_accept=0.8, adapt_mass=True,
+               prior_spec=None):
+    """:func:`nuts_chunk_plain` on CPU tensors; kernel 2
+    (``csrc/nuts_chunk.cu``, the whole chunk in one launch) on CUDA
+    tensors. ``state`` is not modified."""
+    K, dim = mom.shape
+    _check_shapes("nuts_chunk", state.z, X, y, Z)
+    if dim != state.z.shape[0] or treeu.shape != (K, max_depth, 2) \
+            or leafu.shape != (K, 1 << max_depth):
+        raise ValueError("nuts_chunk: slab shapes do not fit (K, dim), "
+                         "(K, max_depth, 2), (K, 2**max_depth)")
+    if not 1 <= max_depth <= MAX_DEPTH:
+        raise ValueError(f"nuts_chunk: max_depth must be in [1, {MAX_DEPTH}]")
+    if adapt and adapt_mass and (in_window is None or window_end is None):
+        raise ValueError("nuts_chunk: adapt_mass needs in_window and window_end")
+    kw = dict(mom=mom, treeu=treeu, leafu=leafu, n_active=n_active,
+              adapt=adapt, eps=eps, in_window=in_window, window_end=window_end,
+              max_depth=max_depth, target_accept=target_accept,
+              adapt_mass=adapt_mass, prior_spec=prior_spec)
+    if X.device.type == "cpu":
+        return nuts_chunk_plain(state, X, y, Z, jitter, **kw)
+    _build.require_cuda("nuts_chunk", X.dtype, state.z, state.g,
+                        state.inv_mass, state.wf_mean, state.wf_m2, X, y, Z,
+                        mom, treeu, leafu)
+    out = _call_nuts(state, X, y, Z, jitter, stream=_build.stream_ptr(X.device),
+                     **kw)
+    _build.LAUNCHES["nuts_chunk"] += 1
+    return out

@@ -1,0 +1,303 @@
+"""Collapsed VFE bound of the Scale(RBF-ARD) x Gaussian model: value and
+analytic gradient, plain PyTorch beside the CUDA kernel ``vfe_potential``.
+
+Counterpart of ``ggp_tpu/ops/fused_bound.py`` ``_rbf_vfe_neg_logpost_vg``
+(the core inlined by every fused kernel of the flagship path) and of the
+single-evaluation potential kernel of ``ops/fused_nuts.py``
+(``_potential_kernel_body``). The port's functions take unpadded inputs:
+``theta`` (d+2,) in ravel order ``[log_lengthscale (d), log_outputscale,
+log_noise]``, ``X`` (n, d), ``y`` (n,), ``Z`` (m, d).
+
+Gradient (A = L^-1 Kmn / sigma, B = I + A A^T, v = B^-1 A y, w = L^-T v,
+alpha = (y - A^T v) / s2):
+
+  dF/dKnm = [A^T (I - B^-1) L^-1 + alpha w^T] / sigma
+  dF/dKmm = -w w^T / (2 s2) + L^-T (2I - B - B^-1) L^-1 / 2
+  dF/ds2  = ||alpha||^2 / 2 - tr(W) / 2 + t / (2 s2^2)
+
+then the RBF-ARD chain rule. Vectors c, v, w come from triangular solves
+against the factors, as in the JAX core.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .linalg import safe_cholesky
+
+__all__ = ["rbf_vfe_neg_logpost_vg", "vfe_potential", "prior_spec_of_tree",
+           "prior_terms", "chol_upper", "SPEC_RBF_DEFAULT"]
+
+SPEC_RBF_DEFAULT = (("gamma", 2.0, 1.0), ("hc_std", 1.0), ("hc_std", 1.0))
+_INV_LS_CAP_NUM = 1024.0
+
+
+def prior_spec_of_tree(prior_tree):
+    """Static spec (ls, outputscale, noise) of a Scale(RBF-ARD) x Gaussian
+    prior tree, each leaf a ("family", *params) tuple; None when the tree
+    has another structure or a family without a closed form here."""
+    from ..priors import (Flat, Gamma, HalfCauchy, HalfCauchyOnStd,
+                          HalfNormal, LogNormal)
+
+    def leaf(p):
+        if isinstance(p, Gamma):
+            return ("gamma", float(p.alpha), float(p.beta))
+        if isinstance(p, HalfCauchyOnStd):
+            return ("hc_std", float(p.scale))
+        if isinstance(p, HalfCauchy):
+            return ("hc", float(p.scale))
+        if isinstance(p, HalfNormal):
+            return ("half_normal", float(p.scale))
+        if isinstance(p, LogNormal):
+            return ("lognormal", float(p.mu), float(p.sigma))
+        if isinstance(p, Flat):
+            return ("flat",)
+        return None
+
+    try:
+        if set(prior_tree) != {"kernel", "log_noise"} \
+                or set(prior_tree["kernel"]) != {"log_outputscale", "base"} \
+                or set(prior_tree["kernel"]["base"]) != {"log_lengthscale"}:
+            return None
+        spec = (leaf(prior_tree["kernel"]["base"]["log_lengthscale"]),
+                leaf(prior_tree["kernel"]["log_outputscale"]),
+                leaf(prior_tree["log_noise"]))
+    except (KeyError, TypeError):
+        return None
+    return None if None in spec else spec
+
+
+_KINDS = ("gamma", "hc_std", "hc", "half_normal", "lognormal", "flat")  # csrc PriorKind
+
+
+def _leaf_params(leaf):
+    """(p1, p2, c) of one prior leaf ``("family", *params)``: the constants
+    of its closed form, as the plain version and the kernels both read them."""
+    kind = leaf[0]
+    if kind == "gamma":
+        a, b = leaf[1], leaf[2]
+        return a, b, a * math.log(b) - math.lgamma(a)
+    if kind == "hc_std":
+        s = leaf[1]
+        return 2.0 * math.log(s), 0.0, math.log(2.0 / (math.pi * s)) + math.log(0.5)
+    if kind == "hc":
+        s = leaf[1]
+        return math.log(s), 0.0, math.log(2.0 / (math.pi * s))
+    if kind == "half_normal":
+        s = leaf[1]
+        return s * s, 0.0, 0.5 * math.log(2.0 / math.pi) - math.log(s)
+    if kind == "lognormal":
+        mu, sg = leaf[1], leaf[2]
+        return mu, sg, -math.log(sg) - 0.5 * math.log(2.0 * math.pi)
+    if kind == "flat":
+        return 0.0, 0.0, 0.0
+    raise ValueError(f"unknown prior family {kind!r}")
+
+
+def _leaf_terms(leaf, u):
+    """Elementwise (log density, d/du) of one prior leaf at unconstrained u
+    (closed forms of the priors.py densities, log-Jacobian included; the
+    arithmetic of ``prior_leaf`` in csrc/vfe_bound.cuh)."""
+    kind, (p1, p2, c) = leaf[0], _leaf_params(leaf)
+    if kind == "gamma":
+        eu = torch.exp(u)
+        return c + p1 * u - p2 * eu, p1 - p2 * eu
+    if kind == "hc_std":
+        t = u - p1
+        return c + 0.5 * u - torch.log1p(torch.exp(t)), 0.5 - torch.sigmoid(t)
+    if kind == "hc":
+        t = 2.0 * (u - p1)
+        return c + u - torch.log1p(torch.exp(t)), 1.0 - 2.0 * torch.sigmoid(t)
+    if kind == "half_normal":
+        e2u = torch.exp(2.0 * u) / p1
+        return c + u - 0.5 * e2u, 1.0 - e2u
+    if kind == "lognormal":
+        z = (u - p1) / p2
+        return c - 0.5 * z * z, -z / p2
+    return torch.zeros_like(u), torch.zeros_like(u)            # flat
+
+
+def prior_terms(theta, d, prior_spec=None):
+    """(log prior, d log prior / d theta) under a static spec."""
+    sp = SPEC_RBF_DEFAULT if prior_spec is None else prior_spec
+    lp_ls, g_ls = _leaf_terms(sp[0], theta[:d])
+    lp_os, g_os = _leaf_terms(sp[1], theta[d])
+    lp_n, g_n = _leaf_terms(sp[2], theta[d + 1])
+    return lp_ls.sum() + lp_os + lp_n, torch.cat([g_ls, g_os[None], g_n[None]])
+
+
+def prior_leaf_doubles(prior_spec=None):
+    """The 12 doubles (kind, p1, p2, c) x 3 the kernels read."""
+    out = []
+    for leaf in (SPEC_RBF_DEFAULT if prior_spec is None else prior_spec):
+        out += [float(_KINDS.index(leaf[0])), *map(float, _leaf_params(leaf))]
+    return out
+
+
+def chol_upper(K: torch.Tensor, pivot_floor=None) -> torch.Tensor:
+    """U = chol(K)^T. Without ``pivot_floor`` a non-positive-definite K
+    gives NaN (sampler divergence semantics). With it, the modified
+    Cholesky of ``block_chol_u(..., pivot_floor=...)``: a pivot below the
+    floor becomes a sqrt(floor) e_i row and its elimination is skipped."""
+    if pivot_floor is None:
+        return safe_cholesky(K).T
+    floor = torch.as_tensor(pivot_floor, dtype=K.dtype, device=K.device)
+    L, info = torch.linalg.cholesky_ex(K)
+    if int(info) == 0 and bool((torch.diagonal(L) ** 2 >= floor).all()):
+        return L.T                  # no pivot reaches the floor
+    m = K.shape[0]
+    P = K.clone()
+    U = torch.zeros_like(K)
+    for i in range(m):
+        dp = P[i, i]
+        if bool(dp >= floor):
+            row = P[i, i:] * torch.rsqrt(dp)
+            U[i, i:] = row
+            P[i + 1:, i + 1:] -= torch.outer(row[1:], row[1:])
+        else:
+            U[i, i] = torch.sqrt(floor)
+    return U
+
+
+def _tri(U, b, *, trans=False):
+    """Solve U x = b (or U^T x = b) for upper-triangular U, vector b."""
+    A = U.T if trans else U
+    return torch.linalg.solve_triangular(A, b[:, None], upper=not trans)[:, 0]
+
+
+def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
+                           want_prior=True, pivot_floor=None, prior_spec=None):
+    """Plain PyTorch potential U = -(ELBO + log prior) and dU/dtheta
+    (+ dU/dZ with ``want_z_grad``). ``want_prior=False`` drops the prior
+    (the ML-II training objective); ``pivot_floor`` selects the trainers'
+    modified Cholesky (relative to max(sf2, 1) on Kmm)."""
+    n, d = X.shape
+    m = Z.shape[0]
+    dt, dev = X.dtype, X.device
+    eye = torch.eye(m, dtype=dt, device=dev)
+    log_os, log_noise = theta[d], theta[d + 1]
+    scale = torch.clamp(torch.maximum(X.abs().max(), Z.abs().max()), min=1e-3)
+    inv_ls = torch.minimum(torch.exp(-theta[:d]), _INV_LS_CAP_NUM / scale)
+    sf2 = torch.exp(log_os)
+    s2 = torch.exp(log_noise)
+    sigma = torch.sqrt(s2)
+
+    Xs, Zs = X * inv_ls, Z * inv_ls
+    Xs2, Zs2 = Xs * Xs, Zs * Zs
+    xn, zn = Xs2.sum(1), Zs2.sum(1)
+    Knm = sf2 * torch.exp(-0.5 * torch.clamp(xn[:, None] + zn[None, :]
+                                             - 2.0 * Xs @ Zs.T, min=0.0))
+    Kmm = sf2 * torch.exp(-0.5 * torch.clamp(zn[:, None] + zn[None, :]
+                                             - 2.0 * Zs @ Zs.T, min=0.0))
+    jit_scale = torch.clamp(sf2, min=1.0)
+    Kmm_j = Kmm + (jitter * jit_scale) * eye
+
+    U = chol_upper(Kmm_j, None if pivot_floor is None else pivot_floor * jit_scale)
+    V = torch.linalg.solve_triangular(U, eye, upper=True)        # L^-T
+    An = Knm @ V / sigma
+    B = An.T @ An + eye
+    UB = chol_upper(B, pivot_floor)
+    VB = torch.linalg.solve_triangular(UB, eye, upper=True)
+    Binv = VB @ VB.T
+    u = An.T @ y
+    c = _tri(UB, u, trans=True)
+    v = _tri(UB, c)
+    w = _tri(U, v)
+    alpha = (y - An @ v) / s2
+
+    logdetB = 2.0 * torch.log(torch.diagonal(UB)).sum()
+    trB = torch.diagonal(B).sum()
+    trBinv = torch.diagonal(Binv).sum()
+    t_term = n * sf2 - s2 * (trB - m)
+    F = (-0.5 * n * torch.log(2.0 * math.pi * s2) - 0.5 * logdetB
+         - 0.5 * ((y * y).sum() - (c * c).sum()) / s2 - 0.5 * t_term / s2)
+
+    Y1 = (eye - Binv) @ V.T
+    dKnm = (An @ Y1 + alpha[:, None] * w[None, :]) / sigma
+    T0 = 2.0 * eye - B - Binv
+    dKmm = -torch.outer(w, w) / (2.0 * s2) + 0.5 * (V @ T0) @ V.T
+    trW = (n - m + trBinv) / s2
+    dF_ds2 = 0.5 * (alpha * alpha).sum() - 0.5 * trW + t_term / (2.0 * s2 * s2)
+    dlog_noise = dF_ds2 * s2
+    dlog_os = ((dKmm * Kmm).sum() + (dKnm * Knm).sum()
+               + jitter * sf2 * (sf2 > 1.0).to(dt) * torch.diagonal(dKmm).sum()
+               - n * sf2 / (2.0 * s2))
+    Pmm, Pnm = dKmm * Kmm, dKnm * Knm
+    rs_mm, cs_mm = Pmm.sum(1), Pmm.sum(0)
+    rs_nm, cs_nm = Pnm.sum(1), Pnm.sum(0)
+    dls = (rs_mm @ Zs2 + cs_mm @ Zs2 - 2.0 * (Zs * (Pmm @ Zs)).sum(0)
+           + rs_nm @ Xs2 + cs_nm @ Zs2 - 2.0 * (Xs * (Pnm @ Zs)).sum(0))
+    g = torch.cat([dls, dlog_os[None], dlog_noise[None]])
+    if want_prior:
+        lp, gp = prior_terms(theta, d, prior_spec)
+        F = F + lp
+        g = g + gp
+    if not want_z_grad:
+        return -F, -g
+    dZs = (-2.0 * (rs_mm[:, None] * Zs - Pmm @ Zs)
+           - (cs_nm[:, None] * Zs - Pnm.T @ Xs))
+    return -F, -g, -(dZs * inv_ls)
+
+
+def bound_cfg(n, m, d, jitter, *, want_z_grad, want_prior, pivot_floor,
+              prior_spec, **extra):
+    """The kernels' cfg array for one bound configuration."""
+    return _build.cfg_array(
+        N=n, M=m, D=d, JITTER=jitter,
+        FLOOR=0.0 if pivot_floor is None else pivot_floor,
+        WANT_PRIOR=int(want_prior), WANT_ZGRAD=int(want_z_grad),
+        PRIOR=prior_leaf_doubles(prior_spec), **extra)
+
+
+def _check_shapes(name, theta, X, y, Z):
+    n, d = X.shape
+    if theta.shape != (d + 2,) or y.shape != (n,) or Z.ndim != 2 \
+            or Z.shape[1] != d:
+        raise ValueError(f"{name}: shapes theta {tuple(theta.shape)}, X "
+                         f"{tuple(X.shape)}, y {tuple(y.shape)}, Z "
+                         f"{tuple(Z.shape)} do not fit (d+2,), (n,d), (n,), (m,d)")
+    if d + 2 > 128:
+        raise ValueError(f"{name}: d + 2 = {d + 2} exceeds 128")
+
+
+def _call_potential(theta, X, y, Z, jitter, want_z_grad, want_prior,
+                    pivot_floor, prior_spec, stream):
+    n, d = X.shape
+    m = Z.shape[0]
+    out = torch.empty(d + 3, dtype=X.dtype, device=X.device)
+    dZ = torch.empty((m, d), dtype=X.dtype, device=X.device) if want_z_grad else None
+    work = _build.scratch(n, m, d, 0, X)
+    cfg = bound_cfg(n, m, d, jitter, want_z_grad=want_z_grad,
+                    want_prior=want_prior, pivot_floor=pivot_floor,
+                    prior_spec=prior_spec)
+    P = _build.ptr
+    err = _build.kernel_fn("ggp_vfe_potential", X.dtype)(
+        ctypes.cast(cfg, ctypes.c_void_p), P(theta), P(X), P(y), P(Z), P(out),
+        P(dZ), P(work), stream)
+    _build.check(err, "vfe_potential")
+    if want_z_grad:
+        return out[0], out[1:], dZ
+    return out[0], out[1:]
+
+
+def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
+                  want_prior=True, pivot_floor=None, prior_spec=None):
+    """U and dU/dtheta (and dU/dZ) of :func:`rbf_vfe_neg_logpost_vg`.
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 1
+    (``csrc/vfe_potential.cu``) or raise."""
+    _check_shapes("vfe_potential", theta, X, y, Z)
+    if X.device.type == "cpu":
+        return rbf_vfe_neg_logpost_vg(
+            theta, X, y, Z, jitter, want_z_grad=want_z_grad,
+            want_prior=want_prior, pivot_floor=pivot_floor,
+            prior_spec=prior_spec)
+    _build.require_cuda("vfe_potential", X.dtype, theta, X, y, Z)
+    out = _call_potential(theta, X, y, Z, jitter, want_z_grad, want_prior,
+                          pivot_floor, prior_spec, _build.stream_ptr(X.device))
+    _build.LAUNCHES["vfe_potential"] += 1
+    return out
