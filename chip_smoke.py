@@ -6,20 +6,34 @@ Phases, each printing one or more lines; any failure is a traceback and a
 non-zero exit:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
-2. build: compile the four CUDA kernels from ``ggp_tpu_torch/csrc``;
+2. build: compile the CUDA kernels from ``ggp_tpu_torch/csrc`` (one nvcc
+   per source, all at once);
 3. kernel parity: each kernel against its plain PyTorch version on the
    card, at the shapes of the flagship path (bench.py's boston-shaped data:
-   N=404 train rows, D=13, M=100), in float64 and float32, with the time
-   per call of both;
-4. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
-   (warm start 500 steps, NUTS rounds (100,20),(25,10),(25,10),(100,20)
-   with 100 Z steps between rounds, mixture predictive), in float32, with
-   every kernel's launch count over that run;
-5. a JSON line of per-kernel results, then the final status line.
+   N=404 train rows, D=13, M=100; the chain-batched kernels at C=8 chains),
+   in float64 and float32, with the time per call of both;
+4. the main paths through the model's entry points, in float32, each with
+   the launch counters set to 0 just before it and read just after:
+   a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
+      (warm start 500 steps, single-chain NUTS rounds (100,20),(25,10),
+      (25,10),(100,20) with 100 Z steps between rounds, mixture predictive);
+   b. HMC-C8: bench.py's ``cell_hmc_throughput`` (warm start 500 steps,
+      then 8 chains of HMC, L=10, 500 warmup + 500 draws), timed once;
+   c. multichain NUTS: the slice's rounds with 4 chains;
+5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
+   other?);
+6. a JSON line of per-kernel results, then the final status line.
+
+Every kernel's ``bound_ms`` is the least time the card could take for the
+work of the timed call: the larger of its operations over the float32 peak
+and its bytes (inputs read once, outputs written once) over the memory
+rate. The operations are those of the bound evaluations the call made,
+counted from ``csrc/vfe_bound.cuh`` (:func:`bound_ops`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -29,9 +43,14 @@ import numpy as np
 import torch
 
 from ggp_tpu_torch import BayesianSparseGPR_HMC
-from ggp_tpu_torch.inference.diagnostics import effective_sample_size
-from ggp_tpu_torch.inference.hmc import find_reasonable_step_size
+from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
+from ggp_tpu_torch.inference.hmc import (find_reasonable_step_size,
+                                         find_reasonable_step_size_batched)
 from ggp_tpu_torch.ops import _build
+from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, mc_hmc_chunk,
+                                          mc_hmc_chunk_plain, mc_nuts_chunk,
+                                          mc_nuts_chunk_plain, mc_potential,
+                                          mc_potential_plain)
 from ggp_tpu_torch.ops.nuts_chunk import (ChainState, draw_slabs, nuts_chunk,
                                           nuts_chunk_plain)
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
@@ -40,15 +59,24 @@ from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, vfe_potential
 from ggp_tpu_torch.utils.datasets import normalize
 from ggp_tpu_torch.utils.metrics import nlpd_mixture, rmse
 
+# name: (source, the pallas_call it replaces, the other one it replaces)
 KERNELS = {
     "vfe_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
-                      "ggp_tpu/ops/fused_nuts.py:807"),
+                      "ggp_tpu/ops/fused_nuts.py:807", None),
     "nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
-                   "ggp_tpu/ops/fused_nuts.py:780"),
+                   "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
     "sgpr_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
-                        "ggp_tpu/ops/fused_sgpr.py:434"),
+                        "ggp_tpu/ops/fused_sgpr.py:434", None),
     "z_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
-                     "ggp_tpu/ops/fused_sgpr.py:352"),
+                     "ggp_tpu/ops/fused_sgpr.py:352", None),
+    "mc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
+                     "ggp_tpu/ops/fused_multichain.py:1933", None),
+    "mc_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
+                     "ggp_tpu/ops/fused_multichain.py:1985",
+                     "ggp_tpu/ops/fused_multichain.py:1997"),
+    "mc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                      "ggp_tpu/ops/fused_multichain.py:1954",
+                      "ggp_tpu/ops/fused_multichain.py:1966"),
 }
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
@@ -66,8 +94,18 @@ ADAM_TOL = {torch.float64: 1e-8, torch.float32: 1e-2}
 # chunk must agree. In f32 the grown difference reaches the margin of some
 # multinomial or U-turn decision within a chunk, after which the two chains
 # follow different (equally valid) paths; the check there is the leading
-# run of transitions before the paths part, which must be non-empty.
+# run of transitions before the paths part, which must be non-empty. An
+# HMC chunk (8 transitions of L=10) is held to the same draw tolerance and
+# to identical accept decisions.
 NUTS_TOL = {torch.float64: 1e-6, torch.float32: 1e-2}
+# NVIDIA H100 SXM data sheet (at 700 W): float32 outside the tensor cores,
+# and HBM3 bandwidth.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# The smoke run must end inside 1200 s; past this mark the multichain NUTS
+# rounds cut their Z steps (and say so).
+Z_CUT_AFTER_S = 750.0
+T_START = time.perf_counter()
 
 
 def make_data(seed=173):
@@ -124,17 +162,74 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def phase_parity(Xd, yd, Zd):
+def once_ms(fn):
+    """(result, milliseconds) of one call, on the host clock between two
+    synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def bound_ops(n, m, d, want_z=False):
+    """Floating-point operations of one evaluation of ``vfe_bound``
+    (csrc/vfe_bound.cuh), counted from its loops at (n, m, d): a multiply-add
+    is 2, exp/log/sqrt/divide 1 each. Leading terms: the products An (n m^2),
+    B (2 n m^2) and dKnm (2 n m^2); the two Cholesky factorisations and two
+    triangular inverses (m^3/3 each), Binv (2 m^3/3), the adjoints Y1, VT0
+    (3 m^3) and Pmm (m^3)."""
+    ops = (n * m * (4 * d + 6) + m * m * (4 * d + 7)          # grams
+           + 4 * m ** 3 / 3 + 2 * m * m                        # 2 chol + 2 inv
+           + n * m * m + n * m                                 # An
+           + 2 * n * m * m                                     # B
+           + 2 * m ** 3 / 3                                    # Binv
+           + 4 * n * m + 3 * m * m                             # u, alpha, solves
+           + 3 * m ** 3                                        # Y1, VT0
+           + m ** 3 + 5 * m * m                                # Pmm
+           + 2 * n * m * m + 5 * n * m                         # Pnm
+           + 4 * m * m + 2 * n * m                             # row/col sums
+           + 3 * m * m * d + 3 * n * m * d                     # PmmZs, PnmZs
+           + d * (9 * m + 6 * n) + 2 * (n + m) * d)            # chain rule, norms
+    if want_z:
+        ops += 3 * n * m * d + 8 * m * d                       # PnmTXs, dZ
+    return float(ops)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def roofline(evals, n, m, d, in_bytes, out_bytes, want_z=False):
+    """(bound_ms, bound_by) of a call that makes ``evals`` bound evaluations
+    and reads ``in_bytes``, writes ``out_bytes`` (float32 peak)."""
+    t_ops = evals * bound_ops(n, m, d, want_z) / PEAK_F32_OPS
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def state_tensors(s):
+    return [getattr(s, f.name) for f in dataclasses.fields(s)]
+
+
+def new_res():
+    return {k: {"rel": {}, "abs32": 0.0, "ms": None, "plain_ms": None,
+                "bound": (None, None)} for k in KERNELS}
+
+
+def phase_parity(Xd, yd, Zd, res):
     """Kernel against plain version. ``Zd`` holds distinct rows: bench.py's
     Z (drawn with replacement) repeats 8 rows, which puts Kmm pivots at the
     jitter level; there the Z-gradient along a duplicate pair's separation
     is roundoff, and Adam's normalised steps turn roundoff into lr-sized,
     implementation-dependent moves. The slice runs on bench.py's Z."""
-    res = {k: {"rel": {}, "abs32": 0.0, "ms": None, "plain_ms": None} for k in KERNELS}
     for dt in (torch.float64, torch.float32):
         tag = "f64" if dt == torch.float64 else "f32"
+        f32 = dt == torch.float32
         X, y, Z = Xd.to(dt), yd.to(dt), Zd.to(dt)
         n, d = X.shape
+        m = Z.shape[0]
+        xyz = nbytes(X, y, Z)
         jit = 1e-5                     # the float32 default jitter the slice runs
         thetas = [torch.zeros(d + 2, dtype=dt, device="cuda"),
                   torch.tensor([0.5] * d + [0.0, -2.0], dtype=dt, device="cuda")]
@@ -155,8 +250,10 @@ def phase_parity(Xd, yd, Zd):
         pms = cuda_ms(lambda: rbf_vfe_neg_logpost_vg(th, X, y, Z, jit), 20)
         print(f"timing vfe_potential {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
         res["vfe_potential"]["rel"][tag] = e
-        if dt == torch.float32:
-            res["vfe_potential"].update(abs32=max(aerr), ms=ms, plain_ms=pms)
+        if f32:
+            res["vfe_potential"].update(
+                abs32=max(aerr), ms=ms, plain_ms=pms,
+                bound=roofline(1, n, m, d, xyz + nbytes(th), (d + 3) * 4))
 
         # kernel 2: one warm chunk and one sample chunk on shared slabs
         dim, K, md = d + 2, 16, 8
@@ -181,14 +278,8 @@ def phase_parity(Xd, yd, Zd):
             kw = dict(mom=mom, treeu=treeu, leafu=leafu, n_active=K, adapt=adapt,
                       eps=torch.exp(st.log_eps_avg), in_window=in_w, window_end=w_end,
                       max_depth=md)
-            t0 = time.perf_counter()
-            s_k, d_k, x_k = nuts_chunk(st, X, y, Z, jit, **kw)
-            torch.cuda.synchronize()
-            t_k = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            s_p, d_p, x_p = nuts_chunk_plain(st, X, y, Z, jit, **kw)
-            torch.cuda.synchronize()
-            t_p = time.perf_counter() - t0
+            (s_k, d_k, x_k), t_k = once_ms(lambda: nuts_chunk(st, X, y, Z, jit, **kw))
+            (s_p, d_p, x_p), t_p = once_ms(lambda: nuts_chunk_plain(st, X, y, Z, jit, **kw))
             p = agreeing_prefix(d_k, d_p, x_k, x_p, NUTS_TOL[dt])
             prefixes.append(p)
             if p:
@@ -199,14 +290,18 @@ def phase_parity(Xd, yd, Zd):
             if p == K:          # same path to the end: the final state too
                 errs += [rel(s_k.g, s_p.g), rel(s_k.U, s_p.U)]
                 aerr += [abs_err(s_k.U, s_p.U), abs_err(s_k.g, s_p.g)]
-            leaves = int(x_p[:, 4].sum())
+            leaves = int(x_k[:, 4].sum())
+            st_b = nbytes(*state_tensors(st))
+            bound = roofline(leaves, n, m, d,
+                             xyz + st_b + nbytes(mom, treeu, leafu) + 2 * K * 4,
+                             st_b + nbytes(d_k, x_k))
             print(f"parity nuts_chunk {tag} adapt={adapt}: transitions on one path "
                   f"{p}/{K} (depth/n_leapfrog/diverging identical and draws within "
                   f"{NUTS_TOL[dt]:g}), leapfrogs {leaves}, max rel err over them "
-                  f"{max(errs, default=float('nan')):.3e}, kernel {t_k * 1e3:.2f} ms, plain {t_p * 1e3:.2f} ms "
-                  f"per chunk")
-            if adapt:
-                res["nuts_chunk"]["times"] = (t_k * 1e3, t_p * 1e3)
+                  f"{max(errs, default=float('nan')):.3e}, kernel {t_k:.2f} ms, plain "
+                  f"{t_p:.2f} ms per chunk" + (f", bound {bound[0]:.4f} ms" if f32 else ""))
+            if adapt and f32:
+                res["nuts_chunk"].update(ms=t_k, plain_ms=t_p, bound=bound)
             st = s_p
         e = max(errs)
         if dt == torch.float64:
@@ -215,9 +310,8 @@ def phase_parity(Xd, yd, Zd):
             assert min(prefixes) >= 1, f"nuts_chunk f32: first transition differs {prefixes}"
         assert e <= NUTS_TOL[dt], f"nuts_chunk {tag} rel err {e}"
         res["nuts_chunk"]["rel"][tag] = e
-        if dt == torch.float32:
-            ms, pms = res["nuts_chunk"].pop("times")
-            res["nuts_chunk"].update(abs32=max(aerr), ms=ms, plain_ms=pms)
+        if f32:
+            res["nuts_chunk"]["abs32"] = max(aerr)
 
         # kernels 3 and 4: parameters and losses after 20 steps
         zt, zz = torch.zeros_like(th), torch.zeros_like(Z)
@@ -232,9 +326,11 @@ def phase_parity(Xd, yd, Zd):
         pms = cuda_ms(lambda: sgpr_adam_chunk_plain(th, Z, zt, zt, zz, zz, X, y, jit,
                                                     **akw), 1)
         print(f"timing sgpr_adam_chunk {tag} (20 steps): kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        if dt == torch.float32:
+        if f32:
             res["sgpr_adam_chunk"].update(
-                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms)
+                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
+                bound=roofline(20, n, m, d, xyz + 3 * nbytes(th, Z), nbytes(*out),
+                               want_z=True))
 
         tgen = torch.Generator(device="cuda").manual_seed(7)
         trace = th + 0.1 * torch.randn((10, d + 2), generator=tgen, dtype=dt, device="cuda")
@@ -249,10 +345,122 @@ def phase_parity(Xd, yd, Zd):
         pms = cuda_ms(lambda: z_adam_chunk_plain(Z, zz, zz, trace, X, y, jit, **zkw), 1)
         print(f"timing z_adam_chunk {tag} (20 steps x 10 rows): kernel {ms:.3f} ms, "
               f"plain {pms:.3f} ms")
-        if dt == torch.float32:
+        if f32:
             res["z_adam_chunk"].update(
-                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms)
-    return res
+                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
+                bound=roofline(200, n, m, d, nbytes(X, y, trace) + 3 * nbytes(Z),
+                               nbytes(*out), want_z=True))
+
+
+def mc_start(X, y, Z, jit, C, seed):
+    """C chains at theta 0 + 0.1 N(0, 1) with per-chain step sizes from the
+    batched search (plain potential), as the C-chain sampler starts them."""
+    dt, dim = X.dtype, X.shape[1] + 2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=gen, dtype=dt, device="cuda")
+    z = 0.1 * torch.randn((C, dim), **kw)
+    U, g = mc_potential_plain(z, X, y, Z, jit)
+    im = torch.ones_like(z)
+    eps = find_reasonable_step_size_batched(
+        lambda zs: mc_potential_plain(zs, X, y, Z, jit), z, U, g,
+        torch.randn((C, dim), **kw), im, 0.1)
+    le = torch.log(eps)
+    zc, zv = torch.zeros(C, dtype=dt, device="cuda"), torch.zeros_like(z)
+    st = ChainState(z=z, U=U, g=g, inv_mass=im, log_eps=le, log_eps_avg=le, h_avg=zc,
+                    mu=math.log(10.0) + le, t_da=zc, wf_mean=zv, wf_m2=zv, wf_count=zc)
+    return st, gen
+
+
+def phase_parity_mc(Xd, yd, Zd, res, C=8, K=8, L=10, md=8):
+    """The chain-batched kernels against their plain versions at C chains:
+    one evaluation of C rows; a warm and a sample chunk of K transitions
+    each, HMC (L leapfrogs) and NUTS (max depth md), on shared slabs."""
+    for dt in (torch.float64, torch.float32):
+        tag = "f64" if dt == torch.float64 else "f32"
+        f32 = dt == torch.float32
+        X, y, Z = Xd.to(dt), yd.to(dt), Zd.to(dt)
+        n, d = X.shape
+        m, dim = Z.shape[0], d + 2
+        xyz = nbytes(X, y, Z)
+        jit = 1e-5
+
+        st0, gen = mc_start(X, y, Z, jit, C, seed=11)
+        th = st0.z + 0.3 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
+        out = mc_potential(th, X, y, Z, jit)
+        ref = mc_potential_plain(th, X, y, Z, jit)
+        e = max(rel(a, b) for a, b in zip(out, ref))
+        print(f"parity mc_potential {tag} (C={C}): max rel err {e:.3e}")
+        assert e <= TOL[dt], f"mc_potential {tag} rel err {e}"
+        res["mc_potential"]["rel"][tag] = e
+        ms = cuda_ms(lambda: mc_potential(th, X, y, Z, jit), 20)
+        pms = cuda_ms(lambda: mc_potential_plain(th, X, y, Z, jit), 5)
+        print(f"timing mc_potential {tag} (C={C}): kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        if f32:
+            res["mc_potential"].update(
+                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
+                bound=roofline(C, n, m, d, xyz + nbytes(th), nbytes(*out)))
+
+        in_w = torch.arange(K, device="cuda") >= 2
+        w_end = torch.arange(K, device="cuda") == 5
+        for algo, kern, plain in (("hmc", mc_hmc_chunk, mc_hmc_chunk_plain),
+                                  ("nuts", mc_nuts_chunk, mc_nuts_chunk_plain)):
+            name = f"mc_{algo}_chunk"
+            st = st0
+            errs, aerr = [], []
+            for adapt in (True, False):
+                sl = draw_mc_slabs(K, C, dim, algorithm=algo, max_depth=md,
+                                   generator=gen, dtype=dt, device="cuda")
+                kw = dict(n_active=K, adapt=adapt, eps=torch.exp(st.log_eps_avg),
+                          in_window=in_w, window_end=w_end, **sl)
+                if algo == "hmc":
+                    kw["num_leapfrog"] = L
+                else:
+                    kw["max_depth"] = md
+                (s_k, d_k, x_k), t_k = once_ms(lambda: kern(st, X, y, Z, jit, **kw))
+                (s_p, d_p, x_p), t_p = once_ms(lambda: plain(st, X, y, Z, jit, **kw))
+                leaves = int(x_k[:, :, 4].sum())
+                mode = "warm" if adapt else "sample"
+                st_b = nbytes(*state_tensors(st))
+                bound = roofline(leaves, n, m, d,
+                                 xyz + st_b + nbytes(*sl.values()) + 2 * K * 4,
+                                 st_b + nbytes(d_k, x_k))
+                bound_txt = f", bound {bound[0]:.4f} ms" if f32 else ""
+                if algo == "hmc":
+                    same = torch.equal(sl["mh"] < x_k[:, :, 1], sl["mh"] < x_p[:, :, 1])
+                    acc = int((sl["mh"] < x_p[:, :, 1]).sum())
+                    errs += [rel(d_k, d_p), rel(x_k[..., [0, 1, 5]], x_p[..., [0, 1, 5]]),
+                             rel(s_k.z, s_p.z)]
+                    aerr += [abs_err(d_k, d_p), abs_err(x_k[..., [0, 5]], x_p[..., [0, 5]])]
+                    print(f"parity {name} {tag} {mode} (C={C}, K={K}, L={L}): accept "
+                          f"decisions identical {same} ({acc}/{K * C} accepted), max rel "
+                          f"err {max(errs):.3e}, kernel {t_k:.2f} ms, plain {t_p:.2f} ms "
+                          f"per chunk{bound_txt}")
+                    assert same, f"{name} {tag} {mode}: accept decisions differ"
+                    assert max(errs) <= NUTS_TOL[dt], f"{name} {tag} rel err {max(errs)}"
+                else:
+                    prefixes = [agreeing_prefix(d_k[:, c], d_p[:, c], x_k[:, c], x_p[:, c],
+                                                NUTS_TOL[dt]) for c in range(C)]
+                    for c, p in enumerate(prefixes):
+                        if p:
+                            errs += [rel(d_k[:p, c], d_p[:p, c]),
+                                     rel(x_k[:p, c][:, [0, 1, 5]], x_p[:p, c][:, [0, 1, 5]])]
+                            aerr += [abs_err(d_k[:p, c], d_p[:p, c]),
+                                     abs_err(x_k[:p, c][:, [0, 5]], x_p[:p, c][:, [0, 5]])]
+                    print(f"parity {name} {tag} {mode} (C={C}, K={K}): transitions on one "
+                          f"path per chain {prefixes}, leapfrogs {leaves}, max rel err over "
+                          f"them {max(errs, default=float('nan')):.3e}, kernel {t_k:.2f} ms, "
+                          f"plain {t_p:.2f} ms per chunk{bound_txt}")
+                    if dt == torch.float64:
+                        assert min(prefixes) == K, f"{name} f64 {mode}: paths part {prefixes}"
+                    else:
+                        assert min(prefixes) >= 1, f"{name} f32 {mode}: first step differs"
+                    assert max(errs) <= NUTS_TOL[dt], f"{name} {tag} rel err {max(errs)}"
+                if adapt and f32:
+                    res[name].update(ms=t_k, plain_ms=t_p, bound=bound)
+                st = s_p
+            res[name]["rel"][tag] = max(errs)
+            if f32:
+                res[name]["abs32"] = max(aerr)
 
 
 def min_ess_per_s(trace: np.ndarray, seconds: float) -> float:
@@ -262,61 +470,115 @@ def min_ess_per_s(trace: np.ndarray, seconds: float) -> float:
     return min(effective_sample_size(trace[None, :, j]) for j in idx) / seconds
 
 
-def phase_slice(Xd, yd, Zd):
+def check_launches(label, launches, expected):
+    print(f"{label} launches: {json.dumps(launches)}")
+    missing = [k for k in expected if launches[k] == 0]
+    assert not missing, f"{label}: kernels of the path never launched: {missing}"
+
+
+def phase_rounds(Xd, yd, Zd, num_chains, label):
+    """bench.py's headline protocol through the port (float32): warm start,
+    NUTS rounds of ``num_chains`` chains with optimize_Z(100) between,
+    mixture predictive. Returns the launch counts of the run."""
     X, y, Z = (a.to(torch.float32) for a in (Xd, yd, Zd))
-    model = BayesianSparseGPR_HMC(X, y, Z_init=Z)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     rounds = [(100, 20), (25, 10), (25, 10), (100, 20)]
     torch.cuda.synchronize()
     _build.reset_launches()
-    t0 = time.perf_counter()
-    losses = model.warm_start(num_steps=500, lr=0.01)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    print(f"slice warm_start: {t_warm:.3f} s, loss {float(losses[0]):.3f} -> "
+    model = BayesianSparseGPR_HMC(X, y, Z_init=Z)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses, t_warm = once_ms(lambda: model.warm_start(num_steps=500, lr=0.01))
+    print(f"{label} warm_start: {t_warm / 1e3:.3f} s, loss {float(losses[0]):.3f} -> "
           f"{float(losses[-1]):.3f}")
     assert torch.isfinite(losses).all() and float(losses[-1]) < float(losses[0])
     sampling, divs, accs, t_z = 0.0, [], [], 0.0
     for i, (tune, n) in enumerate(rounds):
-        t0 = time.perf_counter()
-        model.sample_hypers(tune, n, gen)
-        torch.cuda.synchronize()
-        dt_s = time.perf_counter() - t0
-        sampling += dt_s
+        _, ms = once_ms(lambda: model.sample_hypers(tune, n, gen, num_chains=num_chains))
+        sampling += ms / 1e3
         div = float(model.stats["diverging"].float().mean())
         acc = float(model.stats["accept_prob"].mean())
         divs.append(div)
         accs.append(acc)
-        print(f"slice round {i} (tune={tune}, n={n}): {dt_s:.3f} s, divergence "
-              f"fraction {div:.3f}, mean accept {acc:.3f}, step size "
-              f"{float(model.stats['step_size']):.4g}, mean leapfrogs/draw "
+        eps = model.stats["step_size"].reshape(-1).tolist()
+        print(f"{label} round {i} (tune={tune}, n={n}, chains={num_chains}): "
+              f"{ms / 1e3:.3f} s, divergence fraction {div:.3f}, mean accept {acc:.3f}, "
+              f"step size {', '.join(f'{e:.4g}' for e in eps)}, mean leapfrogs/draw "
               f"{float(model.stats['n_leapfrog'].mean()):.1f}")
         if i < len(rounds) - 1:
-            t0 = time.perf_counter()
-            zl = model.optimize_Z(num_steps=100, lr=0.01)
-            torch.cuda.synchronize()
-            t_z += time.perf_counter() - t0
+            steps = 100
+            if time.perf_counter() - T_START > Z_CUT_AFTER_S:
+                steps = 10
+                print(f"{label}: optimize_Z cut to {steps} steps (time limit near)")
+            zl, ms = once_ms(lambda: model.optimize_Z(num_steps=steps, lr=0.01))
+            t_z += ms / 1e3
             assert torch.isfinite(zl).all()
-    t0 = time.perf_counter()
-    means, vars_ = model.mixture_posterior_predictive(X)
-    torch.cuda.synchronize()
-    t_pred = time.perf_counter() - t0
+    (means, vars_), t_pred = once_ms(lambda: model.mixture_posterior_predictive(X))
     launches = dict(_build.LAUNCHES)
-    print(f"slice optimize_Z total: {t_z:.3f} s; predictive: {t_pred:.3f} s; "
+    print(f"{label} optimize_Z total: {t_z:.3f} s; predictive: {t_pred / 1e3:.3f} s; "
           f"sampling total: {sampling:.3f} s")
     ess = min_ess_per_s(model.trace.double().cpu().numpy(), sampling)
     r = float(rmse(means.mean(0), y))
     nl = float(nlpd_mixture(means, vars_, y))
-    print(f"slice min-ESS/s (last trace): {ess:.3f}; RMSE {r:.4f}; NLPD {nl:.4f}; "
+    print(f"{label} min-ESS/s (last trace): {ess:.3f}; RMSE {r:.4f}; NLPD {nl:.4f}; "
           f"mixture components {means.shape[0]}")
-    print(f"slice launches: {json.dumps(launches)}")
-    assert all(v > 0 for v in launches.values()), launches
+    expected = (["vfe_potential", "nuts_chunk"] if num_chains == 1
+                else ["mc_potential", "mc_nuts_chunk"]) + ["sgpr_adam_chunk", "z_adam_chunk"]
+    check_launches(label, launches, expected)
     assert max(divs) <= 0.1, f"divergence fraction {max(divs)}"
     assert float(np.mean(accs)) >= 0.5, f"mean accept {np.mean(accs)}"
-    assert means.shape == (20, X.shape[0]) and vars_.shape == means.shape
+    assert means.shape == (20 * num_chains, X.shape[0]) and vars_.shape == means.shape
     assert torch.isfinite(means).all() and torch.isfinite(vars_).all()
     assert math.isfinite(r) and math.isfinite(nl) and r < 1.0
     return launches
+
+
+def phase_hmc_c8(Xd, yd, Zd, C=8):
+    """bench.py ``cell_hmc_throughput`` (bench.py:261-284) through the
+    port, float32, timed once: warm start 500 steps, then C chains of HMC
+    (L=10) with 500 warmup and 500 draws each."""
+    X, y, Z = (a.to(torch.float32) for a in (Xd, yd, Zd))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    model = BayesianSparseGPR_HMC(X, y, Z_init=Z)
+    losses, t_warm = once_ms(lambda: model.warm_start(num_steps=500, lr=0.01))
+    assert torch.isfinite(losses).all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tr, ms = once_ms(lambda: model.sample_hypers(500, 500, gen, num_chains=C,
+                                                 algorithm="hmc", num_leapfrog=10))
+    launches = dict(_build.LAUNCHES)
+    secs = ms / 1e3
+    st = model.stats
+    div = float(st["diverging"].float().mean())
+    acc = float(st["accept_prob"].mean())
+    trace = tr.double().cpu().numpy()
+    dim = trace.shape[1]
+    chains = trace.reshape(C, -1, dim)
+    rhat = max(split_rhat(chains[:, :, j]) for j in range(dim))
+    ess = min_ess_per_s(trace, secs)
+    print(f"hmc-c8 warm_start: {t_warm / 1e3:.3f} s; sampling ({C} chains x (500 warmup "
+          f"+ 500 draws), L=10): {secs:.3f} s; divergence fraction {div:.4f}; mean accept "
+          f"{acc:.4f}; min-ESS/s (pooled trace {trace.shape[0]} x {dim}) {ess:.3f}; max "
+          f"split-R-hat {rhat:.4f}; step sizes "
+          f"{', '.join(f'{e:.4g}' for e in st['step_size'].tolist())}; "
+          f"{ms / 10000:.3f} ms per leapfrog of a chain (1000 transitions x 10)")
+    check_launches("hmc-c8", launches, ["sgpr_adam_chunk", "mc_potential", "mc_hmc_chunk"])
+    assert trace.shape == (C * 500, dim) and np.isfinite(trace).all()
+    assert div <= 0.1, f"hmc-c8 divergence fraction {div}"
+    assert acc >= 0.5, f"hmc-c8 mean accept {acc}"
+    assert math.isfinite(rhat), rhat
+    return launches
+
+
+def phase_scaling(Xd, yd, Zd):
+    """mc_potential (float32) at C = 1, 8, 32: equal times mean the blocks
+    do not slow one another."""
+    X, y, Z = (a.to(torch.float32) for a in (Xd, yd, Zd))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for C in (1, 8, 32):
+        th = 0.1 * torch.randn((C, X.shape[1] + 2), generator=gen, device="cuda")
+        out.append((C, cuda_ms(lambda: mc_potential(th, X, y, Z, 1e-5), 30)))
+    print("timing mc_potential f32 by chains: "
+          + ", ".join(f"C={C} {ms:.4f} ms" for C, ms in out))
 
 
 def main():
@@ -332,17 +594,33 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s")
     X, y, Z = (torch.tensor(a, dtype=torch.float64, device="cuda") for a in make_data())
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
-    res = phase_parity(X, y, X[torch.as_tensor(distinct, device="cuda")])
-    launches = phase_slice(X, y, Z)
+    Zd = X[torch.as_tensor(distinct, device="cuda")]
+    res = new_res()
+    phase_parity(X, y, Zd, res)
+    phase_parity_mc(X, y, Zd, res)
+    print(f"parity done at {time.perf_counter() - T_START:.1f} s")
+    launches = {k: 0 for k in KERNELS}
+    for run in (lambda: phase_rounds(X, y, Z, 1, "slice"),
+                lambda: phase_hmc_c8(X, y, Z),
+                lambda: phase_rounds(X, y, Z, 4, "mc-nuts")):
+        for k, v in run().items():
+            launches[k] += v
+        print(f"main paths at {time.perf_counter() - T_START:.1f} s")
+    phase_scaling(X, y, Z)
+    assert all(v > 0 for v in launches.values()), launches
     out = []
-    for name, (src, site) in KERNELS.items():
+    for name, (src, site, also) in KERNELS.items():
         r = res[name]
-        out.append({"name": name, "route": "cuda", "source": src, "replaces": site,
-                    "launches": launches[name], "max_abs_err": r["abs32"],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"],
-                    "max_rel_err_f64": r["rel"]["f64"],
-                    "max_rel_err_f32": r["rel"]["f32"]})
-    out[1]["also_replaces"] = "ggp_tpu/ops/fused_nuts.py:792"
+        bound_ms, bound_by = r["bound"]
+        item = {"name": name, "route": "cuda", "source": src, "replaces": site,
+                "launches": launches[name], "max_abs_err": r["abs32"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "max_rel_err_f64": r["rel"]["f64"], "max_rel_err_f32": r["rel"]["f32"]}
+        if also:
+            item["also_replaces"] = also
+        out.append(item)
+    print(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,34 +1,41 @@
 // Kernel 2: K transitions of iterative multinomial NUTS over the
 // (log-lengthscales, log-outputscale, log-noise) posterior of
 // BayesianSGPR_HMC, with Stan warmup adaptation in-kernel (adapt=1) or at a
-// fixed step size with per-draw outputs (adapt=0).
+// fixed step size with per-draw outputs (adapt=0), for one chain per block.
 //
 // Replaces: ggp_tpu/ops/fused_nuts.py `_warm_chunk_kernel_body` (the
 // `warm_call` pallas_call) and `_sample_chunk_kernel_body` (`sample_call`),
-// both built on `_transition_inkernel` and `_da_update_scalars`.
+// both built on `_transition_inkernel` and `_da_update_scalars` (entry
+// ggp_nuts_chunk_*, grid 1); and ggp_tpu/ops/fused_multichain.py
+// `_mc_nuts_warm_chunk_body` and `_mc_nuts_sample_chunk_body` (the NUTS
+// `warm_call`/`sample_call` of `make_fused_hmc_multichain`, built on
+// `_nuts_transition_batched`) for the "vfe" core (entry ggp_mc_nuts_chunk_*,
+// grid C).
 //
-// What bounds it on the card: the chain is sequential. Every leapfrog is
+// What bounds it on the card: each chain is sequential. Every leapfrog is
 // one evaluation of the bound (vfe_bound.cuh: a latency chain of barriers
-// and L2 reads in one block), and the tree logic between evaluations is a
-// handful of dim-length vector operations. The card's parallelism beyond
-// one block is idle for a single chain.
+// and L2 reads in one block, ~2.3 ms at N=404, M=100), and the tree logic
+// between evaluations is a handful of dim-length vector operations. C
+// chains take C SMs of 132; a launch ends when its longest tree does.
 //
 // What the design does about it: the whole chunk stays in one launch (no
-// host round trip per transition or leapfrog), the tree state and the
-// checkpoint slots live in shared memory, and every scalar decision (tree
-// direction, multinomial take, U-turn, divergence, adaptation) is computed
-// identically by every thread from shared values after a barrier, so the
-// block never splits at a __syncthreads. Randomness comes in as slabs with
-// the JAX kernel's per-step indexing (momentum row t; tree uniforms at
-// (t, depth); leaf uniforms at (t, global leaf index)), which makes the
-// kernel deterministic and comparable draw for draw with its plain version.
-#include "vfe_bound.cuh"
+// host round trip per transition or leapfrog), and block c runs chain c
+// alone: row c of every state array, rows t*C+c of every random slab and
+// output, and its own scratch area `scratch + c*work_elems(n, m, d)`, so the
+// chains never wait on one another inside the launch (the TPU kernel's
+// lock-step masking is not needed). C scratch areas stay in the 50 MB L2
+// for C*work_elems*sizeof(T) below it (8 chains at N=404, M=100 in f32:
+// 7.5 MB). The tree state and the checkpoint slots live in shared memory,
+// and every scalar decision (tree direction, multinomial take, U-turn,
+// divergence, adaptation) is computed identically by every thread of the
+// block from shared values after a barrier, so a block never splits at a
+// __syncthreads. Randomness comes in as slabs with the JAX kernels'
+// per-step indexing (momentum row t*C+c; tree uniforms at (t*C+c, depth);
+// leaf uniforms at (t*C+c, global leaf index)), which makes the kernel
+// deterministic and comparable draw for draw with its plain version.
+#include "stan_adapt.cuh"
 
 namespace ggp {
-
-enum StateIndex {
-  S_U = 0, S_LE, S_LEA, S_H, S_MU, S_TDA, S_WFC, S_NACT, S_EPS, S_ACC, S_DIV, S_LEN
-};
 
 struct NutsCfg {
   int dim, max_depth, K, adapt, adapt_mass;
@@ -63,18 +70,6 @@ __device__ __forceinline__ int trailing_ones(int x) {
 }
 
 template <typename T>
-__device__ __forceinline__ void vcopy(T* dst, const T* src, int dim) {
-  if ((int)threadIdx.x < dim) dst[threadIdx.x] = src[threadIdx.x];
-}
-
-template <typename T>
-__device__ T kinetic(const T* im, const T* r, int dim) {
-  T s = T(0);
-  for (int k = 0; k < dim; ++k) s += im[k] * r[k] * r[k];
-  return T(0.5) * s;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
                   T* wmio, T* wm2io, const int* flags, const T* mom,
@@ -83,33 +78,42 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
   __shared__ BoundShared<T> sh;
   __shared__ NutsShared<T> s;
   const int tid = threadIdx.x;
+  const int c = blockIdx.x, C = gridDim.x;            // this block's chain
   const int dim = nc.dim, max_depth = nc.max_depth, K = nc.K;
   const int leaf_cols = 1 << max_depth;
-  const Work<T> w = make_work(scratch, cf.n, cf.m, cf.d);
+  const Work<T> w = make_work(scratch + (long)c * work_elems(cf.n, cf.m, cf.d),
+                              cf.n, cf.m, cf.d);
+  state += c * S_LEN;
+  zio += c * dim;
+  gio += c * dim;
+  imio += c * dim;
+  wmio += c * dim;
+  wm2io += c * dim;
 
   vcopy(s.pz, zio, dim);
   vcopy(s.pg, gio, dim);
   vcopy(s.im, imio, dim);
   vcopy(s.wm, wmio, dim);
   vcopy(s.wm2, wm2io, dim);
-  T Up = state[S_U], le = state[S_LE], lea = state[S_LEA], h = state[S_H];
-  T mu = state[S_MU], tda = state[S_TDA], wfc = state[S_WFC];
+  T Up = state[S_U];
+  Adapt<T> a = load_adapt(state);
   const int n_active = (int)state[S_NACT];
   const T eps_fixed = state[S_EPS];
   T acc_sum = T(0), div_sum = T(0);
   __syncthreads();
 
   for (int t = 0; t < K; ++t) {
+    const long row = (long)t * C + c;                 // slab and output row
     if (t >= n_active) {
-      if (tid < dim) draws[t * dim + tid] = T(0);
-      if (tid < 6) stats[t * 6 + tid] = T(0);
+      if (tid < dim) draws[row * dim + tid] = T(0);
+      if (tid < 6) stats[row * 6 + tid] = T(0);
       continue;
     }
-    const T eps = nc.adapt ? gexp(le) : eps_fixed;
+    const T eps = nc.adapt ? gexp(a.le) : eps_fixed;
 
     // ---- one NUTS transition from (pz, Up, pg) ----
     if (tid < dim) {
-      const T r0 = mom[t * dim + tid] / gsqrt(s.im[tid]);
+      const T r0 = mom[row * dim + tid] / gsqrt(s.im[tid]);
       s.lr[tid] = r0;
       s.rr[tid] = r0;
       s.lz[tid] = s.pz[tid];
@@ -124,8 +128,8 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
     bool turning = false, diverging = false;
 
     while (!turning && !diverging && depth < max_depth) {
-      const T u_dir = treeu[(t * max_depth + depth) * 2];
-      const T u_swap = treeu[(t * max_depth + depth) * 2 + 1];
+      const T u_dir = treeu[(row * max_depth + depth) * 2];
+      const T u_swap = treeu[(row * max_depth + depth) * 2 + 1];
       const T dirf = u_dir < T(0.5) ? T(1) : T(-1);
       const bool fwd = dirf > T(0);
       if (tid < dim) {
@@ -164,7 +168,7 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
         const T lwl = -delta;
         sacc += jmin(T(1), gexp(-delta));
         const T lwn = lae(slogw, lwl);
-        const bool take = log_unif(leafu[t * leaf_cols + nl + i]) < (lwl - lwn);
+        const bool take = log_unif(leafu[row * leaf_cols + nl + i]) < (lwl - lwn);
         if (take) {
           vcopy(s.qz, s.z, dim);
           vcopy(s.qg, s.g, dim);
@@ -232,55 +236,14 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
     }
     const T accept = acc / jmax(T(nl), T(1));
 
-    // ---- warmup adaptation (hmc.py da_update + Welford windows) ----
-    if (nc.adapt) {
-      const T t1 = tda + T(1);
-      const T h1 = (T(1) - T(1) / (t1 + T(10))) * h + (T(nc.target) - accept) / (t1 + T(10));
-      const T le1 = mu - gsqrt(t1) / T(0.05) * h1;
-      const T wgt = gexp(T(-0.75) * glog(t1));
-      T lea1 = wgt * le1 + (T(1) - wgt) * lea;
-      T mu1 = mu, hh = h1, tda1 = t1;
-      if (nc.adapt_mass) {
-        const bool in_w = flags[t] > 0, w_end = flags[K + t] > 0;
-        const T cnt1 = wfc + T(1);
-        T wfc1 = in_w ? cnt1 : wfc;
-        if (tid < dim) {
-          const T zp = s.pz[tid];
-          const T delta = zp - s.wm[tid];
-          const T mean1 = s.wm[tid] + delta / cnt1;
-          const T m21 = s.wm2[tid] + delta * (zp - mean1);
-          T wm1 = in_w ? mean1 : s.wm[tid];
-          T wm21 = in_w ? m21 : s.wm2[tid];
-          if (w_end) {
-            T var = wm21 / jmax(wfc1 - T(1), T(1));
-            var = (wfc1 / (wfc1 + T(5))) * var + T(1e-3) * (T(5) / (wfc1 + T(5)));
-            s.im[tid] = var;
-            wm1 = T(0);
-            wm21 = T(0);
-          }
-          s.wm[tid] = wm1;
-          s.wm2[tid] = wm21;
-        }
-        if (w_end) {
-          wfc1 = T(0);
-          lea1 = le1;
-          mu1 = glog(T(10)) + le1;
-          hh = T(0);
-          tda1 = T(0);
-        }
-        wfc = wfc1;
-      }
-      le = le1;
-      lea = lea1;
-      h = hh;
-      mu = mu1;
-      tda = tda1;
-    }
+    if (nc.adapt)
+      stan_adapt(a, accept, T(nc.target), nc.adapt_mass != 0, flags[t] > 0,
+                 flags[K + t] > 0, s.pz, s.im, s.wm, s.wm2, dim);
     acc_sum += accept;
     div_sum += diverging ? T(1) : T(0);
-    if (tid < dim) draws[t * dim + tid] = s.pz[tid];
+    if (tid < dim) draws[row * dim + tid] = s.pz[tid];
     if (tid == 0) {
-      T* st = stats + t * 6;
+      T* st = stats + row * 6;
       st[0] = Up;
       st[1] = accept;
       st[2] = diverging ? T(1) : T(0);
@@ -296,25 +259,15 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
   vcopy(imio, s.im, dim);
   vcopy(wmio, s.wm, dim);
   vcopy(wm2io, s.wm2, dim);
-  if (tid == 0) {
-    state[S_U] = Up;
-    state[S_LE] = le;
-    state[S_LEA] = lea;
-    state[S_H] = h;
-    state[S_MU] = mu;
-    state[S_TDA] = tda;
-    state[S_WFC] = wfc;
-    state[S_ACC] = acc_sum;
-    state[S_DIV] = div_sum;
-  }
+  if (tid == 0) store_state(state, a, Up, acc_sum, div_sum);
 }
 
 template <typename T>
-int launch_nuts(const double* cfg, void* state, void* z, void* g, void* im,
-                void* wm, void* wm2, const void* flags, const void* mom,
-                const void* treeu, const void* leafu, const void* X,
-                const void* y, const void* Z, void* draws, void* stats,
-                void* scratch, void* stream) {
+int launch_nuts(int chains, const double* cfg, void* state, void* z, void* g,
+                void* im, void* wm, void* wm2, const void* flags,
+                const void* mom, const void* treeu, const void* leafu,
+                const void* X, const void* y, const void* Z, void* draws,
+                void* stats, void* scratch, void* stream) {
   const BoundCfg cf = bound_cfg(cfg);
   NutsCfg nc;
   nc.dim = (int)cfg[C_DIM];
@@ -323,7 +276,7 @@ int launch_nuts(const double* cfg, void* state, void* z, void* g, void* im,
   nc.adapt = (int)cfg[C_ADAPT];
   nc.adapt_mass = (int)cfg[C_ADAPT_MASS];
   nc.target = cfg[C_TARGET];
-  nuts_chunk_kernel<T><<<1, kThreads, 0, (cudaStream_t)stream>>>(
+  nuts_chunk_kernel<T><<<chains, kThreads, 0, (cudaStream_t)stream>>>(
       cf, nc, (T*)state, (T*)z, (T*)g, (T*)im, (T*)wm, (T*)wm2,
       (const int*)flags, (const T*)mom, (const T*)treeu, (const T*)leafu,
       (const T*)X, (const T*)y, (const T*)Z, (T*)draws, (T*)stats, (T*)scratch);
@@ -342,6 +295,14 @@ int launch_nuts(const double* cfg, void* state, void* z, void* g, void* im,
       stats, scratch, stream
 
 extern "C" {
-int ggp_nuts_chunk_f32(GGP_NUTS_ARGS) { return ggp::launch_nuts<float>(GGP_NUTS_PASS); }
-int ggp_nuts_chunk_f64(GGP_NUTS_ARGS) { return ggp::launch_nuts<double>(GGP_NUTS_PASS); }
+// one chain (grid 1)
+int ggp_nuts_chunk_f32(GGP_NUTS_ARGS) { return ggp::launch_nuts<float>(1, GGP_NUTS_PASS); }
+int ggp_nuts_chunk_f64(GGP_NUTS_ARGS) { return ggp::launch_nuts<double>(1, GGP_NUTS_PASS); }
+// cfg[C_CHAINS] chains, one block each
+int ggp_mc_nuts_chunk_f32(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<float>((int)cfg[ggp::C_CHAINS], GGP_NUTS_PASS);
+}
+int ggp_mc_nuts_chunk_f64(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<double>((int)cfg[ggp::C_CHAINS], GGP_NUTS_PASS);
+}
 }

@@ -1,6 +1,6 @@
 // Collapsed Titsias (VFE) bound of the Scale(RBF-ARD) x Gaussian model:
 // value and analytic gradient in one block-wide device function, shared by
-// all four kernels of the port.
+// every kernel of the port.
 //
 // Replaces: ggp_tpu/ops/fused_bound.py `_rbf_vfe_neg_logpost_vg` (the core
 // every fused Pallas kernel of BayesianSGPR_HMC inlines), with its blocked
@@ -16,8 +16,9 @@
 // global-memory scratch the wrapper allocates; they stay resident in the
 // 50 MB L2. The time is barrier latency and L2 latency, not FLOPs or HBM.
 //
-// What the design does about it: one block per chain or trainer (the NUTS
-// chain is sequential), every loop strided over the block's threads, every
+// What the design does about it: one block per chain or trainer (a chain
+// is sequential; C chains are C blocks, each with its own scratch area of
+// work_elems(n, m, d) values), every loop strided over the block's threads, every
 // branch decided from values all threads read after a barrier, so control
 // flow is uniform and each __syncthreads is reached by the whole block.
 // Triangular solves are column-oriented (one barrier per row) and run
@@ -46,7 +47,7 @@ enum CfgIndex {
   C_N = 0, C_M, C_D, C_JITTER, C_FLOOR, C_WANT_PRIOR, C_WANT_ZGRAD,
   C_PRIOR = 7,                       // 3 leaves x (kind, p1, p2, const)
   C_DIM = 19, C_MAX_DEPTH, C_K, C_ADAPT, C_TARGET, C_ADAPT_MASS,
-  C_LR, C_CLIP, C_MIN_NOISE, C_T0, C_S_ACT, C_EPS, C_LEN
+  C_LR, C_CLIP, C_MIN_NOISE, C_T0, C_S_ACT, C_EPS, C_CHAINS, C_LEAPFROG, C_LEN
 };
 
 enum PriorKind { P_GAMMA = 0, P_HC_STD, P_HC, P_HALF_NORMAL, P_LOGNORMAL, P_FLAT };

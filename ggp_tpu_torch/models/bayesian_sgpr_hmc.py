@@ -8,13 +8,17 @@ hyper trace; an ML-II warm start of (hypers, Z) comes first. Every phase
 runs through one of the port's kernels on the card:
 
 * ``warm_start``   -> ``ops.sgpr_adam.sgpr_adam_chunk`` (clip 10);
-* ``sample_hypers`` -> ``ops.vfe_bound.vfe_potential`` (initial U/g, step
-  size search) and ``ops.nuts_chunk.nuts_chunk`` (warmup and sampling);
+* ``sample_hypers`` -> one chain of NUTS: ``ops.vfe_bound.vfe_potential``
+  (initial U/g, step size search) and ``ops.nuts_chunk.nuts_chunk``
+  (warmup and sampling); C chains, or HMC: ``ops.multichain.mc_potential``
+  and ``mc_nuts_chunk`` or ``mc_hmc_chunk``;
 * ``optimize_Z``   -> ``ops.sgpr_adam.z_adam_chunk``.
 
 Parameters are a flat ``theta`` (d+2,) in ravel order ``[log_lengthscale
 (d), log_outputscale, log_noise]`` and ``Z`` (m, d); ``hypers`` gives the
-JAX package's nested-dict view.
+JAX package's nested-dict view. The model's tensors live on the card
+(``"cuda"``) unless the caller passes ``device="cpu"``, which runs every
+kernel's plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ from typing import Optional, Sequence
 import torch
 
 from ..config import default_jitter
-from ..inference.hmc import NUTSConfig, single_chain_fused
+from ..inference.hmc import NUTSConfig, multichain_fused, single_chain_fused
 from ..kernels import default_rbf
+from ..ops.multichain import make_multichain
 from ..ops.sgpr_adam import sgpr_adam_chunk, z_adam_chunk
 from ..ops.vfe_bound import prior_spec_of_tree, vfe_potential
 from ..priors import prior_tree_rbf
@@ -50,8 +55,11 @@ class BayesianSparseGPR_HMC:
     def __init__(self, train_x, train_y, Z_init=None, *, prior_tree=None,
                  jitter: float | None = None, dtype=None, device=None):
         dtype = dtype or torch.as_tensor(train_x).dtype
-        device = torch.device(device) if device is not None \
-            else torch.as_tensor(train_x).device
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("BayesianSparseGPR_HMC runs on the card by "
+                               "default and no CUDA device is available; pass "
+                               "device='cpu' for the plain CPU versions")
         self.train_x = torch.as_tensor(train_x, dtype=dtype, device=device).contiguous()
         self.train_y = torch.as_tensor(train_y, dtype=dtype, device=device).contiguous()
         n, d = self.train_x.shape
@@ -64,7 +72,7 @@ class BayesianSparseGPR_HMC:
         Z = self.train_x[:128] if Z_init is None else Z_init
         self.Z = torch.as_tensor(Z, dtype=dtype, device=device).clone().contiguous()
         self.theta = torch.zeros(d + 2, dtype=dtype, device=device)
-        self.trace = None           # (S, d+2) draws
+        self.trace = None           # (S, d+2) draws, C chains pooled chain-major
         self.stats = None
 
     @property
@@ -88,22 +96,45 @@ class BayesianSparseGPR_HMC:
 
     # -- HMC over the hypers at fixed Z ------------------------------------
     def sample_hypers(self, num_warmup: int, num_samples: int,
-                      generator: torch.Generator):
-        """Draw a fresh hyper trace at the current Z (one chain, NUTS). The
-        chain starts at theta + 0.1 N(0, 1); theta moves to the trace mean."""
-        cfg = NUTSConfig(num_warmup=num_warmup, num_samples=num_samples)
+                      generator: torch.Generator | None = None, *,
+                      num_chains: int = 1, algorithm: str = "nuts",
+                      num_leapfrog: int = 10):
+        """Draw a fresh hyper trace at the current Z; theta moves to the
+        trace mean. Each chain starts at theta + 0.1 N(0, 1), drawn first
+        from ``generator`` ((num_chains, d+2) at once for C chains).
+
+        One chain of NUTS runs the single-chain sampler. ``num_chains > 1``
+        or ``algorithm="hmc"`` (fixed ``num_leapfrog`` steps) runs the
+        C-chain sampler, and the trace pools the chains chain-major to
+        (C*S, d+2)."""
+        if algorithm not in ("nuts", "hmc"):
+            raise ValueError(f"algorithm must be 'nuts' or 'hmc', got {algorithm!r}")
+        if generator is None:
+            generator = torch.Generator(device=self.theta.device).manual_seed(0)
+        cfg = NUTSConfig(num_warmup=num_warmup, num_samples=num_samples,
+                         algorithm=algorithm, num_leapfrog=num_leapfrog)
         X, y, Z = self.train_x, self.train_y, self.Z
+        kw = dict(generator=generator, dtype=self.theta.dtype,
+                  device=self.theta.device)
+        if num_chains == 1 and algorithm == "nuts":
+            def potential(z):
+                return vfe_potential(z, X, y, Z, self.jitter,
+                                     prior_spec=self.prior_spec)
 
-        def potential(z):
-            return vfe_potential(z, X, y, Z, self.jitter,
+            z0 = self.theta + 0.1 * torch.randn(self.theta.shape, **kw)
+            self.trace, self.stats = single_chain_fused(
+                potential, X, y, Z, self.jitter, z0, generator, cfg,
+                prior_spec=self.prior_spec)
+        else:
+            mk = make_multichain(X, y, Z, self.jitter, num_chains=num_chains,
+                                 algo=algorithm, num_leapfrog=num_leapfrog,
+                                 max_depth=cfg.max_depth,
+                                 target_accept=cfg.target_accept,
+                                 adapt_mass=cfg.adapt_mass,
                                  prior_spec=self.prior_spec)
-
-        z0 = self.theta + 0.1 * torch.randn(
-            self.theta.shape, generator=generator, dtype=self.theta.dtype,
-            device=self.theta.device)
-        self.trace, self.stats = single_chain_fused(
-            potential, X, y, Z, self.jitter, z0, generator, cfg,
-            prior_spec=self.prior_spec)
+            z0s = self.theta + 0.1 * torch.randn((num_chains,) + self.theta.shape, **kw)
+            zs, self.stats = multichain_fused(mk, z0s, generator, cfg)
+            self.trace = zs.reshape(-1, zs.shape[-1])
         self.theta = self.trace.mean(0)
         return self.trace
 
@@ -121,11 +152,13 @@ class BayesianSparseGPR_HMC:
     # -- orchestration -----------------------------------------------------
     def train_model(self, max_steps: int = 2000,
                     hmc_scheduler: Optional[Sequence[int]] = None,
-                    lr: float = 0.01, generator: torch.Generator | None = None):
+                    lr: float = 0.01, generator: torch.Generator | None = None,
+                    num_chains: int = 1):
         """Alternating trainer: warm start for ``hmc_scheduler[0]`` steps,
-        then at each scheduler entry a NUTS round ((100, 20) for the first
-        and last rounds, (25, 10) between) followed by Z steps up to the
-        next entry. Returns the concatenated losses."""
+        then at each scheduler entry a NUTS round of ``num_chains`` chains
+        ((100, 20) for the first and last rounds, (25, 10) between)
+        followed by Z steps up to the next entry. Returns the concatenated
+        losses."""
         if generator is None:
             generator = torch.Generator(device=self.theta.device).manual_seed(0)
         if hmc_scheduler is None:
@@ -137,7 +170,7 @@ class BayesianSparseGPR_HMC:
         for i in range(len(hmc_scheduler)):
             first_or_last = i == 0 or i == len(hmc_scheduler) - 1
             tune, n = (100, 20) if first_or_last else (25, 10)
-            self.sample_hypers(tune, n, generator)
+            self.sample_hypers(tune, n, generator, num_chains=num_chains)
             n_z = bounds[i + 1] - bounds[i]
             if n_z > 0:
                 losses.append(self.optimize_Z(num_steps=n_z, lr=lr))

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a`` into one
+``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a``, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``build/ggp_tpu_torch/`` of the checkout, under a
 name keyed by a hash of the sources, so an edited source is never served
@@ -24,7 +25,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "kernel_fn", "cfg_array",
            "check", "stream_ptr", "scratch", "ptr", "require_cuda", "CFG"]
 
 LAUNCHES = {"vfe_potential": 0, "nuts_chunk": 0, "sgpr_adam_chunk": 0,
-            "z_adam_chunk": 0}
+            "z_adam_chunk": 0, "mc_potential": 0, "mc_hmc_chunk": 0,
+            "mc_nuts_chunk": 0}
 
 
 def reset_launches() -> None:
@@ -36,7 +38,7 @@ def reset_launches() -> None:
 CFG = dict(N=0, M=1, D=2, JITTER=3, FLOOR=4, WANT_PRIOR=5, WANT_ZGRAD=6,
            PRIOR=7, DIM=19, MAX_DEPTH=20, K=21, ADAPT=22, TARGET=23,
            ADAPT_MASS=24, LR=25, CLIP=26, MIN_NOISE=27, T0=28, S_ACT=29,
-           EPS=30, LEN=31)
+           EPS=30, CHAINS=31, LEAPFROG=32, LEN=33)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -49,6 +51,9 @@ _SIGS = {
     "ggp_nuts_chunk": [_P] * 18,
     "ggp_sgpr_adam": [_P] * 12,
     "ggp_z_adam": [_P] * 10,
+    "ggp_mc_potential": [_P] * 9,
+    "ggp_mc_hmc_chunk": [_P] * 17,
+    "ggp_mc_nuts_chunk": [_P] * 18,
 }
 
 
@@ -74,15 +79,28 @@ def build() -> ctypes.CDLL:
     out = os.path.join(_BUILD, f"libggp_tpu_torch_{h.hexdigest()[:16]}.so")
     if not os.path.exists(out):
         os.makedirs(_BUILD, exist_ok=True)
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+        objs, procs = [], []
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = os.path.join(_BUILD, f"{os.path.basename(src)[:-3]}.{tag}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [_nvcc(), *arch, "-c", "-Xcompiler", "-fPIC", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+        failed = [f"{src}:\n{log}" for src, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = out + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp] + [s for s in srcs if s.endswith(".cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([_nvcc(), *arch, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
         os.replace(tmp, out)
+        for obj in objs:
+            os.remove(obj)
     _LIB = _load(out)
     return _LIB
 
@@ -125,10 +143,13 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def scratch(n: int, m: int, d: int, extra: int, like: torch.Tensor) -> torch.Tensor:
-    """Global-memory work space of one bound evaluation plus ``extra``."""
-    return torch.empty(int(build().ggp_scratch_elems(n, m, d)) + extra,
-                       dtype=like.dtype, device=like.device)
+def scratch(n: int, m: int, d: int, extra: int, like: torch.Tensor,
+            chains: int = 1) -> torch.Tensor:
+    """Global-memory work space of one bound evaluation per chain plus
+    ``extra``. The chain count has no cap of its own: where the card cannot
+    hold the C areas, the allocation raises ``torch.OutOfMemoryError``."""
+    elems = chains * int(build().ggp_scratch_elems(n, m, d)) + extra
+    return torch.empty(elems, dtype=like.dtype, device=like.device)
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

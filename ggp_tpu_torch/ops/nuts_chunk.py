@@ -22,7 +22,7 @@ from . import _build
 from .vfe_bound import _check_shapes, bound_cfg, rbf_vfe_neg_logpost_vg
 
 __all__ = ["ChainState", "draw_slabs", "nuts_chunk_plain", "nuts_chunk",
-           "DIVERGENCE_THRESHOLD", "MAX_DEPTH"]
+           "launch_chunk", "DIVERGENCE_THRESHOLD", "MAX_DEPTH"]
 
 DIVERGENCE_THRESHOLD = 1000.0
 MAX_DEPTH = 10               # checkpoint slots of the kernel (csrc kMaxDepth)
@@ -34,7 +34,9 @@ STAT_FIELDS = ("potential", "accept_prob", "diverging", "depth",
 class ChainState:
     """Sampler state carried between chunks: position, potential and
     gradient, diagonal inverse mass, dual-averaging state (inference/hmc.py
-    DAState) and Welford state. Scalars are 0-dim tensors."""
+    DAState) and Welford state. For one chain the scalars are 0-dim tensors
+    and the vectors (dim,); for C chains (ops/multichain.py) every field
+    has a leading chain axis: scalars (C,), vectors (C, dim)."""
     z: torch.Tensor
     U: torch.Tensor
     g: torch.Tensor
@@ -203,43 +205,67 @@ def nuts_chunk_plain(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
 
 
 _STATE = ("U", "log_eps", "log_eps_avg", "h_avg", "mu", "t_da", "wf_count")
+S_LEN = 11                   # per-chain scalar state (csrc/stan_adapt.cuh S_LEN)
+
+
+def launch_chunk(name, state, X, y, Z, jitter, slabs, *, n_active, adapt, eps,
+                 in_window, window_end, prior_spec, stream, **cfg_extra):
+    """One launch of the sampler chunk kernel ``name`` (entries of
+    ``csrc/nuts_chunk.cu`` and ``csrc/mc_hmc_chunk.cu``) on C chains: every
+    field of ``state`` has a leading chain axis, ``slabs`` are the random
+    slabs in the kernel's argument order, each (K, C, ...). Returns (new
+    state, draws (K, C, dim), stats (K, C, 6)); ``state`` is not modified."""
+    n, d = X.shape
+    m = Z.shape[0]
+    C, dim = state.z.shape
+    K = slabs[0].shape[0]
+    dev, dt = X.device, X.dtype
+    scal = torch.zeros((C, S_LEN), dtype=dt, device=dev)
+    scal[:, :7] = torch.stack([getattr(state, k).reshape(C) for k in _STATE], 1)
+    scal[:, 7] = float(n_active)
+    if eps is not None:
+        scal[:, 8] = eps
+    vecs = [v.clone(memory_format=torch.contiguous_format) for v in
+            (state.z, state.g, state.inv_mass, state.wf_mean, state.wf_m2)]
+    if in_window is None:
+        flags = torch.zeros(2 * K, dtype=torch.int32, device=dev)
+    else:
+        flags = torch.cat([in_window, window_end]).to(device=dev, dtype=torch.int32)
+    draws = torch.empty((K, C, dim), dtype=dt, device=dev)
+    stats = torch.empty((K, C, 6), dtype=dt, device=dev)
+    work = _build.scratch(n, m, d, 0, X, chains=C)
+    cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
+                    pivot_floor=None, prior_spec=prior_spec, DIM=dim, K=K,
+                    ADAPT=int(adapt), CHAINS=C, **cfg_extra)
+    P = _build.ptr
+    err = _build.kernel_fn(name, dt)(
+        ctypes.cast(cfg, ctypes.c_void_p), P(scal), *[P(v) for v in vecs],
+        P(flags), *[P(s) for s in slabs], P(X), P(y), P(Z), P(draws),
+        P(stats), P(work), stream)
+    _build.check(err, name)
+    cols = scal.T.contiguous()          # each field contiguous for the next launch
+    new = ChainState(z=vecs[0], U=cols[0], g=vecs[1], inv_mass=vecs[2],
+                     log_eps=cols[1], log_eps_avg=cols[2], h_avg=cols[3],
+                     mu=cols[4], t_da=cols[5], wf_mean=vecs[3],
+                     wf_m2=vecs[4], wf_count=cols[6])
+    return new, draws, stats
 
 
 def _call_nuts(state, X, y, Z, jitter, mom, treeu, leafu, n_active, adapt, eps,
                in_window, window_end, max_depth, target_accept, adapt_mass,
                prior_spec, stream):
-    n, d = X.shape
-    m = Z.shape[0]
-    K, dim = mom.shape
-    dev, dt = X.device, X.dtype
-    scal = torch.zeros(11, dtype=dt, device=dev)
-    scal[:7] = torch.stack([getattr(state, k).reshape(()) for k in _STATE])
-    scal[7] = float(n_active)
-    scal[8] = 0.0 if eps is None else eps
-    vecs = [state.z.clone(), state.g.clone(), state.inv_mass.clone(),
-            state.wf_mean.clone(), state.wf_m2.clone()]
-    if in_window is None:
-        flags = torch.zeros(2 * K, dtype=torch.int32, device=dev)
-    else:
-        flags = torch.cat([in_window, window_end]).to(device=dev, dtype=torch.int32)
-    draws = torch.empty((K, dim), dtype=dt, device=dev)
-    stats = torch.empty((K, 6), dtype=dt, device=dev)
-    work = _build.scratch(n, m, d, 0, X)
-    cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
-                    pivot_floor=None, prior_spec=prior_spec, DIM=dim,
-                    MAX_DEPTH=max_depth, K=K, ADAPT=int(adapt),
-                    TARGET=target_accept, ADAPT_MASS=int(adapt_mass))
-    P = _build.ptr
-    err = _build.kernel_fn("ggp_nuts_chunk", dt)(
-        ctypes.cast(cfg, ctypes.c_void_p), P(scal), *[P(v) for v in vecs],
-        P(flags), P(mom), P(treeu), P(leafu), P(X), P(y), P(Z), P(draws),
-        P(stats), P(work), stream)
-    _build.check(err, "nuts_chunk")
-    new = ChainState(z=vecs[0], U=scal[0], g=vecs[1], inv_mass=vecs[2],
-                     log_eps=scal[1], log_eps_avg=scal[2], h_avg=scal[3],
-                     mu=scal[4], t_da=scal[5], wf_mean=vecs[3], wf_m2=vecs[4],
-                     wf_count=scal[6])
-    return new, draws, stats
+    """Kernel 2 at grid 1: the chain as a batch of one."""
+    one = ChainState(**{f.name: getattr(state, f.name).unsqueeze(0)
+                        for f in dataclasses.fields(state)})
+    new, draws, stats = launch_chunk(
+        "ggp_nuts_chunk", one, X, y, Z, jitter,
+        (mom[:, None], treeu[:, None], leafu[:, None]), n_active=n_active,
+        adapt=adapt, eps=eps, in_window=in_window, window_end=window_end,
+        prior_spec=prior_spec, stream=stream, MAX_DEPTH=max_depth,
+        TARGET=target_accept, ADAPT_MASS=int(adapt_mass))
+    new = ChainState(**{f.name: getattr(new, f.name)[0]
+                        for f in dataclasses.fields(new)})
+    return new, draws[:, 0], stats[:, 0]
 
 
 def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
