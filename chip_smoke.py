@@ -27,8 +27,14 @@ non-zero exit:
 Every kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its operations over the float32 peak
 and its bytes (inputs read once, outputs written once) over the memory
-rate. The operations are those of the bound evaluations the call made,
-counted from ``csrc/vfe_bound.cuh`` (:func:`bound_ops`).
+rate. The operations are the least the call's bound evaluations need
+(:func:`bound_ops`), not those the kernel happens to do.
+
+    python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts]
+
+runs the main paths instead (default: all three) once each under
+``torch.profiler`` after a short warm-up, and prints where the device time
+goes: time and launches by kernel, and the device busy share.
 """
 
 from __future__ import annotations
@@ -37,10 +43,13 @@ import dataclasses
 import json
 import math
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from ggp_tpu_torch import BayesianSparseGPR_HMC
 from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
@@ -102,9 +111,6 @@ NUTS_TOL = {torch.float64: 1e-6, torch.float32: 1e-2}
 # and HBM3 bandwidth.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
-# The smoke run must end inside 1200 s; past this mark the multichain NUTS
-# rounds cut their Z steps (and say so).
-Z_CUT_AFTER_S = 750.0
 T_START = time.perf_counter()
 
 
@@ -173,26 +179,32 @@ def once_ms(fn):
 
 
 def bound_ops(n, m, d, want_z=False):
-    """Floating-point operations of one evaluation of ``vfe_bound``
-    (csrc/vfe_bound.cuh), counted from its loops at (n, m, d): a multiply-add
-    is 2, exp/log/sqrt/divide 1 each. Leading terms: the products An (n m^2),
-    B (2 n m^2) and dKnm (2 n m^2); the two Cholesky factorisations and two
-    triangular inverses (m^3/3 each), Binv (2 m^3/3), the adjoints Y1, VT0
-    (3 m^3) and Pmm (m^3)."""
-    ops = (n * m * (4 * d + 6) + m * m * (4 * d + 7)          # grams
-           + 4 * m ** 3 / 3 + 2 * m * m                        # 2 chol + 2 inv
-           + n * m * m + n * m                                 # An
-           + 2 * n * m * m                                     # B
-           + 2 * m ** 3 / 3                                    # Binv
-           + 4 * n * m + 3 * m * m                             # u, alpha, solves
-           + 3 * m ** 3                                        # Y1, VT0
-           + m ** 3 + 5 * m * m                                # Pmm
-           + 2 * n * m * m + 5 * n * m                         # Pnm
-           + 4 * m * m + 2 * n * m                             # row/col sums
-           + 3 * m * m * d + 3 * n * m * d                     # PmmZs, PnmZs
-           + d * (9 * m + 6 * n) + 2 * (n + m) * d)            # chain rule, norms
+    """The least floating-point operations one evaluation of the collapsed
+    bound with its gradient needs at (n, m, d): the function's count, not
+    that of ``csrc/vfe_bound.cuh``, which forms full symmetric products and
+    rescales X inside its loops. A multiply-add is 2, exp/log/sqrt/divide 1
+    each. A symmetric result is counted once per pair, and a product with a
+    triangular factor at its triangular count (LAPACK's: potrf, trtri and
+    lauum m^3/3 each, trmm and syrk n m^2, sygst m^3). Leading terms: dKnm
+    (2 n m^2), An and B (n m^2 each), L^-T T0 L^-1 and Y1 (m^3 each), two
+    factorisations and two triangular inverses (m^3/3 each), B^-1 (m^3/3)."""
+    ops = (3 * (n + m) * d                     # scaled inputs, their norms
+           + n * m * (2 * d + 6)               # Knm: cross products, r2, exp
+           + m * (m + 1) / 2 * (2 * d + 6)     # Kmm (symmetric)
+           + 4 * m ** 3 / 3                    # potrf + trtri of Kmm and of B
+           + n * m * m + n * m                 # An = Knm L^-T / sigma (trmm)
+           + n * m * m + n * m                 # B = An^T An + I (syrk)
+           + m ** 3 / 3                        # B^-1 = VB VB^T (lauum)
+           + 4 * n * m + 3 * m * m + 3 * n     # u, alpha; three substitutions
+           + m ** 3 + m * m                    # Y1 = (I - B^-1) L^-1 (trmm)
+           + 2 * m * m + m ** 3                # T0 = 2I - B - B^-1 (symmetric); L^-T T0 L^-1 (sygst)
+           + 2 * m * m                         # dKmm, Pmm (symmetric)
+           + 2 * n * m * m + 5 * n * m         # dKnm = (An Y1 + alpha w^T) / sigma, Pnm
+           + m * m + 2 * n * m                 # sums of Pmm (rows = columns) and of Pnm
+           + 2 * m * m * d + 2 * n * m * d     # Pmm Zs, Pnm Zs
+           + 6 * (n + m) * d)                  # chain rule to the lengthscales
     if want_z:
-        ops += 3 * n * m * d + 8 * m * d                       # PnmTXs, dZ
+        ops += 2 * n * m * d + 6 * m * d       # Pnm^T Xs, dU/dZ
     return float(ops)
 
 
@@ -504,11 +516,7 @@ def phase_rounds(Xd, yd, Zd, num_chains, label):
               f"step size {', '.join(f'{e:.4g}' for e in eps)}, mean leapfrogs/draw "
               f"{float(model.stats['n_leapfrog'].mean()):.1f}")
         if i < len(rounds) - 1:
-            steps = 100
-            if time.perf_counter() - T_START > Z_CUT_AFTER_S:
-                steps = 10
-                print(f"{label}: optimize_Z cut to {steps} steps (time limit near)")
-            zl, ms = once_ms(lambda: model.optimize_Z(num_steps=steps, lr=0.01))
+            zl, ms = once_ms(lambda: model.optimize_Z(num_steps=100, lr=0.01))
             t_z += ms / 1e3
             assert torch.isfinite(zl).all()
     (means, vars_), t_pred = once_ms(lambda: model.mixture_posterior_predictive(X))
@@ -581,7 +589,59 @@ def phase_scaling(Xd, yd, Zd):
           + ", ".join(f"C={C} {ms:.4f} ms" for C, ms in out))
 
 
-def main():
+def device_breakdown(prof, wall_s, label, top=8):
+    """Device time by kernel of one profiled run, from the events the
+    profiler traced on the card (kernels and copies; the host-side operator
+    rows, which repeat their kernels' time, are left out). Busy time is the
+    union of those events' intervals, so nothing is counted twice."""
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        row = by_name.setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += (t1 - t0) / 1e3
+        spans.append((t0, t1))
+    busy_us, end = 0.0, -math.inf
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    rows = sorted(by_name.items(), key=lambda r: -r[1][1])
+    total = sum(ms for _, (_, ms) in rows)
+    print(f"profile {label}: wall {wall_s:.3f} s, kernel time {total / 1e3:.3f} s, "
+          f"busy {busy_us / 1e6:.3f} s, busy share {100 * busy_us / 1e6 / wall_s:.2f} %")
+    for name, (count, ms) in rows[:top]:
+        print(f"profile {label}:   {ms:12.1f} ms  {100 * ms / total:6.2f} %  "
+              f"{count:6d} launches  {name[:90]}")
+    rest = rows[top:]
+    if rest:
+        ms = sum(r[1][1] for r in rest)
+        print(f"profile {label}:   {ms:12.1f} ms  {100 * ms / total:6.2f} %  "
+              f"{sum(r[1][0] for r in rest):6d} launches  ({len(rest)} other kernels)")
+
+
+def profile_paths(X, y, Z, names):
+    """Each named main path once under torch.profiler (CPU and CUDA
+    activities), after a warm-up of the kernels and library handles."""
+    paths = {"slice": lambda: phase_rounds(X, y, Z, 1, "slice"),
+             "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
+             "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts")}
+    Xf, yf, Zf = (a.float() for a in (X, y, Z))
+    mc_potential(torch.zeros((2, X.shape[1] + 2), device="cuda"), Xf, yf, Zf, 1e-5)
+    torch.linalg.cholesky(torch.eye(8, device="cuda"))
+    torch.cuda.synchronize()
+    for name in names or list(paths):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            paths[name]()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device_breakdown(prof, wall, name)
+
+
+def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -593,6 +653,9 @@ def main():
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     X, y, Z = (torch.tensor(a, dtype=torch.float64, device="cuda") for a in make_data())
+    if argv[:1] == ["--profile"]:
+        profile_paths(X, y, Z, argv[1:])
+        return
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
     res = new_res()
@@ -628,4 +691,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
