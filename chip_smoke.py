@@ -12,7 +12,10 @@ non-zero exit:
    card, at the shapes of the flagship path (bench.py's boston-shaped data:
    N=404 train rows, D=13, M=100; the chain-batched kernels at C=8 chains),
    in float64 and float32, with the time per call of both;
-4. the main paths through the model's entry points, in float32, each with
+   The JointHMC (SGPMC) kernels, the "sgpmc" core of the sampler kernels
+   and the warm start, are held the same way at the same shape (state row
+   d+2+M = 115), at grid 1 and grid 8;
+4. the main paths through the models' entry points, in float32, each with
    the launch counters set to 0 just before it and read just after:
    a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
       (warm start 500 steps, single-chain NUTS rounds (100,20),(25,10),
@@ -20,6 +23,12 @@ non-zero exit:
    b. HMC-C8: bench.py's ``cell_hmc_throughput`` (warm start 500 steps,
       then 8 chains of HMC, L=10, 500 warmup + 500 draws), timed once;
    c. multichain NUTS: the slice's rounds with 4 chains;
+   d. joint-hmc: bench.py's ``cell_joint_hmc`` (SGPMC warm start 100
+      steps, then one chain of HMC, L=10, 500 warmup + 500 draws), timed
+      once, and the 50-component mixture predictive on the held-out 20 %;
+   e. joint-nuts: SGPMC, one chain of NUTS, 100 warmup + 50 draws;
+   f. joint-c4: SGPMC, 4 chains of HMC, L=10, 100 warmup + 100 draws;
+   g. joint-c4-nuts: SGPMC, 4 chains of NUTS, 100 warmup + 50 draws;
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?);
 6. a JSON line of per-kernel results, then the final status line.
@@ -27,12 +36,12 @@ non-zero exit:
 Every kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its operations over the float32 peak
 and its bytes (inputs read once, outputs written once) over the memory
-rate. The operations are the least the call's bound evaluations need
-(:func:`bound_ops`), not those the kernel happens to do.
+rate. The operations are the least the call's evaluations of its core need
+(:func:`bound_ops`, :func:`sgpmc_ops`), not those the kernel happens to do.
 
-    python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts]
+    python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
 
-runs the main paths instead (default: all three) once each under
+runs the named main paths instead (default: all) once each under
 ``torch.profiler`` after a short warm-up, and prints where the device time
 goes: time and launches by kernel, and the device busy share.
 """
@@ -42,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -51,20 +61,22 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ggp_tpu_torch import BayesianSparseGPR_HMC
+from ggp_tpu_torch import SGPMC, BayesianSparseGPR_HMC
 from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
 from ggp_tpu_torch.inference.hmc import (find_reasonable_step_size,
                                          find_reasonable_step_size_batched)
 from ggp_tpu_torch.ops import _build
-from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, mc_hmc_chunk,
+from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
                                           mc_hmc_chunk_plain, mc_nuts_chunk,
                                           mc_nuts_chunk_plain, mc_potential,
                                           mc_potential_plain)
-from ggp_tpu_torch.ops.nuts_chunk import (ChainState, draw_slabs, nuts_chunk,
-                                          nuts_chunk_plain)
+from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
+                                          first_chain, nuts_chunk, nuts_chunk_plain)
+from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
+from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
-from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, vfe_potential
+from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, state_dim, vfe_potential
 from ggp_tpu_torch.utils.datasets import normalize
 from ggp_tpu_torch.utils.metrics import nlpd_mixture, rmse
 
@@ -86,6 +98,23 @@ KERNELS = {
     "mc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
                       "ggp_tpu/ops/fused_multichain.py:1954",
                       "ggp_tpu/ops/fused_multichain.py:1966"),
+    # the "sgpmc" core (csrc/sgpmc_bound.cuh) of the same kernels
+    "sgpmc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
+                        "ggp_tpu/ops/fused_nuts.py:807", None),
+    "sgpmc_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
+                        "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
+    "sgpmc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                         "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
+    "sgpmc_mc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
+                           "ggp_tpu/ops/fused_multichain.py:1933", None),
+    "sgpmc_mc_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
+                           "ggp_tpu/ops/fused_multichain.py:1985",
+                           "ggp_tpu/ops/fused_multichain.py:1997"),
+    "sgpmc_mc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                            "ggp_tpu/ops/fused_multichain.py:1954",
+                            "ggp_tpu/ops/fused_multichain.py:1966"),
+    "sgpmc_warm_chunk": ("ggp_tpu_torch/csrc/sgpmc_warm.cu",
+                         "ggp_tpu/ops/fused_sgpmc.py:131", None),
 }
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
@@ -112,10 +141,12 @@ NUTS_TOL = {torch.float64: 1e-6, torch.float32: 1e-2}
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 T_START = time.perf_counter()
+CARD = ""            # nvidia-smi's name and power limit, printed beside the paths' times
 
 
 def make_data(seed=173):
-    """bench.py ``_make_data("boston")`` in numpy: (X, y, Z) float64."""
+    """bench.py ``_make_data("boston")`` in numpy: (X, y, Z) float64, and
+    the held-out 20 % (X_test, y_test)."""
     N, D = 506, 13
     rng = np.random.default_rng(seed)
     X_raw = rng.normal(size=(N, D))
@@ -128,7 +159,9 @@ def make_data(seed=173):
     X = Xn[:n_train].astype(np.float32).astype(np.float64)
     y = yn[:n_train, 0].astype(np.float32).astype(np.float64)
     Z = X[rng.integers(0, n_train, 100)]
-    return X, y, Z
+    X_test = Xn[n_train:].astype(np.float32).astype(np.float64)
+    y_test = yn[n_train:, 0].astype(np.float32).astype(np.float64)
+    return X, y, Z, X_test, y_test
 
 
 def rel(a, b):
@@ -208,14 +241,61 @@ def bound_ops(n, m, d, want_z=False):
     return float(ops)
 
 
+def sgpmc_ops(n, m, d, want_z=False):
+    """The least floating-point operations one evaluation of the whitened
+    JointHMC potential with its gradient needs at (n, m, d), counted as
+    :func:`bound_ops` counts the collapsed bound. Leading terms: A = L^-1
+    Kms and Kms_b = L^-T Abar (trsm, n m^2 each), S = Abar A^T (symmetric,
+    n m (m+1)), L^-T S L^-1 (sygst, m^3), the factorisation (m^3/3)."""
+    ops = (3 * (n + m) * d                     # scaled inputs, their norms
+           + n * m * (2 * d + 6)               # Kms: cross products, r2, exp
+           + m * (m + 1) / 2 * (2 * d + 6)     # Kmm (symmetric)
+           + m ** 3 / 3                        # potrf
+           + n * m * m                         # A = L^-1 Kms (trsm)
+           + 4 * n * m + 6 * n                 # mean = A^T v, var, e, sums
+           + 2 * n * m + 3 * n * m             # dF/dv = A e, Abar
+           + n * m * (m + 1)                   # S = Abar A^T (symmetric)
+           + n * m * m                         # Kms_b = L^-T Abar (trsm)
+           + m ** 3                            # Kmm_b = -L^-T S L^-1 / 2 (sygst)
+           + m * (m + 1) / 2 + n * m           # Pmm (symmetric), Pms
+           + m * m + 2 * n * m                 # sums of Pmm (rows = columns) and of Pms
+           + 2 * m * m * d + 2 * n * m * d     # Pmm Zs, Pms Xs
+           + 6 * (n + m) * d)                  # chain rule to the lengthscales
+    if want_z:
+        ops += 6 * m * d                       # dU/dZ
+    return float(ops)
+
+
+def register_report():
+    """One line per kernel instantiation from the build's ``-Xptxas -v``
+    output: registers, spill stores and static shared memory."""
+    lines, name, spill = [], None, "?"
+    for line in _build.ptxas_report().splitlines():
+        m = re.search(r"Compiling entry function '_ZN3ggp\d+(\w+?_kernel)I"
+                      r"(?:NS_\d+(\w+)E)?([fd])E", line)
+        if m:
+            core = f"{m.group(2)}, " if m.group(2) else ""
+            name = f"{m.group(1)}<{core}{'float' if m.group(3) == 'f' else 'double'}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            lines.append(f"ptxas {name}: {m.group(1)} registers, {spill} B spill stores, "
+                         f"{m.group(2)} B static shared memory")
+            name, spill = None, "?"
+    return lines
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def roofline(evals, n, m, d, in_bytes, out_bytes, want_z=False):
-    """(bound_ms, bound_by) of a call that makes ``evals`` bound evaluations
-    and reads ``in_bytes``, writes ``out_bytes`` (float32 peak)."""
-    t_ops = evals * bound_ops(n, m, d, want_z) / PEAK_F32_OPS
+def roofline(evals, n, m, d, in_bytes, out_bytes, want_z=False, core="vfe"):
+    """(bound_ms, bound_by) of a call that makes ``evals`` evaluations of
+    ``core`` and reads ``in_bytes``, writes ``out_bytes`` (float32 peak)."""
+    ops = (sgpmc_ops if core == "sgpmc" else bound_ops)(n, m, d, want_z)
+    t_ops = evals * ops / PEAK_F32_OPS
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -364,17 +444,19 @@ def phase_parity(Xd, yd, Zd, res):
                                nbytes(*out), want_z=True))
 
 
-def mc_start(X, y, Z, jit, C, seed):
-    """C chains at theta 0 + 0.1 N(0, 1) with per-chain step sizes from the
-    batched search (plain potential), as the C-chain sampler starts them."""
-    dt, dim = X.dtype, X.shape[1] + 2
+def mc_start(X, y, Z, jit, C, seed, core="vfe"):
+    """C chains at state 0 + 0.1 N(0, 1) with per-chain step sizes from the
+    batched search (plain potential of ``core``), as the C-chain sampler
+    starts them."""
+    dt = X.dtype
+    dim = state_dim(core, X.shape[1], Z.shape[0])
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(generator=gen, dtype=dt, device="cuda")
     z = 0.1 * torch.randn((C, dim), **kw)
-    U, g = mc_potential_plain(z, X, y, Z, jit)
+    U, g = mc_potential_plain(z, X, y, Z, jit, core=core)
     im = torch.ones_like(z)
     eps = find_reasonable_step_size_batched(
-        lambda zs: mc_potential_plain(zs, X, y, Z, jit), z, U, g,
+        lambda zs: mc_potential_plain(zs, X, y, Z, jit, core=core), z, U, g,
         torch.randn((C, dim), **kw), im, 0.1)
     le = torch.log(eps)
     zc, zv = torch.zeros(C, dtype=dt, device="cuda"), torch.zeros_like(z)
@@ -383,96 +465,197 @@ def mc_start(X, y, Z, jit, C, seed):
     return st, gen
 
 
+def chunk_parity(X, y, Z, jit, st0, gen, res, *, core, algo, grid, K, L=10, md=8):
+    """A warm and a sample chunk of K transitions, HMC (L leapfrogs) or
+    NUTS (max depth md), of ``core`` from the ``grid`` chains of ``st0``:
+    the kernel (through the one-chain wrapper at grid 1, the C-chain one
+    otherwise) against the plain C-chain version on shared slabs from
+    ``gen``. HMC chunks must take identical accept decisions; NUTS chunks
+    must keep every f64 chain on one path and agree on the first
+    transition in f32. Records the kernel's row of ``res``."""
+    dt = X.dtype
+    tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+    n, d = X.shape
+    m, dim = Z.shape[0], st0.z.shape[1]
+    name = _build.launch_key(core, ("" if grid == 1 else "mc_") + f"{algo}_chunk")
+    xyz = nbytes(X, y, Z)
+    in_w = torch.arange(K, device="cuda") >= 2
+    w_end = torch.arange(K, device="cuda") == 5
+    plain = mc_hmc_chunk_plain if algo == "hmc" else mc_nuts_chunk_plain
+    st, errs, aerr = st0, [], []
+    for adapt in (True, False):
+        sl = draw_mc_slabs(K, grid, dim, algorithm=algo, max_depth=md, generator=gen,
+                           dtype=dt, device="cuda")
+        eps = torch.exp(st.log_eps_avg)
+        kw = dict(n_active=K, adapt=adapt, in_window=in_w, window_end=w_end, core=core)
+        if algo == "hmc":
+            kw["num_leapfrog"] = L
+        else:
+            kw["max_depth"] = md
+        if grid == 1:
+            one = {k: v[:, 0] for k, v in sl.items()}
+            kern1 = hmc_chunk if algo == "hmc" else nuts_chunk
+
+            def run_k():
+                s1, d1, x1 = kern1(first_chain(st), X, y, Z, jit, eps=eps[0], **one, **kw)
+                return as_batch(s1), d1[:, None], x1[:, None]
+        else:
+            kern = mc_hmc_chunk if algo == "hmc" else mc_nuts_chunk
+
+            def run_k():
+                return kern(st, X, y, Z, jit, eps=eps, **sl, **kw)
+        (s_k, d_k, x_k), t_k = once_ms(run_k)
+        (s_p, d_p, x_p), t_p = once_ms(lambda: plain(st, X, y, Z, jit, eps=eps, **sl, **kw))
+        leaves = int(x_k[:, :, 4].sum())
+        mode = "warm" if adapt else "sample"
+        st_b = nbytes(*state_tensors(st))
+        bound = roofline(leaves, n, m, d, xyz + st_b + nbytes(*sl.values()) + 2 * K * 4,
+                         st_b + nbytes(d_k, x_k), core=core)
+        bound_txt = f", bound {bound[0]:.4f} ms" if f32 else ""
+        timing = f"kernel {t_k:.2f} ms, plain {t_p:.2f} ms per chunk{bound_txt}"
+        if algo == "hmc":
+            same = torch.equal(sl["mh"] < x_k[:, :, 1], sl["mh"] < x_p[:, :, 1])
+            acc = int((sl["mh"] < x_p[:, :, 1]).sum())
+            errs += [rel(d_k, d_p), rel(x_k[..., [0, 1, 5]], x_p[..., [0, 1, 5]]),
+                     rel(s_k.z, s_p.z)]
+            aerr += [abs_err(d_k, d_p), abs_err(x_k[..., [0, 5]], x_p[..., [0, 5]])]
+            print(f"parity {name} {tag} {mode} (grid {grid}, K={K}, L={L}): accept "
+                  f"decisions identical {same} ({acc}/{K * grid} accepted), max rel err "
+                  f"{max(errs):.3e}, {timing}")
+            assert same, f"{name} {tag} {mode}: accept decisions differ"
+            tol = NUTS_TOL[dt] if f32 else TOL[dt]
+            assert max(errs) <= tol, f"{name} {tag} rel err {max(errs)}"
+        else:
+            prefixes = [agreeing_prefix(d_k[:, c], d_p[:, c], x_k[:, c], x_p[:, c],
+                                        NUTS_TOL[dt]) for c in range(grid)]
+            for c, p in enumerate(prefixes):
+                if p:
+                    errs += [rel(d_k[:p, c], d_p[:p, c]),
+                             rel(x_k[:p, c][:, [0, 1, 5]], x_p[:p, c][:, [0, 1, 5]])]
+                    aerr += [abs_err(d_k[:p, c], d_p[:p, c]),
+                             abs_err(x_k[:p, c][:, [0, 5]], x_p[:p, c][:, [0, 5]])]
+            print(f"parity {name} {tag} {mode} (grid {grid}, K={K}): transitions on one "
+                  f"path per chain {prefixes}, leapfrogs {leaves}, max rel err over them "
+                  f"{max(errs, default=float('nan')):.3e}, {timing}")
+            if f32:
+                assert min(prefixes) >= 1, f"{name} f32 {mode}: first step differs"
+            else:
+                assert min(prefixes) == K, f"{name} f64 {mode}: paths part {prefixes}"
+            assert max(errs) <= NUTS_TOL[dt], f"{name} {tag} rel err {max(errs)}"
+        if adapt and f32:
+            res[name].update(ms=t_k, plain_ms=t_p, bound=bound)
+        st = s_p
+    res[name]["rel"][tag] = max(errs)
+    if f32:
+        res[name]["abs32"] = max(aerr)
+
+
+def potential_parity(name, fn, plain, rows, res, reps, bound_args):
+    """One call of a C-row potential wrapper against its plain version (max
+    over the outputs), and the time of both; records the f32 row of
+    ``res`` with the bound of ``roofline(*bound_args(out))``."""
+    tag, f32 = ("f32", True) if rows.dtype == torch.float32 else ("f64", False)
+    out, ref = fn(rows), plain(rows)
+    e = max(rel(a, b) for a, b in zip(out, ref))
+    ms = cuda_ms(lambda: fn(rows), 20)
+    pms = cuda_ms(lambda: plain(rows), reps)
+    print(f"parity {name} {tag} (rows {tuple(rows.shape)}): max rel err {e:.3e}; kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms")
+    assert e <= TOL[rows.dtype], f"{name} {tag} rel err {e}"
+    res[name]["rel"][tag] = e
+    if f32:
+        res[name].update(abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms,
+                         plain_ms=pms, bound=roofline(*bound_args(out)))
+
+
 def phase_parity_mc(Xd, yd, Zd, res, C=8, K=8, L=10, md=8):
-    """The chain-batched kernels against their plain versions at C chains:
-    one evaluation of C rows; a warm and a sample chunk of K transitions
-    each, HMC (L leapfrogs) and NUTS (max depth md), on shared slabs."""
+    """The chain-batched kernels of the vfe core against their plain
+    versions at C chains: one evaluation of C rows; a warm and a sample
+    chunk of K transitions each, HMC (L leapfrogs) and NUTS (max depth md),
+    on shared slabs."""
     for dt in (torch.float64, torch.float32):
-        tag = "f64" if dt == torch.float64 else "f32"
-        f32 = dt == torch.float32
         X, y, Z = Xd.to(dt), yd.to(dt), Zd.to(dt)
         n, d = X.shape
-        m, dim = Z.shape[0], d + 2
-        xyz = nbytes(X, y, Z)
         jit = 1e-5
-
         st0, gen = mc_start(X, y, Z, jit, C, seed=11)
         th = st0.z + 0.3 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
-        out = mc_potential(th, X, y, Z, jit)
-        ref = mc_potential_plain(th, X, y, Z, jit)
-        e = max(rel(a, b) for a, b in zip(out, ref))
-        print(f"parity mc_potential {tag} (C={C}): max rel err {e:.3e}")
-        assert e <= TOL[dt], f"mc_potential {tag} rel err {e}"
-        res["mc_potential"]["rel"][tag] = e
-        ms = cuda_ms(lambda: mc_potential(th, X, y, Z, jit), 20)
-        pms = cuda_ms(lambda: mc_potential_plain(th, X, y, Z, jit), 5)
-        print(f"timing mc_potential {tag} (C={C}): kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        if f32:
-            res["mc_potential"].update(
-                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
-                bound=roofline(C, n, m, d, xyz + nbytes(th), nbytes(*out)))
+        potential_parity("mc_potential", lambda r: mc_potential(r, X, y, Z, jit),
+                         lambda r: mc_potential_plain(r, X, y, Z, jit), th, res, 5,
+                         lambda out: (C, n, Z.shape[0], d, nbytes(X, y, Z, th), nbytes(*out)))
+        for algo in ("hmc", "nuts"):
+            chunk_parity(X, y, Z, jit, st0, gen, res, core="vfe", algo=algo, grid=C, K=K,
+                         L=L, md=md)
 
-        in_w = torch.arange(K, device="cuda") >= 2
-        w_end = torch.arange(K, device="cuda") == 5
-        for algo, kern, plain in (("hmc", mc_hmc_chunk, mc_hmc_chunk_plain),
-                                  ("nuts", mc_nuts_chunk, mc_nuts_chunk_plain)):
-            name = f"mc_{algo}_chunk"
-            st = st0
-            errs, aerr = [], []
-            for adapt in (True, False):
-                sl = draw_mc_slabs(K, C, dim, algorithm=algo, max_depth=md,
-                                   generator=gen, dtype=dt, device="cuda")
-                kw = dict(n_active=K, adapt=adapt, eps=torch.exp(st.log_eps_avg),
-                          in_window=in_w, window_end=w_end, **sl)
-                if algo == "hmc":
-                    kw["num_leapfrog"] = L
-                else:
-                    kw["max_depth"] = md
-                (s_k, d_k, x_k), t_k = once_ms(lambda: kern(st, X, y, Z, jit, **kw))
-                (s_p, d_p, x_p), t_p = once_ms(lambda: plain(st, X, y, Z, jit, **kw))
-                leaves = int(x_k[:, :, 4].sum())
-                mode = "warm" if adapt else "sample"
-                st_b = nbytes(*state_tensors(st))
-                bound = roofline(leaves, n, m, d,
-                                 xyz + st_b + nbytes(*sl.values()) + 2 * K * 4,
-                                 st_b + nbytes(d_k, x_k))
-                bound_txt = f", bound {bound[0]:.4f} ms" if f32 else ""
-                if algo == "hmc":
-                    same = torch.equal(sl["mh"] < x_k[:, :, 1], sl["mh"] < x_p[:, :, 1])
-                    acc = int((sl["mh"] < x_p[:, :, 1]).sum())
-                    errs += [rel(d_k, d_p), rel(x_k[..., [0, 1, 5]], x_p[..., [0, 1, 5]]),
-                             rel(s_k.z, s_p.z)]
-                    aerr += [abs_err(d_k, d_p), abs_err(x_k[..., [0, 5]], x_p[..., [0, 5]])]
-                    print(f"parity {name} {tag} {mode} (C={C}, K={K}, L={L}): accept "
-                          f"decisions identical {same} ({acc}/{K * C} accepted), max rel "
-                          f"err {max(errs):.3e}, kernel {t_k:.2f} ms, plain {t_p:.2f} ms "
-                          f"per chunk{bound_txt}")
-                    assert same, f"{name} {tag} {mode}: accept decisions differ"
-                    assert max(errs) <= NUTS_TOL[dt], f"{name} {tag} rel err {max(errs)}"
-                else:
-                    prefixes = [agreeing_prefix(d_k[:, c], d_p[:, c], x_k[:, c], x_p[:, c],
-                                                NUTS_TOL[dt]) for c in range(C)]
-                    for c, p in enumerate(prefixes):
-                        if p:
-                            errs += [rel(d_k[:p, c], d_p[:p, c]),
-                                     rel(x_k[:p, c][:, [0, 1, 5]], x_p[:p, c][:, [0, 1, 5]])]
-                            aerr += [abs_err(d_k[:p, c], d_p[:p, c]),
-                                     abs_err(x_k[:p, c][:, [0, 5]], x_p[:p, c][:, [0, 5]])]
-                    print(f"parity {name} {tag} {mode} (C={C}, K={K}): transitions on one "
-                          f"path per chain {prefixes}, leapfrogs {leaves}, max rel err over "
-                          f"them {max(errs, default=float('nan')):.3e}, kernel {t_k:.2f} ms, "
-                          f"plain {t_p:.2f} ms per chunk{bound_txt}")
-                    if dt == torch.float64:
-                        assert min(prefixes) == K, f"{name} f64 {mode}: paths part {prefixes}"
-                    else:
-                        assert min(prefixes) >= 1, f"{name} f32 {mode}: first step differs"
-                    assert max(errs) <= NUTS_TOL[dt], f"{name} {tag} rel err {max(errs)}"
-                if adapt and f32:
-                    res[name].update(ms=t_k, plain_ms=t_p, bound=bound)
-                st = s_p
-            res[name]["rel"][tag] = max(errs)
-            if f32:
-                res[name]["abs32"] = max(aerr)
+
+def phase_parity_sgpmc(Xd, yd, Zd, res, C=8, L=10, md=8):
+    """The sgpmc core of every kernel against its plain version at bench.py's
+    shape (state row d+2+M = 115): the potential at grid 1 (sampler and
+    warm-start options) and grid C; the warm start over 20 steps; the HMC
+    chunk (L leapfrogs) at grid 1 (K=16) and grid C (K=8) and the NUTS
+    chunk (max depth md) at grid 1 and grid C (K=8)."""
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, y, Z = Xd.to(dt), yd.to(dt), Zd.to(dt)
+        n, d = X.shape
+        m = Z.shape[0]
+        xyz = nbytes(X, y, Z)
+        jit = 1e-5
+        st0, gen = mc_start(X, y, Z, jit, C, seed=13, core="sgpmc")
+        row = st0.z[0].contiguous()
+        errs, aerr = [], []
+        for kw in (dict(), dict(want_z_grad=True, want_prior=False, pivot_floor=1e-6)):
+            out = vfe_potential(row, X, y, Z, jit, core="sgpmc", **kw)
+            ref = sgpmc_neg_logpost_vg(row, X, y, Z, jit, **kw)
+            errs += [rel(a, b) for a, b in zip(out, ref)]
+            aerr += [abs_err(a, b) for a, b in zip(out, ref)]
+        e = max(errs)
+        ms = cuda_ms(lambda: vfe_potential(row, X, y, Z, jit, core="sgpmc"), 20)
+        pms = cuda_ms(lambda: sgpmc_neg_logpost_vg(row, X, y, Z, jit), 20)
+        print(f"parity sgpmc_potential {tag}: max rel err {e:.3e}; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+        assert e <= TOL[dt], f"sgpmc_potential {tag} rel err {e}"
+        res["sgpmc_potential"]["rel"][tag] = e
+        if f32:
+            res["sgpmc_potential"].update(
+                abs32=max(aerr), ms=ms, plain_ms=pms,
+                bound=roofline(1, n, m, d, xyz + nbytes(row), (row.numel() + 1) * 4,
+                               core="sgpmc"))
+        rows = st0.z + 0.3 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
+        potential_parity(
+            "sgpmc_mc_potential", lambda r: mc_potential(r, X, y, Z, jit, core="sgpmc"),
+            lambda r: mc_potential_plain(r, X, y, Z, jit, core="sgpmc"), rows, res, 5,
+            lambda out: (C, n, m, d, xyz + nbytes(rows), nbytes(*out), False, "sgpmc"))
+
+        zs, zz = torch.zeros_like(row), torch.zeros_like(Z)
+        args = (row, Z, zs, zs, zz, zz, X, y)
+        akw = dict(t0=0, num_steps=20, lr=0.01)
+        out = sgpmc_warm_chunk(*args, jit, **akw)
+        ref = sgpmc_warm_chunk_plain(*args, jit, **akw)
+        e = max(rel(a, b) for a, b in zip(out, ref))
+        ms = cuda_ms(lambda: sgpmc_warm_chunk(*args, jit, **akw), 3)
+        pms = cuda_ms(lambda: sgpmc_warm_chunk_plain(*args, jit, **akw), 1)
+        txt = ""
+        if f32:     # both float32 versions against the float64 run from the same inputs
+            r64 = sgpmc_warm_chunk_plain(*(a.double() for a in args), jit, **akw)
+            txt = (f"; against float64 from the same inputs: kernel "
+                   f"{max(rel(a, b) for a, b in zip(out, r64)):.3e}, plain "
+                   f"{max(rel(a, b) for a, b in zip(ref, r64)):.3e}")
+        print(f"parity sgpmc_warm_chunk {tag} (20 steps): max rel err {e:.3e}{txt}; kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms")
+        # float64 to one evaluation's tolerance; float32 to Adam's (ADAM_TOL)
+        tol = ADAM_TOL[dt] if f32 else TOL[dt]
+        assert e <= tol, f"sgpmc_warm_chunk {tag} rel err {e}"
+        res["sgpmc_warm_chunk"]["rel"][tag] = e
+        if f32:
+            res["sgpmc_warm_chunk"].update(
+                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
+                bound=roofline(20, n, m, d, xyz + 3 * nbytes(row, Z), nbytes(*out),
+                               want_z=True, core="sgpmc"))
+
+        for algo, grid in (("hmc", 1), ("hmc", C), ("nuts", 1), ("nuts", C)):
+            st = as_batch(first_chain(st0)) if grid == 1 else st0
+            chunk_parity(X, y, Z, jit, st, gen, res, core="sgpmc", algo=algo, grid=grid,
+                         K=16 if (algo, grid) == ("hmc", 1) else 8, L=L, md=md)
 
 
 def min_ess_per_s(trace: np.ndarray, seconds: float) -> float:
@@ -576,6 +759,75 @@ def phase_hmc_c8(Xd, yd, Zd, C=8):
     return launches
 
 
+def phase_joint(Xd, yd, Zd, Xte, yte, label, num_chains=1, algorithm="hmc",
+                num_warmup=500, num_samples=500):
+    """bench.py ``cell_joint_hmc`` (bench.py:237-258) through the port,
+    float32, on bench.py's Z: SGPMC warm start 100 steps, then
+    ``train_model`` (``num_chains`` chains, HMC with L=10 or NUTS), timed
+    once; then the 50-component mixture predictive on the held-out rows."""
+    X, y, Z, Xt, yt = (a.to(torch.float32) for a in (Xd, yd, Zd, Xte, yte))
+    d = X.shape[1]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    model = SGPMC(X, y, Z_init=Z)
+    losses, t_warm = once_ms(lambda: model.warm_start(num_steps=100, lr=0.01))
+    print(f"{label} warm_start: {t_warm / 1e3:.3f} s, loss {float(losses[0]):.3f} -> "
+          f"{float(losses[-1]):.3f}")
+    assert torch.isfinite(losses).all() and float(losses[-1]) < float(losses[0])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tr, ms = once_ms(lambda: model.train_model(num_warmup, num_samples,
+                                               num_chains=num_chains, generator=gen,
+                                               algorithm=algorithm, num_leapfrog=10))
+    (means, vars_), t_pred = once_ms(lambda: model.mixture_posterior_predictive_y(Xt, 50))
+    launches = dict(_build.LAUNCHES)
+    secs = ms / 1e3
+    st = model.stats
+    div = float(st["diverging"].float().mean())
+    acc = float(st["accept_prob"].mean())
+    trace = tr.double().cpu().numpy()
+    ess = min_ess_per_s(trace[:, :d + 2], secs)          # hypers only (bench.py:256)
+    r = float(rmse(means.mean(0), yt))
+    nl = float(nlpd_mixture(means, vars_, yt))
+    rhat = ""
+    if num_chains > 1:
+        chains = trace.reshape(num_chains, -1, trace.shape[1])
+        rhat = (f"; max split-R-hat over the hypers "
+                f"{max(split_rhat(chains[:, :, j]) for j in range(d + 2)):.4f}")
+    print(f"{label} sampling on {CARD} ({num_chains} chain(s) x ({num_warmup} warmup + {num_samples} "
+          f"draws), {algorithm}{', L=10' if algorithm == 'hmc' else ''}): {secs:.3f} s; "
+          f"divergence fraction {div:.4f}; mean accept {acc:.4f}; hyper min-ESS/s "
+          f"{ess:.3f}; step size {', '.join(f'{e:.4g}' for e in st['step_size'].reshape(-1).tolist())}; "
+          f"mean leapfrogs/draw {float(st['n_leapfrog'].float().mean()):.1f}{rhat}")
+    print(f"{label} predictive ({means.shape[0]} components, {Xt.shape[0]} held-out rows): "
+          f"{t_pred / 1e3:.3f} s; RMSE {r:.4f}; NLPD {nl:.4f}")
+    pot, chunk = (("sgpmc_potential", f"sgpmc_{algorithm}_chunk") if num_chains == 1
+                  else ("sgpmc_mc_potential", f"sgpmc_mc_{algorithm}_chunk"))
+    check_launches(label, launches, ["sgpmc_warm_chunk", pot, chunk])
+    assert trace.shape == (num_chains * num_samples, d + 2 + Z.shape[0])
+    assert np.isfinite(trace).all()
+    assert div <= 0.1, f"{label} divergence fraction {div}"
+    assert acc >= 0.5, f"{label} mean accept {acc}"
+    assert means.shape == (min(50, trace.shape[0]), Xt.shape[0]) == vars_.shape
+    assert torch.isfinite(means).all() and torch.isfinite(vars_).all()
+    assert math.isfinite(nl) and r < 1.0, (r, nl)
+    return launches
+
+
+def joint_paths(X, y, Z, Xte, yte):
+    """The JointHMC main paths by name."""
+    return {
+        "joint-hmc": lambda: phase_joint(X, y, Z, Xte, yte, "joint-hmc"),
+        "joint-nuts": lambda: phase_joint(X, y, Z, Xte, yte, "joint-nuts",
+                                          algorithm="nuts", num_warmup=100,
+                                          num_samples=50),
+        "joint-c4": lambda: phase_joint(X, y, Z, Xte, yte, "joint-c4", num_chains=4,
+                                        num_warmup=100, num_samples=100),
+        "joint-c4-nuts": lambda: phase_joint(X, y, Z, Xte, yte, "joint-c4-nuts",
+                                             num_chains=4, algorithm="nuts",
+                                             num_warmup=100, num_samples=50),
+    }
+
+
 def phase_scaling(Xd, yd, Zd):
     """mc_potential (float32) at C = 1, 8, 32: equal times mean the blocks
     do not slow one another."""
@@ -622,12 +874,13 @@ def device_breakdown(prof, wall_s, label, top=8):
               f"{sum(r[1][0] for r in rest):6d} launches  ({len(rest)} other kernels)")
 
 
-def profile_paths(X, y, Z, names):
+def profile_paths(X, y, Z, Xte, yte, names):
     """Each named main path once under torch.profiler (CPU and CUDA
     activities), after a warm-up of the kernels and library handles."""
     paths = {"slice": lambda: phase_rounds(X, y, Z, 1, "slice"),
              "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
-             "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts")}
+             "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
+             **joint_paths(X, y, Z, Xte, yte)}
     Xf, yf, Zf = (a.float() for a in (X, y, Z))
     mc_potential(torch.zeros((2, X.shape[1] + 2), device="cuda"), Xf, yf, Zf, 1e-5)
     torch.linalg.cholesky(torch.eye(8, device="cuda"))
@@ -648,26 +901,34 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    X, y, Z = (torch.tensor(a, dtype=torch.float64, device="cuda") for a in make_data())
+    for line in register_report():
+        print(line)
+    X, y, Z, Xte, yte = (torch.tensor(a, dtype=torch.float64, device="cuda")
+                         for a in make_data())
     if argv[:1] == ["--profile"]:
-        profile_paths(X, y, Z, argv[1:])
+        profile_paths(X, y, Z, Xte, yte, argv[1:])
         return
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
     res = new_res()
     phase_parity(X, y, Zd, res)
     phase_parity_mc(X, y, Zd, res)
+    phase_parity_sgpmc(X, y, Zd, res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
     launches = {k: 0 for k in KERNELS}
     for run in (lambda: phase_rounds(X, y, Z, 1, "slice"),
                 lambda: phase_hmc_c8(X, y, Z),
-                lambda: phase_rounds(X, y, Z, 4, "mc-nuts")):
+                lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
+                *joint_paths(X, y, Z, Xte, yte).values()):
         for k, v in run().items():
-            launches[k] += v
+            if k in launches:
+                launches[k] += v
         print(f"main paths at {time.perf_counter() - T_START:.1f} s")
     phase_scaling(X, y, Z)
     assert all(v > 0 for v in launches.values()), launches

@@ -1,15 +1,17 @@
 """ggp_tpu_torch — the PyTorch/CUDA port of ggp_tpu for NVIDIA Hopper.
 
-The first slice carries the flagship BayesianSparseGPR_HMC path: ML-II warm
-start, single-chain NUTS rounds over the hyperparameters under the
-collapsed Titsias bound, Adam on the inducing locations between rounds,
-and the mixture predictive. Its four hand-written CUDA kernels
-(``csrc/``) are built at first use on a machine with ``nvcc``; CPU tensors
-run each kernel's plain PyTorch version.
+It carries two models. BayesianSparseGPR_HMC: ML-II warm start, NUTS or
+HMC over the hyperparameters under the collapsed Titsias bound (one chain
+or C), Adam on the inducing locations between rounds, and the mixture
+predictive. SGPMC ("JointHMC"): Adam warm start of (hypers, whitened
+inducing values, Z), then NUTS or HMC jointly over the hypers and the
+whitened inducing values, and the 50-component mixture predictive. The
+hand-written CUDA kernels (``csrc/``) are built at first use on a machine
+with ``nvcc``; CPU tensors run each kernel's plain PyTorch version.
 """
 
 from . import config  # noqa: F401  (sets the TF32 policy)
 from .config import BASE_SEED, default_jitter
-from .models import BayesianSparseGPR_HMC
+from .models import SGPMC, BayesianSparseGPR_HMC
 
-__all__ = ["BayesianSparseGPR_HMC", "BASE_SEED", "default_jitter"]
+__all__ = ["BayesianSparseGPR_HMC", "SGPMC", "BASE_SEED", "default_jitter"]

@@ -1,25 +1,31 @@
-// Kernel 5: K fixed-leapfrog HMC transitions of C chains, one chain per
-// block, over the (log-lengthscales, log-outputscale, log-noise) posterior
-// of BayesianSGPR_HMC, with per-chain Stan warmup adaptation in-kernel
-// (adapt=1) or at a fixed per-chain step size (adapt=0).
+// Kernel 5: K fixed-leapfrog HMC transitions of C = cfg[C_CHAINS] chains,
+// one chain per block, over a sampler potential (template parameter `Core`:
+// the collapsed bound of BayesianSGPR_HMC over its d+2 log-hypers, VfeCore,
+// or the whitened JointHMC target over d+2+m, SgpmcCore), with per-chain
+// Stan warmup adaptation in-kernel (adapt=1) or at a fixed per-chain step
+// size (adapt=0).
 //
 // Replaces: ggp_tpu/ops/fused_multichain.py `_mc_warm_chunk_body` (the HMC
 // `warm_call` of `make_fused_hmc_multichain`) and `_mc_sample_chunk_body`
 // (`sample_call`), both built on `_hmc_transition_batched` and, for warmup,
-// `_stan_adapt_rows`, for the "vfe" core.
+// `_stan_adapt_rows` (grid C); and, at grid 1, the fixed-leapfrog HMC
+// chunks of ggp_tpu/ops/fused_nuts.py `_warm_chunk_kernel_body` /
+// `_sample_chunk_kernel_body` with algorithm="hmc"
+// (`_hmc_transition_inkernel`); each for targets "vfe" and "sgpmc"
+// (entries ggp_hmc_chunk_{vfe,sgpmc}_{f32,f64}).
 //
 // What bounds it on the card: each chain is a latency chain of num_leapfrog
-// bound evaluations per transition (vfe_bound.cuh: barriers and L2 reads in
-// one block, ~2.3 ms each at N=404, M=100); the leapfrog and Metropolis
+// core evaluations per transition (barriers and L2 reads in one block,
+// ~2.3 ms each for the bound at N=404, M=100); the leapfrog and Metropolis
 // arithmetic between them is a few dim-length vector operations. FLOPs and
 // device-memory bytes are far below what the card offers.
 //
 // What the design does about it: one launch per chunk; block c runs chain c
 // alone on row c of every state array, rows t*C+c of the momentum slab and
 // of the outputs, entry t*C+c of the Metropolis uniforms, and its own scratch
-// area `scratch + c*work_elems(n, m, d)`. So C chains take C SMs and never
+// area `scratch + c*Core::elems`. So C chains take C SMs and never
 // wait on one another inside the launch, and the C scratch areas stay in
-// the 50 MB L2 while C*work_elems*sizeof(T) is below it. Every decision
+// the 50 MB L2 while C*Core::elems*sizeof(T) is below it. Every decision
 // (accept, divergence, adaptation) is computed identically by every thread
 // of a block from shared values, so no __syncthreads sits in a branch that
 // splits a block. The per-step outputs use the NUTS kernel's layout (depth
@@ -41,7 +47,7 @@ struct HmcShared {
   T U;
 };
 
-template <typename T>
+template <template <typename> class Core, typename T>
 __global__ void __launch_bounds__(kThreads)
 mc_hmc_chunk_kernel(BoundCfg cf, HmcCfg hc, T* state, T* zio, T* gio,
                     T* imio, T* wmio, T* wm2io, const int* flags,
@@ -52,8 +58,8 @@ mc_hmc_chunk_kernel(BoundCfg cf, HmcCfg hc, T* state, T* zio, T* gio,
   const int tid = threadIdx.x;
   const int c = blockIdx.x, C = gridDim.x;            // this block's chain
   const int dim = hc.dim, K = hc.K, L = hc.num_leapfrog;
-  const Work<T> w = make_work(scratch + (long)c * work_elems(cf.n, cf.m, cf.d),
-                              cf.n, cf.m, cf.d);
+  const typename Core<T>::WorkT w =
+      Core<T>::work(scratch + (long)c * Core<T>::elems(cf), cf);
   state += c * S_LEN;
   zio += c * dim;
   gio += c * dim;
@@ -76,31 +82,31 @@ mc_hmc_chunk_kernel(BoundCfg cf, HmcCfg hc, T* state, T* zio, T* gio,
   for (int t = 0; t < K; ++t) {
     const long row = (long)t * C + c;                 // slab and output row
     if (t >= n_active) {
-      if (tid < dim) draws[row * dim + tid] = T(0);
+      if (int k = tid; k < dim) draws[row * dim + k] = T(0);
       if (tid < 6) stats[row * 6 + tid] = T(0);
       continue;
     }
     const T eps = hc.adapt ? gexp(a.le) : eps_fixed;
 
     // ---- L leapfrog steps from (pz, Up, pg) ----
-    if (tid < dim) {
-      s.r[tid] = mom[row * dim + tid] / gsqrt(s.im[tid]);
-      s.z[tid] = s.pz[tid];
-      s.g[tid] = s.pg[tid];
+    if (int k = tid; k < dim) {
+      s.r[k] = mom[row * dim + k] / gsqrt(s.im[k]);
+      s.z[k] = s.pz[k];
+      s.g[k] = s.pg[k];
     }
     __syncthreads();
     const T H0 = Up + kinetic(s.im, s.r, dim);
     T U = Up;
     for (int l = 0; l < L; ++l) {
-      if (tid < dim) {
-        const T rh = s.r[tid] - T(0.5) * eps * s.g[tid];
-        s.r[tid] = rh;
-        s.z[tid] = s.z[tid] + eps * s.im[tid] * rh;
+      if (int k = tid; k < dim) {
+        const T rh = s.r[k] - T(0.5) * eps * s.g[k];
+        s.r[k] = rh;
+        s.z[k] = s.z[k] + eps * s.im[k] * rh;
       }
       __syncthreads();
-      vfe_bound(cf, s.z, X, y, Z, w, sh, &s.U, s.g, (T*)nullptr);
+      Core<T>::eval(cf, s.z, X, y, Z, w, sh, &s.U, s.g, (T*)nullptr);
       U = s.U;
-      if (tid < dim) s.r[tid] = s.r[tid] - T(0.5) * eps * s.g[tid];
+      if (int k = tid; k < dim) s.r[k] = s.r[k] - T(0.5) * eps * s.g[k];
       __syncthreads();
     }
 
@@ -119,7 +125,7 @@ mc_hmc_chunk_kernel(BoundCfg cf, HmcCfg hc, T* state, T* zio, T* gio,
                  flags[K + t] > 0, s.pz, s.im, s.wm, s.wm2, dim);
     acc_sum += accept;
     div_sum += diverging ? T(1) : T(0);
-    if (tid < dim) draws[row * dim + tid] = s.pz[tid];
+    if (int k = tid; k < dim) draws[row * dim + k] = s.pz[k];
     if (tid == 0) {
       T* st = stats + row * 6;
       st[0] = Up;
@@ -140,11 +146,11 @@ mc_hmc_chunk_kernel(BoundCfg cf, HmcCfg hc, T* state, T* zio, T* gio,
   if (tid == 0) store_state(state, a, Up, acc_sum, div_sum);
 }
 
-template <typename T>
-int launch_mc_hmc(const double* cfg, void* state, void* z, void* g, void* im,
-                  void* wm, void* wm2, const void* flags, const void* mom,
-                  const void* mh, const void* X, const void* y, const void* Z,
-                  void* draws, void* stats, void* scratch, void* stream) {
+template <template <typename> class Core, typename T>
+int launch_hmc(const double* cfg, void* state, void* z, void* g, void* im,
+               void* wm, void* wm2, const void* flags, const void* mom,
+               const void* mh, const void* X, const void* y, const void* Z,
+               void* draws, void* stats, void* scratch, void* stream) {
   const BoundCfg cf = bound_cfg(cfg);
   HmcCfg hc;
   hc.dim = (int)cfg[C_DIM];
@@ -153,7 +159,7 @@ int launch_mc_hmc(const double* cfg, void* state, void* z, void* g, void* im,
   hc.adapt_mass = (int)cfg[C_ADAPT_MASS];
   hc.num_leapfrog = (int)cfg[C_LEAPFROG];
   hc.target = cfg[C_TARGET];
-  mc_hmc_chunk_kernel<T><<<(int)cfg[C_CHAINS], kThreads, 0, (cudaStream_t)stream>>>(
+  mc_hmc_chunk_kernel<Core, T><<<(int)cfg[C_CHAINS], kThreads, 0, (cudaStream_t)stream>>>(
       cf, hc, (T*)state, (T*)z, (T*)g, (T*)im, (T*)wm, (T*)wm2,
       (const int*)flags, (const T*)mom, (const T*)mh, (const T*)X,
       (const T*)y, (const T*)Z, (T*)draws, (T*)stats, (T*)scratch);
@@ -172,6 +178,17 @@ int launch_mc_hmc(const double* cfg, void* state, void* z, void* g, void* im,
       scratch, stream
 
 extern "C" {
-int ggp_mc_hmc_chunk_f32(GGP_HMC_ARGS) { return ggp::launch_mc_hmc<float>(GGP_HMC_PASS); }
-int ggp_mc_hmc_chunk_f64(GGP_HMC_ARGS) { return ggp::launch_mc_hmc<double>(GGP_HMC_PASS); }
+// cfg[C_CHAINS] chains, one block each
+int ggp_hmc_chunk_vfe_f32(GGP_HMC_ARGS) {
+  return ggp::launch_hmc<ggp::VfeCore, float>(GGP_HMC_PASS);
+}
+int ggp_hmc_chunk_vfe_f64(GGP_HMC_ARGS) {
+  return ggp::launch_hmc<ggp::VfeCore, double>(GGP_HMC_PASS);
+}
+int ggp_hmc_chunk_sgpmc_f32(GGP_HMC_ARGS) {
+  return ggp::launch_hmc<ggp::SgpmcCore, float>(GGP_HMC_PASS);
+}
+int ggp_hmc_chunk_sgpmc_f64(GGP_HMC_ARGS) {
+  return ggp::launch_hmc<ggp::SgpmcCore, double>(GGP_HMC_PASS);
+}
 }

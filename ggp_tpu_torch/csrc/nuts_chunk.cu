@@ -1,30 +1,32 @@
-// Kernel 2: K transitions of iterative multinomial NUTS over the
-// (log-lengthscales, log-outputscale, log-noise) posterior of
-// BayesianSGPR_HMC, with Stan warmup adaptation in-kernel (adapt=1) or at a
-// fixed step size with per-draw outputs (adapt=0), for one chain per block.
+// Kernel 2: K transitions of iterative multinomial NUTS over a sampler
+// potential (template parameter `Core`: the collapsed bound of
+// BayesianSGPR_HMC over its d+2 log-hypers, VfeCore, or the whitened
+// JointHMC target over d+2+m, SgpmcCore), with Stan warmup adaptation
+// in-kernel (adapt=1) or at a fixed step size with per-draw outputs
+// (adapt=0), for one chain per block and cfg[C_CHAINS] chains per launch.
 //
 // Replaces: ggp_tpu/ops/fused_nuts.py `_warm_chunk_kernel_body` (the
 // `warm_call` pallas_call) and `_sample_chunk_kernel_body` (`sample_call`),
-// both built on `_transition_inkernel` and `_da_update_scalars` (entry
-// ggp_nuts_chunk_*, grid 1); and ggp_tpu/ops/fused_multichain.py
-// `_mc_nuts_warm_chunk_body` and `_mc_nuts_sample_chunk_body` (the NUTS
-// `warm_call`/`sample_call` of `make_fused_hmc_multichain`, built on
-// `_nuts_transition_batched`) for the "vfe" core (entry ggp_mc_nuts_chunk_*,
-// grid C).
+// both built on `_transition_inkernel` and `_da_update_scalars` (grid 1);
+// and ggp_tpu/ops/fused_multichain.py `_mc_nuts_warm_chunk_body` and
+// `_mc_nuts_sample_chunk_body` (the NUTS `warm_call`/`sample_call` of
+// `make_fused_hmc_multichain`, built on `_nuts_transition_batched`; grid
+// C); each for targets "vfe" and "sgpmc" (entries
+// ggp_nuts_chunk_{vfe,sgpmc}_{f32,f64}).
 //
 // What bounds it on the card: each chain is sequential. Every leapfrog is
-// one evaluation of the bound (vfe_bound.cuh: a latency chain of barriers
-// and L2 reads in one block, ~2.3 ms at N=404, M=100), and the tree logic
+// one evaluation of the core (a latency chain of barriers and L2 reads in
+// one block, ~2.3 ms for the bound at N=404, M=100), and the tree logic
 // between evaluations is a handful of dim-length vector operations. C
 // chains take C SMs of 132; a launch ends when its longest tree does.
 //
 // What the design does about it: the whole chunk stays in one launch (no
 // host round trip per transition or leapfrog), and block c runs chain c
 // alone: row c of every state array, rows t*C+c of every random slab and
-// output, and its own scratch area `scratch + c*work_elems(n, m, d)`, so the
+// output, and its own scratch area `scratch + c*Core::elems`, so the
 // chains never wait on one another inside the launch (the TPU kernel's
 // lock-step masking is not needed). C scratch areas stay in the 50 MB L2
-// for C*work_elems*sizeof(T) below it (8 chains at N=404, M=100 in f32:
+// for C*Core::elems*sizeof(T) below it (8 chains at N=404, M=100 in f32:
 // 7.5 MB). The tree state and the checkpoint slots live in shared memory,
 // and every scalar decision (tree direction, multinomial take, U-turn,
 // divergence, adaptation) is computed identically by every thread of the
@@ -69,7 +71,7 @@ __device__ __forceinline__ int trailing_ones(int x) {
   return __popc(low - 1u);
 }
 
-template <typename T>
+template <template <typename> class Core, typename T>
 __global__ void __launch_bounds__(kThreads)
 nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
                   T* wmio, T* wm2io, const int* flags, const T* mom,
@@ -81,8 +83,8 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
   const int c = blockIdx.x, C = gridDim.x;            // this block's chain
   const int dim = nc.dim, max_depth = nc.max_depth, K = nc.K;
   const int leaf_cols = 1 << max_depth;
-  const Work<T> w = make_work(scratch + (long)c * work_elems(cf.n, cf.m, cf.d),
-                              cf.n, cf.m, cf.d);
+  const typename Core<T>::WorkT w =
+      Core<T>::work(scratch + (long)c * Core<T>::elems(cf), cf);
   state += c * S_LEN;
   zio += c * dim;
   gio += c * dim;
@@ -105,21 +107,21 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
   for (int t = 0; t < K; ++t) {
     const long row = (long)t * C + c;                 // slab and output row
     if (t >= n_active) {
-      if (tid < dim) draws[row * dim + tid] = T(0);
+      if (int k = tid; k < dim) draws[row * dim + k] = T(0);
       if (tid < 6) stats[row * 6 + tid] = T(0);
       continue;
     }
     const T eps = nc.adapt ? gexp(a.le) : eps_fixed;
 
     // ---- one NUTS transition from (pz, Up, pg) ----
-    if (tid < dim) {
-      const T r0 = mom[row * dim + tid] / gsqrt(s.im[tid]);
-      s.lr[tid] = r0;
-      s.rr[tid] = r0;
-      s.lz[tid] = s.pz[tid];
-      s.rz[tid] = s.pz[tid];
-      s.lg[tid] = s.pg[tid];
-      s.rg[tid] = s.pg[tid];
+    if (int k = tid; k < dim) {
+      const T r0 = mom[row * dim + k] / gsqrt(s.im[k]);
+      s.lr[k] = r0;
+      s.rr[k] = r0;
+      s.lz[k] = s.pz[k];
+      s.rz[k] = s.pz[k];
+      s.lg[k] = s.pg[k];
+      s.rg[k] = s.pg[k];
     }
     __syncthreads();
     const T H0 = Up + kinetic(s.im, s.lr, dim);
@@ -132,12 +134,12 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
       const T u_swap = treeu[(row * max_depth + depth) * 2 + 1];
       const T dirf = u_dir < T(0.5) ? T(1) : T(-1);
       const bool fwd = dirf > T(0);
-      if (tid < dim) {
-        s.z[tid] = fwd ? s.rz[tid] : s.lz[tid];
-        s.r[tid] = fwd ? s.rr[tid] : s.lr[tid];
-        s.g[tid] = fwd ? s.rg[tid] : s.lg[tid];
-        s.qz[tid] = s.z[tid];
-        s.qg[tid] = s.g[tid];
+      if (int k = tid; k < dim) {
+        s.z[k] = fwd ? s.rz[k] : s.lz[k];
+        s.r[k] = fwd ? s.rr[k] : s.lr[k];
+        s.g[k] = fwd ? s.rg[k] : s.lg[k];
+        s.qz[k] = s.z[k];
+        s.qg[k] = s.g[k];
       }
       T cU = fwd ? rU : lU, qU = cU;
       __syncthreads();
@@ -149,17 +151,17 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
       T slogw = -ginf<T>(), sacc = T(0);
       bool sturn = false, sdiv = false;
       while (i < num_leaves && !sturn && !sdiv) {
-        if (tid < dim) {
-          const T rh = s.r[tid] - T(0.5) * eps_s * s.g[tid];
-          s.r[tid] = rh;
-          s.z[tid] = s.z[tid] + eps_s * s.im[tid] * rh;
+        if (int k = tid; k < dim) {
+          const T rh = s.r[k] - T(0.5) * eps_s * s.g[k];
+          s.r[k] = rh;
+          s.z[k] = s.z[k] + eps_s * s.im[k] * rh;
         }
         __syncthreads();
-        vfe_bound(cf, s.z, X, y, Z, w, sh, &s.U, s.g, (T*)nullptr);
+        Core<T>::eval(cf, s.z, X, y, Z, w, sh, &s.U, s.g, (T*)nullptr);
         cU = s.U;
-        if (tid < dim) {
-          s.r[tid] = s.r[tid] - T(0.5) * eps_s * s.g[tid];
-          s.v[tid] = s.im[tid] * s.r[tid];
+        if (int k = tid; k < dim) {
+          s.r[k] = s.r[k] - T(0.5) * eps_s * s.g[k];
+          s.v[k] = s.im[k] * s.r[k];
         }
         __syncthreads();
         T delta = cU + kinetic(s.im, s.r, dim) - H0;
@@ -176,9 +178,9 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
         }
         if ((i & 1) == 0) {
           const int slot = __popc(i);
-          if (tid < dim) {
-            s.zc[slot * kMaxDim + tid] = s.z[tid];
-            s.vc[slot * kMaxDim + tid] = s.v[tid];
+          if (int k = tid; k < dim) {
+            s.zc[slot * kMaxDim + k] = s.z[k];
+            s.vc[slot * kMaxDim + k] = s.v[k];
           }
         } else {
           const int hi = min(trailing_ones(i), max_depth) + 1;
@@ -241,7 +243,7 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
                  flags[K + t] > 0, s.pz, s.im, s.wm, s.wm2, dim);
     acc_sum += accept;
     div_sum += diverging ? T(1) : T(0);
-    if (tid < dim) draws[row * dim + tid] = s.pz[tid];
+    if (int k = tid; k < dim) draws[row * dim + k] = s.pz[k];
     if (tid == 0) {
       T* st = stats + row * 6;
       st[0] = Up;
@@ -262,8 +264,8 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
   if (tid == 0) store_state(state, a, Up, acc_sum, div_sum);
 }
 
-template <typename T>
-int launch_nuts(int chains, const double* cfg, void* state, void* z, void* g,
+template <template <typename> class Core, typename T>
+int launch_nuts(const double* cfg, void* state, void* z, void* g,
                 void* im, void* wm, void* wm2, const void* flags,
                 const void* mom, const void* treeu, const void* leafu,
                 const void* X, const void* y, const void* Z, void* draws,
@@ -276,7 +278,7 @@ int launch_nuts(int chains, const double* cfg, void* state, void* z, void* g,
   nc.adapt = (int)cfg[C_ADAPT];
   nc.adapt_mass = (int)cfg[C_ADAPT_MASS];
   nc.target = cfg[C_TARGET];
-  nuts_chunk_kernel<T><<<chains, kThreads, 0, (cudaStream_t)stream>>>(
+  nuts_chunk_kernel<Core, T><<<(int)cfg[C_CHAINS], kThreads, 0, (cudaStream_t)stream>>>(
       cf, nc, (T*)state, (T*)z, (T*)g, (T*)im, (T*)wm, (T*)wm2,
       (const int*)flags, (const T*)mom, (const T*)treeu, (const T*)leafu,
       (const T*)X, (const T*)y, (const T*)Z, (T*)draws, (T*)stats, (T*)scratch);
@@ -295,14 +297,17 @@ int launch_nuts(int chains, const double* cfg, void* state, void* z, void* g,
       stats, scratch, stream
 
 extern "C" {
-// one chain (grid 1)
-int ggp_nuts_chunk_f32(GGP_NUTS_ARGS) { return ggp::launch_nuts<float>(1, GGP_NUTS_PASS); }
-int ggp_nuts_chunk_f64(GGP_NUTS_ARGS) { return ggp::launch_nuts<double>(1, GGP_NUTS_PASS); }
 // cfg[C_CHAINS] chains, one block each
-int ggp_mc_nuts_chunk_f32(GGP_NUTS_ARGS) {
-  return ggp::launch_nuts<float>((int)cfg[ggp::C_CHAINS], GGP_NUTS_PASS);
+int ggp_nuts_chunk_vfe_f32(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::VfeCore, float>(GGP_NUTS_PASS);
 }
-int ggp_mc_nuts_chunk_f64(GGP_NUTS_ARGS) {
-  return ggp::launch_nuts<double>((int)cfg[ggp::C_CHAINS], GGP_NUTS_PASS);
+int ggp_nuts_chunk_vfe_f64(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::VfeCore, double>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_sgpmc_f32(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::SgpmcCore, float>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_sgpmc_f64(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::SgpmcCore, double>(GGP_NUTS_PASS);
 }
 }

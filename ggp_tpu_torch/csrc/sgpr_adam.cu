@@ -23,26 +23,9 @@
 // What the design does about it: the whole chunk is one launch with the
 // parameters and moments updated in place in global memory, so there is
 // no host round trip per step.
-#include "vfe_bound.cuh"
+#include "adam.cuh"
 
 namespace ggp {
-
-struct TrainCfg {
-  int K, s_act;
-  double lr, clip, min_noise, t0;
-};
-
-// optax.adam defaults (b1=0.9, b2=0.999, eps=1e-8, eps_root=0) with
-// non-finite gradient entries zeroed first (zero_nans extended to inf).
-template <typename T>
-__device__ __forceinline__ void adam_update(T& p, T g, T& mm, T& vv, T ta, T lr) {
-  if (!(gabs(g) <= T(3.0e38))) g = T(0);
-  mm = T(0.9) * mm + (T(1) - T(0.9)) * g;
-  vv = T(0.999) * vv + (T(1) - T(0.999)) * g * g;
-  const T bc1 = T(1) - gexp(ta * glog(T(0.9)));
-  const T bc2 = T(1) - gexp(ta * glog(T(0.999)));
-  p = p - lr * (mm / bc1) / (gsqrt(vv / bc2) + T(1e-8));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -139,17 +122,6 @@ z_adam_chunk_kernel(BoundCfg cf, TrainCfg tc, const T* thetas, T* Z, T* m_z,
     if (tid == 0) losses[t] = lacc;
     __syncthreads();
   }
-}
-
-inline TrainCfg train_cfg(const double* cfg) {
-  TrainCfg tc;
-  tc.K = (int)cfg[C_K];
-  tc.s_act = (int)cfg[C_S_ACT];
-  tc.lr = cfg[C_LR];
-  tc.clip = cfg[C_CLIP];
-  tc.min_noise = cfg[C_MIN_NOISE];
-  tc.t0 = cfg[C_T0];
-  return tc;
 }
 
 template <typename T>

@@ -10,7 +10,7 @@
 // ggp_tpu/inference/hmc.py `da_update` and `welford_*`.
 #pragma once
 
-#include "vfe_bound.cuh"
+#include "sgpmc_bound.cuh"
 
 namespace ggp {
 
@@ -20,9 +20,13 @@ enum StateIndex {
   S_U = 0, S_LE, S_LEA, S_H, S_MU, S_TDA, S_WFC, S_NACT, S_EPS, S_ACC, S_DIV, S_LEN
 };
 
+// One thread per entry of a state row: kThreads >= kMaxDim (static_assert in
+// vfe_bound.cuh), so thread k covers entry k of a row of any length up to
+// kMaxDim. (A loop strided over the block costs the f32 chunk kernels
+// registers they spill inside the core, ~20 % of NUTS time.)
 template <typename T>
 __device__ __forceinline__ void vcopy(T* dst, const T* src, int dim) {
-  if ((int)threadIdx.x < dim) dst[threadIdx.x] = src[threadIdx.x];
+  if (int k = threadIdx.x; k < dim) dst[k] = src[k];
 }
 
 // 0.5 r^T diag(im) r; every thread sums in the same order, so every thread
@@ -50,14 +54,13 @@ __device__ __forceinline__ Adapt<T> load_adapt(const T* state) {
 // the chain at zp: dual averaging of log eps, and with adapt_mass the
 // Welford window (in_w: add zp; w_end: new inverse mass from the window,
 // fresh window, dual averaging restarted at the current eps). Every thread
-// calls it with the same scalars and gets the same `a`; thread tid < dim
-// updates entry tid of im, wm and wm2 from zp[tid]. No barrier inside: the
+// calls it with the same scalars and gets the same `a`; thread k < dim
+// updates entry k of im, wm and wm2 from zp[k]. No barrier inside: the
 // caller synchronises before any thread reads another's entry.
 template <typename T>
 __device__ void stan_adapt(Adapt<T>& a, T accept, T target, bool adapt_mass,
                            bool in_w, bool w_end, const T* zp, T* im, T* wm,
                            T* wm2, int dim) {
-  const int tid = threadIdx.x;
   const T t1 = a.tda + T(1);
   const T h1 = (T(1) - T(1) / (t1 + T(10))) * a.h + (target - accept) / (t1 + T(10));
   const T le1 = a.mu - gsqrt(t1) / T(0.05) * h1;
@@ -67,22 +70,22 @@ __device__ void stan_adapt(Adapt<T>& a, T accept, T target, bool adapt_mass,
   if (adapt_mass) {
     const T cnt1 = a.wfc + T(1);
     T wfc1 = in_w ? cnt1 : a.wfc;
-    if (tid < dim) {
-      const T z = zp[tid];
-      const T delta = z - wm[tid];
-      const T mean1 = wm[tid] + delta / cnt1;
-      const T m21 = wm2[tid] + delta * (z - mean1);
-      T wm1 = in_w ? mean1 : wm[tid];
-      T wm21 = in_w ? m21 : wm2[tid];
+    if (int k = threadIdx.x; k < dim) {
+      const T z = zp[k];
+      const T delta = z - wm[k];
+      const T mean1 = wm[k] + delta / cnt1;
+      const T m21 = wm2[k] + delta * (z - mean1);
+      T wm1 = in_w ? mean1 : wm[k];
+      T wm21 = in_w ? m21 : wm2[k];
       if (w_end) {
         T var = wm21 / jmax(wfc1 - T(1), T(1));
         var = (wfc1 / (wfc1 + T(5))) * var + T(1e-3) * (T(5) / (wfc1 + T(5)));
-        im[tid] = var;
+        im[k] = var;
         wm1 = T(0);
         wm21 = T(0);
       }
-      wm[tid] = wm1;
-      wm2[tid] = wm21;
+      wm[k] = wm1;
+      wm2[k] = wm21;
     }
     if (w_end) {
       wfc1 = T(0);

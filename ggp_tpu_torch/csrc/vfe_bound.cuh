@@ -38,8 +38,10 @@
 namespace ggp {
 
 constexpr int kThreads = 256;   // threads of the single block; multiple of 32
-constexpr int kMaxDim = 128;    // d + 2 <= kMaxDim
+constexpr int kMaxDim = 128;    // state length (d + 2, or d + 2 + m) <= kMaxDim
 constexpr int kMaxDepth = 10;   // NUTS tree depth bound (checkpoint slots)
+static_assert(kThreads >= kMaxDim, "the sampler kernels give each entry of a "
+              "state row its own thread");
 
 // Layout of the `cfg` double array every launcher takes (mirrored by
 // ggp_tpu_torch/ops/_build.py).
@@ -549,5 +551,28 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
   }
   __syncthreads();
 }
+
+// A potential core as the sampler kernels take it (template parameter
+// `Core` of vfe_potential.cu, nuts_chunk.cu, mc_hmc_chunk.cu): the length
+// of a state row, the global scratch of one evaluation, and the block-wide
+// evaluation of U, dU/dz (and dU/dZ). This one is the collapsed bound over
+// the d+2 log-hypers; SgpmcCore (sgpmc_bound.cuh) the whitened JointHMC
+// target.
+template <typename T>
+struct VfeCore {
+  using WorkT = Work<T>;
+  static __host__ __device__ int dim(const BoundCfg& cf) { return cf.d + 2; }
+  static __host__ __device__ long elems(const BoundCfg& cf) {
+    return work_elems(cf.n, cf.m, cf.d);
+  }
+  static __device__ WorkT work(T* s, const BoundCfg& cf) {
+    return make_work(s, cf.n, cf.m, cf.d);
+  }
+  static __device__ void eval(const BoundCfg& cf, const T* z, const T* X,
+                              const T* y, const T* Z, const WorkT& w,
+                              BoundShared<T>& sh, T* U, T* g, T* dZ) {
+    vfe_bound(cf, z, X, y, Z, w, sh, U, g, dZ);
+  }
+};
 
 }  // namespace ggp

@@ -1,6 +1,7 @@
 """NUTS and HMC samplers with Stan warmup, run in chunks of K transitions:
-one chain through :func:`ggp_tpu_torch.ops.nuts_chunk.nuts_chunk`, C chains
-through the chunk of :func:`ggp_tpu_torch.ops.multichain.make_multichain`.
+one chain through :func:`ggp_tpu_torch.ops.nuts_chunk.nuts_chunk` or
+:func:`ggp_tpu_torch.ops.multichain.hmc_chunk`, C chains through the chunk
+of :func:`ggp_tpu_torch.ops.multichain.make_multichain`.
 
 Counterpart of ``ggp_tpu/inference/hmc.py``: ``NUTSConfig``,
 ``warmup_schedule``, ``da_init``/``da_update``, the Welford helpers,
@@ -19,7 +20,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.multichain import MultichainKernels, draw_mc_slabs
+from ..ops.multichain import MultichainKernels, draw_mc_slabs, hmc_chunk
 from ..ops.nuts_chunk import STAT_FIELDS, ChainState, draw_slabs, nuts_chunk
 
 __all__ = ["NUTSConfig", "warmup_schedule", "DAState", "da_init", "da_update",
@@ -143,10 +144,15 @@ def find_reasonable_step_size(potential_vg: Callable, z, U_z, g_z, r0,
 
 def single_chain_fused(potential_vg: Callable, X, y, Z, jitter, z0,
                        generator: torch.Generator, cfg: NUTSConfig,
-                       prior_spec=None):
-    """Warmup then sampling of one chain in chunks of ``cfg.chunk``
-    transitions, each chunk one call of :func:`nuts_chunk` (one kernel
-    launch on the card). Returns (draws (num_samples, dim), stats dict)."""
+                       prior_spec=None, core="vfe"):
+    """Warmup then sampling of one chain on the potential of ``core`` in
+    chunks of ``cfg.chunk`` transitions, each chunk one kernel launch on
+    the card: :func:`nuts_chunk` for ``cfg.algorithm == "nuts"``,
+    :func:`~ggp_tpu_torch.ops.multichain.hmc_chunk` (L = ``cfg.num_leapfrog``)
+    for ``"hmc"``. Both draw the same slabs per chunk (``draw_slabs``); HMC
+    takes its momenta from ``mom`` and its Metropolis uniform of step t
+    from ``treeu[t, 0, 0]``, the JAX kernels' single-chain layout.
+    Returns (draws (num_samples, dim), stats dict)."""
     dim = z0.shape[0]
     dt, dev = z0.dtype, z0.device
     K = cfg.chunk
@@ -161,8 +167,20 @@ def single_chain_fused(potential_vg: Callable, X, y, Z, jitter, z0,
                        log_eps=da.log_eps, log_eps_avg=da.log_eps_avg,
                        h_avg=da.h_avg, mu=da.mu, t_da=da.t, wf_mean=wf.mean,
                        wf_m2=wf.m2, wf_count=wf.count)
-    common = dict(max_depth=cfg.max_depth, target_accept=cfg.target_accept,
-                  adapt_mass=cfg.adapt_mass, prior_spec=prior_spec)
+    if cfg.algorithm not in ("nuts", "hmc"):
+        raise ValueError(f"algorithm must be 'nuts' or 'hmc', got {cfg.algorithm!r}")
+    common = dict(target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
+                  prior_spec=prior_spec, core=core)
+
+    def chunk(state, **kw):
+        mom, treeu, leafu = draw_slabs(K, dim, cfg.max_depth, generator,
+                                       dtype=dt, device=dev)
+        if cfg.algorithm == "hmc":
+            return hmc_chunk(state, X, y, Z, jitter, mom=mom,
+                             mh=treeu[:, 0, 0].contiguous(),
+                             num_leapfrog=cfg.num_leapfrog, **common, **kw)
+        return nuts_chunk(state, X, y, Z, jitter, mom=mom, treeu=treeu,
+                          leafu=leafu, max_depth=cfg.max_depth, **common, **kw)
 
     in_w, w_end = warmup_schedule(cfg.num_warmup)
     n_wchunks = -(-cfg.num_warmup // K)
@@ -170,23 +188,15 @@ def single_chain_fused(potential_vg: Callable, X, y, Z, jitter, z0,
     in_w = torch.as_tensor(np.concatenate([in_w, np.zeros(pad, bool)]), device=dev)
     w_end = torch.as_tensor(np.concatenate([w_end, np.zeros(pad, bool)]), device=dev)
     for c in range(n_wchunks):
-        mom, treeu, leafu = draw_slabs(K, dim, cfg.max_depth, generator,
-                                       dtype=dt, device=dev)
-        state, _, _ = nuts_chunk(
-            state, X, y, Z, jitter, mom=mom, treeu=treeu, leafu=leafu,
-            n_active=min(K, cfg.num_warmup - c * K), adapt=True,
-            in_window=in_w[c * K:(c + 1) * K],
-            window_end=w_end[c * K:(c + 1) * K], **common)
+        state, _, _ = chunk(state, n_active=min(K, cfg.num_warmup - c * K),
+                            adapt=True, in_window=in_w[c * K:(c + 1) * K],
+                            window_end=w_end[c * K:(c + 1) * K])
     eps = torch.exp(state.log_eps_avg)
 
     draws, stats = [], []
     for c in range(-(-cfg.num_samples // K)):
-        mom, treeu, leafu = draw_slabs(K, dim, cfg.max_depth, generator,
-                                       dtype=dt, device=dev)
-        state, zs, st = nuts_chunk(
-            state, X, y, Z, jitter, mom=mom, treeu=treeu, leafu=leafu,
-            n_active=min(K, cfg.num_samples - c * K), adapt=False, eps=eps,
-            **common)
+        state, zs, st = chunk(state, n_active=min(K, cfg.num_samples - c * K),
+                              adapt=False, eps=eps)
         draws.append(zs)
         stats.append(st)
     zs = torch.cat(draws)[:cfg.num_samples]

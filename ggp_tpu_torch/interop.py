@@ -3,8 +3,11 @@
 ``params_from_jax`` turns the JAX model's hyper pytree (as numpy arrays:
 ``{"kernel": {"base": {"log_lengthscale": (d,)}, "log_outputscale": ()},
 "log_noise": ()}``) and Z into the port's flat ``theta`` (d+2,) and Z;
-``params_to_numpy`` goes back. Both accept a leading sample axis, so a
-hyper trace converts the same way. The tests use them so that both
+``params_to_numpy`` goes back. ``sgpmc_state_from_jax`` and
+``sgpmc_state_to_numpy`` do the same for the SGPMC state (``{"kernel",
+"lik": {"log_noise"}, "mean": {}, "v"}``) and its flat row ``[log_ls (d),
+log_os, log_noise, v (m)]`` (``ravel_pytree`` order). All accept a leading
+sample axis, so a trace converts the same way. The tests use them so that both
 packages compute from identical state.
 """
 
@@ -13,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "sgpmc_state_from_jax",
+           "sgpmc_state_to_numpy"]
 
 
 def params_from_jax(hypers: dict, Z=None, *, dtype=torch.float64,
@@ -39,3 +43,26 @@ def params_to_numpy(theta: torch.Tensor, Z: torch.Tensor | None = None):
     if Z is None:
         return hypers
     return hypers, Z.detach().cpu().numpy()
+
+
+def sgpmc_state_from_jax(state: dict, Z=None, *, dtype=torch.float64,
+                         device="cpu"):
+    """The flat SGPMC state row(s) (and Z) from the JAX state dict (numpy
+    leaves)."""
+    hypers = {"kernel": state["kernel"], "log_noise": state["lik"]["log_noise"]}
+    theta = params_from_jax(hypers, dtype=dtype, device=device)
+    v = torch.as_tensor(np.asarray(state["v"]), dtype=dtype, device=device)
+    flat = torch.cat([theta, v], dim=-1)
+    if Z is None:
+        return flat
+    return flat, torch.as_tensor(np.asarray(Z), dtype=dtype, device=device)
+
+
+def sgpmc_state_to_numpy(flat: torch.Tensor, d: int, Z: torch.Tensor | None = None):
+    """The JAX SGPMC state dict (numpy leaves) from flat row(s) (and Z)."""
+    hypers = params_to_numpy(flat[..., :d + 2])
+    state = {"kernel": hypers["kernel"], "lik": {"log_noise": hypers["log_noise"]},
+             "mean": {}, "v": flat[..., d + 2:].detach().cpu().numpy()}
+    if Z is None:
+        return state
+    return state, Z.detach().cpu().numpy()

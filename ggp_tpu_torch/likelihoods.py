@@ -25,5 +25,10 @@ class GaussianLikelihood:
         s2 = self.noise(params)
         return -0.5 * (torch.log(2.0 * math.pi * s2) + (y - f) ** 2 / s2)
 
+    def variational_expectation(self, params, mu, var, y):
+        """E_{N(f | mu, var)}[log p(y | f)] in closed form."""
+        s2 = self.noise(params)
+        return -0.5 * (torch.log(2.0 * math.pi * s2) + ((y - mu) ** 2 + var) / s2)
+
     def predictive(self, params, mu, var):
         return mu, var + self.noise(params)

@@ -8,7 +8,12 @@ name keyed by a hash of the sources, so an edited source is never served
 by a stale library. A failed build raises.
 
 Every wrapper that launches a kernel adds one to its entry of
-:data:`LAUNCHES` right where it launches, and nowhere else.
+:data:`LAUNCHES` right where it launches, and nowhere else. The sampler
+kernels take the potential core as a template parameter and have one entry
+per core and dtype (``ggp_{kind}_{core}_{f32,f64}``); their counters name
+the core (:func:`launch_key`). Each source is compiled with ``-Xptxas -v``;
+the compiler's report of registers, shared memory and spills is kept beside
+the library (:func:`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -21,12 +26,26 @@ import subprocess
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "kernel_fn", "cfg_array",
-           "check", "stream_ptr", "scratch", "ptr", "require_cuda", "CFG"]
+__all__ = ["LAUNCHES", "reset_launches", "launch_key", "build", "kernel_fn",
+           "cfg_array", "check", "stream_ptr", "scratch", "ptr",
+           "require_cuda", "ptxas_report", "CFG"]
 
-LAUNCHES = {"vfe_potential": 0, "nuts_chunk": 0, "sgpr_adam_chunk": 0,
-            "z_adam_chunk": 0, "mc_potential": 0, "mc_hmc_chunk": 0,
-            "mc_nuts_chunk": 0}
+# what a sampler wrapper launches: one row or chain, or C of them
+_SAMPLER_KINDS = ("potential", "nuts_chunk", "hmc_chunk", "mc_potential",
+                  "mc_nuts_chunk", "mc_hmc_chunk")
+_CORE_ID = {"vfe": 0, "sgpmc": 1}       # csrc vfe_potential.cu ggp_scratch_elems
+
+
+def launch_key(core: str, kind: str) -> str:
+    """The :data:`LAUNCHES` key of a sampler wrapper of ``core``; the vfe
+    core keeps the names of the first slices."""
+    if core == "vfe":
+        return "vfe_potential" if kind == "potential" else kind
+    return f"{core}_{kind}"
+
+
+LAUNCHES = {**{launch_key(c, k): 0 for c in _CORE_ID for k in _SAMPLER_KINDS},
+            "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "sgpmc_warm_chunk": 0}
 
 
 def reset_launches() -> None:
@@ -47,13 +66,12 @@ _LIB = None
 
 _P = ctypes.c_void_p
 _SIGS = {
-    "ggp_vfe_potential": [_P] * 9,
-    "ggp_nuts_chunk": [_P] * 18,
+    **{f"ggp_potential_{c}": [_P] * 9 for c in _CORE_ID},
+    **{f"ggp_nuts_chunk_{c}": [_P] * 18 for c in _CORE_ID},
+    **{f"ggp_hmc_chunk_{c}": [_P] * 17 for c in _CORE_ID},
     "ggp_sgpr_adam": [_P] * 12,
     "ggp_z_adam": [_P] * 10,
-    "ggp_mc_potential": [_P] * 9,
-    "ggp_mc_hmc_chunk": [_P] * 17,
-    "ggp_mc_nuts_chunk": [_P] * 18,
+    "ggp_sgpmc_warm": [_P] * 12,
 }
 
 
@@ -86,12 +104,15 @@ def build() -> ctypes.CDLL:
             obj = os.path.join(_BUILD, f"{os.path.basename(src)[:-3]}.{tag}.o")
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [_nvcc(), *arch, "-c", "-Xcompiler", "-fPIC", "-o", obj, src],
+                [_nvcc(), *arch, "-Xptxas", "-v", "-c", "-Xcompiler", "-fPIC",
+                 "-o", obj, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
         failed = [f"{src}:\n{log}" for src, log, rc in logs if rc != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        with open(out[:-3] + ".ptxas.txt", "w") as f:
+            f.writelines(f"== {os.path.basename(src)}\n{log}" for src, log, _ in logs)
         tmp = out + f".tmp{os.getpid()}"
         res = subprocess.run([_nvcc(), *arch, "-shared", "-o", tmp, *objs],
                              capture_output=True, text=True)
@@ -112,9 +133,16 @@ def _load(path: str) -> ctypes.CDLL:
             fn = getattr(lib_, f"{base}_{suf}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib_.ggp_scratch_elems.argtypes = [ctypes.c_int] * 3
+    lib_.ggp_scratch_elems.argtypes = [ctypes.c_int] * 4
     lib_.ggp_scratch_elems.restype = ctypes.c_long
     return lib_
+
+
+def ptxas_report() -> str:
+    """What ``-Xptxas -v`` printed when the loaded library was built:
+    registers, shared memory and spills of every kernel instantiation."""
+    with open(build()._name[:-3] + ".ptxas.txt") as f:
+        return f.read()
 
 
 def kernel_fn(base: str, dtype: torch.dtype):
@@ -144,11 +172,11 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 
 
 def scratch(n: int, m: int, d: int, extra: int, like: torch.Tensor,
-            chains: int = 1) -> torch.Tensor:
-    """Global-memory work space of one bound evaluation per chain plus
+            chains: int = 1, core: str = "vfe") -> torch.Tensor:
+    """Global-memory work space of one evaluation of ``core`` per chain plus
     ``extra``. The chain count has no cap of its own: where the card cannot
     hold the C areas, the allocation raises ``torch.OutOfMemoryError``."""
-    elems = chains * int(build().ggp_scratch_elems(n, m, d)) + extra
+    elems = chains * int(build().ggp_scratch_elems(_CORE_ID[core], n, m, d)) + extra
     return torch.empty(elems, dtype=like.dtype, device=like.device)
 
 

@@ -4,7 +4,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["add_jitter", "safe_cholesky", "tri_solve"]
+__all__ = ["add_jitter", "safe_cholesky", "tri_solve", "chol_upper",
+           "capped_inv_ls"]
+
+_INV_LS_CAP_NUM = 1024.0
 
 
 def add_jitter(K: torch.Tensor, jitter: float, relative: bool = False) -> torch.Tensor:
@@ -36,3 +39,37 @@ def tri_solve(L: torch.Tensor, b: torch.Tensor, lower: bool = True,
     A = L.transpose(-2, -1) if trans else L
     x = torch.linalg.solve_triangular(A, B, upper=(lower == trans))
     return x.squeeze(-1) if vec else x
+
+
+def chol_upper(K: torch.Tensor, pivot_floor=None) -> torch.Tensor:
+    """U = chol(K)^T. Without ``pivot_floor`` a non-positive-definite K
+    gives NaN (sampler divergence semantics). With it, the modified
+    Cholesky of ``block_chol_u(..., pivot_floor=...)``: a pivot below the
+    floor becomes a sqrt(floor) e_i row and its elimination is skipped."""
+    if pivot_floor is None:
+        return safe_cholesky(K).T
+    floor = torch.as_tensor(pivot_floor, dtype=K.dtype, device=K.device)
+    L, info = torch.linalg.cholesky_ex(K)
+    if int(info) == 0 and bool((torch.diagonal(L) ** 2 >= floor).all()):
+        return L.T                  # no pivot reaches the floor
+    m = K.shape[0]
+    P = K.clone()
+    U = torch.zeros_like(K)
+    for i in range(m):
+        dp = P[i, i]
+        if bool(dp >= floor):
+            row = P[i, i:] * torch.rsqrt(dp)
+            U[i, i:] = row
+            P[i + 1:, i + 1:] -= torch.outer(row[1:], row[1:])
+        else:
+            U[i, i] = torch.sqrt(floor)
+    return U
+
+
+def capped_inv_ls(log_ls: torch.Tensor, X: torch.Tensor,
+                  Z: torch.Tensor) -> torch.Tensor:
+    """exp(-log_ls) capped at 1024 / max(1e-3, max|X|, max|Z|), the fused
+    cores' guard (``fused_bound.capped_inv_ls``): beyond the cap the norm
+    expansion of the squared distances loses all accuracy in float32."""
+    scale = torch.clamp(torch.maximum(X.abs().max(), Z.abs().max()), min=1e-3)
+    return torch.minimum(torch.exp(-log_ls), _INV_LS_CAP_NUM / scale)

@@ -1,13 +1,18 @@
-"""C chains at once on the collapsed-bound potential: plain PyTorch beside
+"""C chains at once on a sampler potential (``core="vfe"``, the collapsed
+bound, or ``"sgpmc"``, the whitened JointHMC target): plain PyTorch beside
 the CUDA kernels ``mc_potential`` (kernel 1 at grid C), ``mc_hmc_chunk``
 (kernel 5, ``csrc/mc_hmc_chunk.cu``) and ``mc_nuts_chunk`` (kernel 2 at
-grid C, ``csrc/nuts_chunk.cu``), one thread block per chain on the card.
+grid C, ``csrc/nuts_chunk.cu``), one thread block per chain on the card;
+and :func:`hmc_chunk`, one chain of fixed-leapfrog HMC on kernel 5 at
+grid 1.
 
-Counterpart of ``ggp_tpu/ops/fused_multichain.py`` for the ``"vfe"`` core:
+Counterpart of ``ggp_tpu/ops/fused_multichain.py`` for the ``"vfe"`` and
+``"sgpmc"`` cores (``_rbf_vfe_batched_vg``, ``_sgpmc_batched_vg``):
 ``_mc_potential_body``, ``_mc_warm_chunk_body``/``_mc_sample_chunk_body``
 (``_hmc_transition_batched`` with ``_stan_adapt_rows``) and
 ``_mc_nuts_warm_chunk_body``/``_mc_nuts_sample_chunk_body``
-(``_nuts_transition_batched``). The JAX kernels advance C chains in lock
+(``_nuts_transition_batched``); and of the fixed-leapfrog HMC chunks of
+``ggp_tpu/ops/fused_nuts.py`` (``_hmc_transition_inkernel``). The JAX kernels advance C chains in lock
 step inside one program; per chain that changes nothing (the JAX package's
 tests show the batched NUTS transition equal, bit for bit, to each chain run
 alone), so the plain NUTS chunk here runs the single-chain transition of
@@ -34,7 +39,6 @@ the current step size.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 from typing import Callable, NamedTuple
@@ -43,14 +47,14 @@ import torch
 
 from . import _build
 from .nuts_chunk import (DIVERGENCE_THRESHOLD, MAX_DEPTH, ChainState,
-                         _transition, launch_chunk)
-from .vfe_bound import _check_shapes, bound_cfg, rbf_vfe_neg_logpost_vg
+                         _transition, as_batch, first_chain, launch_chunk)
+from .vfe_bound import _check_shapes, call_potential, neg_logpost_vg
 
 __all__ = ["draw_mc_slabs", "mc_potential_plain", "mc_potential",
            "hmc_transition_rows", "stan_adapt_rows", "hmc_chunk_rows",
            "nuts_chunk_rows", "mc_hmc_chunk_plain", "mc_hmc_chunk",
-           "mc_nuts_chunk_plain", "mc_nuts_chunk", "MultichainKernels",
-           "make_multichain", "MAX_M", "CHUNK"]
+           "hmc_chunk", "mc_nuts_chunk_plain", "mc_nuts_chunk",
+           "MultichainKernels", "make_multichain", "MAX_M", "CHUNK"]
 
 # Inducing points of the JAX package's chain-batched kernels
 # (fused_multichain_supported); beyond it the JAX package samples C chains
@@ -74,38 +78,28 @@ def draw_mc_slabs(K, C, dim, *, algorithm, max_depth, generator, dtype,
 
 # -- potential -----------------------------------------------------------------
 
-def mc_potential_plain(thetas, X, y, Z, jitter, *, prior_spec=None):
-    """U (C,) and dU/dtheta (C, dim) of
-    :func:`~ggp_tpu_torch.ops.vfe_bound.rbf_vfe_neg_logpost_vg` per row."""
-    outs = [rbf_vfe_neg_logpost_vg(th, X, y, Z, jitter, prior_spec=prior_spec)
+def mc_potential_plain(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
+    """U (C,) and dU/dz (C, dim) of the potential of ``core``
+    (:func:`~ggp_tpu_torch.ops.vfe_bound.neg_logpost_vg`) per row."""
+    outs = [neg_logpost_vg(core, th, X, y, Z, jitter, prior_spec=prior_spec)
             for th in thetas]
     return torch.stack([u for u, _ in outs]), torch.stack([g for _, g in outs])
 
 
-def mc_potential(thetas, X, y, Z, jitter, *, prior_spec=None):
+def mc_potential(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
     """:func:`mc_potential_plain` on CPU tensors; on CUDA tensors one launch
     of kernel 1 (``csrc/vfe_potential.cu``) with one block per row, or a
     raise."""
     if thetas.ndim != 2:
-        raise ValueError("mc_potential: thetas must be (C, d+2)")
-    _check_shapes("mc_potential", thetas[0], X, y, Z)
+        raise ValueError("mc_potential: thetas must be (C, dim)")
+    _check_shapes(f"{core} mc_potential", thetas[0], X, y, Z, core)
     if X.device.type == "cpu":
-        return mc_potential_plain(thetas, X, y, Z, jitter, prior_spec=prior_spec)
+        return mc_potential_plain(thetas, X, y, Z, jitter, prior_spec=prior_spec,
+                                  core=core)
     _build.require_cuda("mc_potential", X.dtype, thetas, X, y, Z)
-    n, d = X.shape
-    m = Z.shape[0]
-    C = thetas.shape[0]
-    out = torch.empty((C, d + 3), dtype=X.dtype, device=X.device)
-    work = _build.scratch(n, m, d, 0, X, chains=C)
-    cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
-                    pivot_floor=None, prior_spec=prior_spec, CHAINS=C)
-    P = _build.ptr
-    err = _build.kernel_fn("ggp_mc_potential", X.dtype)(
-        ctypes.cast(cfg, ctypes.c_void_p), P(thetas), P(X), P(y), P(Z), P(out),
-        P(None), P(work), _build.stream_ptr(X.device))
-    _build.check(err, "mc_potential")
-    _build.LAUNCHES["mc_potential"] += 1
-    return out[:, 0].contiguous(), out[:, 1:].contiguous()
+    out = call_potential(core, thetas, X, y, Z, jitter, prior_spec=prior_spec)
+    _build.LAUNCHES[_build.launch_key(core, "mc_potential")] += 1
+    return out
 
 
 # -- transitions and adaptation on chain rows -----------------------------------
@@ -247,25 +241,29 @@ def nuts_chunk_rows(pot, state: ChainState, *, mom, treeu, leafu, n_active,
 
 # -- chunks on the collapsed bound: plain versions and wrappers -----------------
 
-def mc_hmc_chunk_plain(state, X, y, Z, jitter, *, prior_spec=None, **kw):
+def mc_hmc_chunk_plain(state, X, y, Z, jitter, *, prior_spec=None, core="vfe",
+                       **kw):
     """:func:`hmc_chunk_rows` on :func:`mc_potential_plain`."""
     def pot(z):
-        return mc_potential_plain(z, X, y, Z, jitter, prior_spec=prior_spec)
+        return mc_potential_plain(z, X, y, Z, jitter, prior_spec=prior_spec,
+                                  core=core)
     return hmc_chunk_rows(pot, state, **kw)
 
 
-def mc_nuts_chunk_plain(state, X, y, Z, jitter, *, prior_spec=None, **kw):
+def mc_nuts_chunk_plain(state, X, y, Z, jitter, *, prior_spec=None, core="vfe",
+                        **kw):
     """:func:`nuts_chunk_rows` on :func:`mc_potential_plain`."""
     def pot(z):
-        return mc_potential_plain(z, X, y, Z, jitter, prior_spec=prior_spec)
+        return mc_potential_plain(z, X, y, Z, jitter, prior_spec=prior_spec,
+                                  core=core)
     return nuts_chunk_rows(pot, state, **kw)
 
 
 def _check_chunk(name, state, X, y, Z, mom, adapt, adapt_mass, in_window,
-                 window_end, eps):
+                 window_end, eps, core):
     if state.z.ndim != 2 or mom.ndim != 3 or mom.shape[1:] != state.z.shape:
         raise ValueError(f"{name}: state.z must be (C, dim) and mom (K, C, dim)")
-    _check_shapes(name, state.z[0], X, y, Z)
+    _check_shapes(name, state.z[0], X, y, Z, core)
     if adapt and adapt_mass and (in_window is None or window_end is None):
         raise ValueError(f"{name}: adapt_mass needs in_window and window_end")
     if not adapt and eps is None:
@@ -276,43 +274,77 @@ def _state_tensors(state):
     return [getattr(state, f.name) for f in dataclasses.fields(state)]
 
 
+def _hmc_launch(key, state, X, y, Z, jitter, *, mom, mh, num_leapfrog,
+                target_accept, adapt_mass, prior_spec, core, **kw):
+    """Kernel 5 on the C chains of ``state``, counted under ``key``."""
+    _build.require_cuda("hmc_chunk", X.dtype, *_state_tensors(state), X, y, Z,
+                        mom, mh)
+    out = launch_chunk("hmc_chunk", core, state, X, y, Z, jitter, (mom, mh),
+                       prior_spec=prior_spec, stream=_build.stream_ptr(X.device),
+                       LEAPFROG=num_leapfrog, TARGET=target_accept,
+                       ADAPT_MASS=int(adapt_mass), **kw)
+    _build.LAUNCHES[key] += 1
+    return out
+
+
 def mc_hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active,
                  adapt, eps=None, in_window=None, window_end=None,
                  num_leapfrog=10, target_accept=0.8, adapt_mass=True,
-                 prior_spec=None):
+                 prior_spec=None, core="vfe"):
     """:func:`mc_hmc_chunk_plain` on CPU tensors; on CUDA tensors kernel 5
     (``csrc/mc_hmc_chunk.cu``, the whole chunk of all C chains in one
     launch, one block per chain), or a raise. ``eps`` (C,) is the fixed
     per-chain step size of a sample chunk."""
-    _check_chunk("mc_hmc_chunk", state, X, y, Z, mom, adapt, adapt_mass,
-                 in_window, window_end, eps)
+    _check_chunk(f"{core} mc_hmc_chunk", state, X, y, Z, mom, adapt, adapt_mass,
+                 in_window, window_end, eps, core)
     if mh.shape != mom.shape[:2]:
         raise ValueError("mc_hmc_chunk: mh must be (K, C)")
     kw = dict(n_active=n_active, adapt=adapt, eps=eps, in_window=in_window,
-              window_end=window_end)
+              window_end=window_end, mom=mom, mh=mh, num_leapfrog=num_leapfrog,
+              target_accept=target_accept, adapt_mass=adapt_mass,
+              prior_spec=prior_spec, core=core)
     if X.device.type == "cpu":
-        return mc_hmc_chunk_plain(state, X, y, Z, jitter, prior_spec=prior_spec,
-                                  mom=mom, mh=mh, num_leapfrog=num_leapfrog,
-                                  target_accept=target_accept,
-                                  adapt_mass=adapt_mass, **kw)
-    _build.require_cuda("mc_hmc_chunk", X.dtype, *_state_tensors(state), X, y,
-                        Z, mom, mh)
-    out = launch_chunk("ggp_mc_hmc_chunk", state, X, y, Z, jitter, (mom, mh),
-                       prior_spec=prior_spec, stream=_build.stream_ptr(X.device),
-                       LEAPFROG=num_leapfrog, TARGET=target_accept,
-                       ADAPT_MASS=int(adapt_mass), **kw)
-    _build.LAUNCHES["mc_hmc_chunk"] += 1
-    return out
+        return mc_hmc_chunk_plain(state, X, y, Z, jitter, **kw)
+    return _hmc_launch(_build.launch_key(core, "mc_hmc_chunk"), state, X, y, Z,
+                       jitter, **kw)
+
+
+def hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active, adapt,
+              eps=None, in_window=None, window_end=None, num_leapfrog=10,
+              target_accept=0.8, adapt_mass=True, prior_spec=None, core="vfe"):
+    """One chain of fixed-leapfrog HMC (the single-chain HMC chunks of
+    ``fused_nuts.make_fused_nuts(algorithm="hmc")``): ``state`` without a
+    chain axis, ``mom`` (K, dim), Metropolis uniforms ``mh`` (K,), ``eps``
+    a scalar. :func:`mc_hmc_chunk_plain` on a batch of one for CPU tensors;
+    kernel 5 at grid 1 for CUDA tensors. Returns (state, draws (K, dim),
+    stats (K, 6))."""
+    _check_shapes(f"{core} hmc_chunk", state.z, X, y, Z, core)
+    if mom.shape[1:] != state.z.shape or mh.shape != mom.shape[:1]:
+        raise ValueError("hmc_chunk: slabs must be mom (K, dim) and mh (K,)")
+    if not adapt and eps is None:
+        raise ValueError("hmc_chunk: a sample chunk needs eps")
+    kw = dict(n_active=n_active, adapt=adapt,
+              eps=None if eps is None else torch.as_tensor(eps).reshape(1),
+              in_window=in_window, window_end=window_end, mom=mom[:, None],
+              mh=mh[:, None], num_leapfrog=num_leapfrog,
+              target_accept=target_accept, adapt_mass=adapt_mass,
+              prior_spec=prior_spec, core=core)
+    if X.device.type == "cpu":
+        new, draws, stats = mc_hmc_chunk_plain(as_batch(state), X, y, Z, jitter, **kw)
+    else:
+        new, draws, stats = _hmc_launch(_build.launch_key(core, "hmc_chunk"),
+                                        as_batch(state), X, y, Z, jitter, **kw)
+    return first_chain(new), draws[:, 0], stats[:, 0]
 
 
 def mc_nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                   n_active, adapt, eps=None, in_window=None, window_end=None,
                   max_depth=8, target_accept=0.8, adapt_mass=True,
-                  prior_spec=None):
+                  prior_spec=None, core="vfe"):
     """:func:`mc_nuts_chunk_plain` on CPU tensors; on CUDA tensors kernel 2
     (``csrc/nuts_chunk.cu``) at grid C, one block per chain, or a raise."""
-    _check_chunk("mc_nuts_chunk", state, X, y, Z, mom, adapt, adapt_mass,
-                 in_window, window_end, eps)
+    _check_chunk(f"{core} mc_nuts_chunk", state, X, y, Z, mom, adapt, adapt_mass,
+                 in_window, window_end, eps, core)
     K, C, _ = mom.shape
     if treeu.shape != (K, C, max_depth, 2) or leafu.shape != (K, C, 1 << max_depth):
         raise ValueError("mc_nuts_chunk: slab shapes do not fit (K, C, "
@@ -326,14 +358,14 @@ def mc_nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                                    mom=mom, treeu=treeu, leafu=leafu,
                                    max_depth=max_depth,
                                    target_accept=target_accept,
-                                   adapt_mass=adapt_mass, **kw)
+                                   adapt_mass=adapt_mass, core=core, **kw)
     _build.require_cuda("mc_nuts_chunk", X.dtype, *_state_tensors(state), X, y,
                         Z, mom, treeu, leafu)
-    out = launch_chunk("ggp_mc_nuts_chunk", state, X, y, Z, jitter,
+    out = launch_chunk("nuts_chunk", core, state, X, y, Z, jitter,
                        (mom, treeu, leafu), prior_spec=prior_spec,
                        stream=_build.stream_ptr(X.device), MAX_DEPTH=max_depth,
                        TARGET=target_accept, ADAPT_MASS=int(adapt_mass), **kw)
-    _build.LAUNCHES["mc_nuts_chunk"] += 1
+    _build.LAUNCHES[_build.launch_key(core, "mc_nuts_chunk")] += 1
     return out
 
 
@@ -358,9 +390,10 @@ class MultichainKernels(NamedTuple):
 
 def make_multichain(X, y, Z, jitter, *, num_chains, algo="hmc",
                     num_leapfrog=10, max_depth=8, target_accept=0.8,
-                    adapt_mass=True, prior_spec=None) -> MultichainKernels:
-    """The C-chain potential and chunk on (X, y, Z) (counterpart of
-    ``make_fused_hmc_multichain(..., target="vfe")(Z)``). Raises for M >
+                    adapt_mass=True, prior_spec=None,
+                    core="vfe") -> MultichainKernels:
+    """The C-chain potential and chunk of ``core`` on (X, y, Z) (counterpart
+    of ``make_fused_hmc_multichain(..., target=core)(Z)``). Raises for M >
     :data:`MAX_M`, the JAX package's envelope for these kernels."""
     if Z.shape[0] > MAX_M:
         raise ValueError(f"multichain sampling takes M <= {MAX_M} inducing "
@@ -368,10 +401,10 @@ def make_multichain(X, y, Z, jitter, *, num_chains, algo="hmc",
     if algo not in ("hmc", "nuts"):
         raise ValueError(f"algo must be 'hmc' or 'nuts', got {algo!r}")
     common = dict(target_accept=target_accept, adapt_mass=adapt_mass,
-                  prior_spec=prior_spec)
+                  prior_spec=prior_spec, core=core)
 
     def potential(zs):
-        return mc_potential(zs, X, y, Z, jitter, prior_spec=prior_spec)
+        return mc_potential(zs, X, y, Z, jitter, prior_spec=prior_spec, core=core)
 
     if algo == "hmc":
         def run(state, **kw):

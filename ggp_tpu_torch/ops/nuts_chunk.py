@@ -1,5 +1,7 @@
-"""K transitions of iterative multinomial NUTS on the collapsed-bound
-potential: plain PyTorch beside the CUDA kernel ``nuts_chunk`` (kernel 2).
+"""K transitions of iterative multinomial NUTS on a sampler potential (the
+collapsed bound, ``core="vfe"``, or the whitened JointHMC target,
+``core="sgpmc"``): plain PyTorch beside the CUDA kernel ``nuts_chunk``
+(kernel 2).
 
 Counterpart of ``ggp_tpu/ops/fused_nuts.py`` ``_warm_chunk_kernel_body``
 (``adapt=True``: dual averaging and Welford windows in the chunk) and
@@ -19,10 +21,11 @@ import math
 import torch
 
 from . import _build
-from .vfe_bound import _check_shapes, bound_cfg, rbf_vfe_neg_logpost_vg
+from .vfe_bound import _check_shapes, bound_cfg, neg_logpost_vg
 
 __all__ = ["ChainState", "draw_slabs", "nuts_chunk_plain", "nuts_chunk",
-           "launch_chunk", "DIVERGENCE_THRESHOLD", "MAX_DEPTH"]
+           "launch_chunk", "as_batch", "first_chain", "DIVERGENCE_THRESHOLD",
+           "MAX_DEPTH"]
 
 DIVERGENCE_THRESHOLD = 1000.0
 MAX_DEPTH = 10               # checkpoint slots of the kernel (csrc kMaxDepth)
@@ -53,6 +56,18 @@ class ChainState:
     def clone(self) -> "ChainState":
         return ChainState(**{f.name: getattr(self, f.name).clone()
                              for f in dataclasses.fields(self)})
+
+
+def as_batch(state: ChainState) -> ChainState:
+    """One chain's state as a batch of one (a leading chain axis of 1)."""
+    return ChainState(**{f.name: getattr(state, f.name).unsqueeze(0)
+                         for f in dataclasses.fields(state)})
+
+
+def first_chain(state: ChainState) -> ChainState:
+    """Chain 0 of a batched state, without the chain axis."""
+    return ChainState(**{f.name: getattr(state, f.name)[0]
+                         for f in dataclasses.fields(state)})
 
 
 def draw_slabs(K, dim, max_depth, generator, *, dtype, device):
@@ -155,8 +170,9 @@ def _transition(pot, z0, U0, g0, eps, inv_mass, mom, treeu, leafu, max_depth):
 def nuts_chunk_plain(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                      n_active, adapt, eps=None, in_window=None,
                      window_end=None, max_depth=8, target_accept=0.8,
-                     adapt_mass=True, prior_spec=None):
-    """``n_active`` (<= K) NUTS transitions from ``state``. With ``adapt``,
+                     adapt_mass=True, prior_spec=None, core="vfe"):
+    """``n_active`` (<= K) NUTS transitions from ``state`` on the potential
+    of ``core``. With ``adapt``,
     the step size is exp(log_eps) and dual averaging plus the Welford
     windows (``in_window``/``window_end`` (K,) bools) run after each
     transition; otherwise the step size is ``eps``. Returns (new state,
@@ -171,7 +187,7 @@ def nuts_chunk_plain(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
     stats = torch.zeros((K, 6), dtype=X.dtype, device=X.device)
 
     def pot(z):
-        return rbf_vfe_neg_logpost_vg(z, X, y, Z, jitter, prior_spec=prior_spec)
+        return neg_logpost_vg(core, z, X, y, Z, jitter, prior_spec=prior_spec)
 
     for t in range(int(n_active)):
         step = torch.exp(s.log_eps) if adapt else eps
@@ -208,13 +224,14 @@ _STATE = ("U", "log_eps", "log_eps_avg", "h_avg", "mu", "t_da", "wf_count")
 S_LEN = 11                   # per-chain scalar state (csrc/stan_adapt.cuh S_LEN)
 
 
-def launch_chunk(name, state, X, y, Z, jitter, slabs, *, n_active, adapt, eps,
-                 in_window, window_end, prior_spec, stream, **cfg_extra):
-    """One launch of the sampler chunk kernel ``name`` (entries of
-    ``csrc/nuts_chunk.cu`` and ``csrc/mc_hmc_chunk.cu``) on C chains: every
-    field of ``state`` has a leading chain axis, ``slabs`` are the random
-    slabs in the kernel's argument order, each (K, C, ...). Returns (new
-    state, draws (K, C, dim), stats (K, C, 6)); ``state`` is not modified."""
+def launch_chunk(kind, core, state, X, y, Z, jitter, slabs, *, n_active, adapt,
+                 eps, in_window, window_end, prior_spec, stream, **cfg_extra):
+    """One launch of the sampler chunk kernel ``kind`` ("nuts_chunk",
+    ``csrc/nuts_chunk.cu``, or "hmc_chunk", ``csrc/mc_hmc_chunk.cu``) of
+    ``core`` on C chains, one block each: every field of ``state`` has a
+    leading chain axis, ``slabs`` are the random slabs in the kernel's
+    argument order, each (K, C, ...). Returns (new state, draws (K, C,
+    dim), stats (K, C, 6)); ``state`` is not modified."""
     n, d = X.shape
     m = Z.shape[0]
     C, dim = state.z.shape
@@ -233,11 +250,12 @@ def launch_chunk(name, state, X, y, Z, jitter, slabs, *, n_active, adapt, eps,
         flags = torch.cat([in_window, window_end]).to(device=dev, dtype=torch.int32)
     draws = torch.empty((K, C, dim), dtype=dt, device=dev)
     stats = torch.empty((K, C, 6), dtype=dt, device=dev)
-    work = _build.scratch(n, m, d, 0, X, chains=C)
+    work = _build.scratch(n, m, d, 0, X, chains=C, core=core)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
                     pivot_floor=None, prior_spec=prior_spec, DIM=dim, K=K,
                     ADAPT=int(adapt), CHAINS=C, **cfg_extra)
     P = _build.ptr
+    name = f"ggp_{kind}_{core}"
     err = _build.kernel_fn(name, dt)(
         ctypes.cast(cfg, ctypes.c_void_p), P(scal), *[P(v) for v in vecs],
         P(flags), *[P(s) for s in slabs], P(X), P(y), P(Z), P(draws),
@@ -251,32 +269,15 @@ def launch_chunk(name, state, X, y, Z, jitter, slabs, *, n_active, adapt, eps,
     return new, draws, stats
 
 
-def _call_nuts(state, X, y, Z, jitter, mom, treeu, leafu, n_active, adapt, eps,
-               in_window, window_end, max_depth, target_accept, adapt_mass,
-               prior_spec, stream):
-    """Kernel 2 at grid 1: the chain as a batch of one."""
-    one = ChainState(**{f.name: getattr(state, f.name).unsqueeze(0)
-                        for f in dataclasses.fields(state)})
-    new, draws, stats = launch_chunk(
-        "ggp_nuts_chunk", one, X, y, Z, jitter,
-        (mom[:, None], treeu[:, None], leafu[:, None]), n_active=n_active,
-        adapt=adapt, eps=eps, in_window=in_window, window_end=window_end,
-        prior_spec=prior_spec, stream=stream, MAX_DEPTH=max_depth,
-        TARGET=target_accept, ADAPT_MASS=int(adapt_mass))
-    new = ChainState(**{f.name: getattr(new, f.name)[0]
-                        for f in dataclasses.fields(new)})
-    return new, draws[:, 0], stats[:, 0]
-
-
 def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                n_active, adapt, eps=None, in_window=None, window_end=None,
                max_depth=8, target_accept=0.8, adapt_mass=True,
-               prior_spec=None):
+               prior_spec=None, core="vfe"):
     """:func:`nuts_chunk_plain` on CPU tensors; kernel 2
-    (``csrc/nuts_chunk.cu``, the whole chunk in one launch) on CUDA
+    (``csrc/nuts_chunk.cu``, the whole chunk in one launch, grid 1) on CUDA
     tensors. ``state`` is not modified."""
     K, dim = mom.shape
-    _check_shapes("nuts_chunk", state.z, X, y, Z)
+    _check_shapes(f"{core} nuts_chunk", state.z, X, y, Z, core)
     if dim != state.z.shape[0] or treeu.shape != (K, max_depth, 2) \
             or leafu.shape != (K, 1 << max_depth):
         raise ValueError("nuts_chunk: slab shapes do not fit (K, dim), "
@@ -285,16 +286,20 @@ def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
         raise ValueError(f"nuts_chunk: max_depth must be in [1, {MAX_DEPTH}]")
     if adapt and adapt_mass and (in_window is None or window_end is None):
         raise ValueError("nuts_chunk: adapt_mass needs in_window and window_end")
-    kw = dict(mom=mom, treeu=treeu, leafu=leafu, n_active=n_active,
-              adapt=adapt, eps=eps, in_window=in_window, window_end=window_end,
-              max_depth=max_depth, target_accept=target_accept,
-              adapt_mass=adapt_mass, prior_spec=prior_spec)
+    kw = dict(n_active=n_active, adapt=adapt, eps=eps, in_window=in_window,
+              window_end=window_end, prior_spec=prior_spec)
     if X.device.type == "cpu":
-        return nuts_chunk_plain(state, X, y, Z, jitter, **kw)
+        return nuts_chunk_plain(state, X, y, Z, jitter, mom=mom, treeu=treeu,
+                                leafu=leafu, max_depth=max_depth,
+                                target_accept=target_accept,
+                                adapt_mass=adapt_mass, core=core, **kw)
     _build.require_cuda("nuts_chunk", X.dtype, state.z, state.g,
                         state.inv_mass, state.wf_mean, state.wf_m2, X, y, Z,
                         mom, treeu, leafu)
-    out = _call_nuts(state, X, y, Z, jitter, stream=_build.stream_ptr(X.device),
-                     **kw)
-    _build.LAUNCHES["nuts_chunk"] += 1
-    return out
+    new, draws, stats = launch_chunk(
+        "nuts_chunk", core, as_batch(state), X, y, Z, jitter,
+        (mom[:, None], treeu[:, None], leafu[:, None]),
+        stream=_build.stream_ptr(X.device), MAX_DEPTH=max_depth,
+        TARGET=target_accept, ADAPT_MASS=int(adapt_mass), **kw)
+    _build.LAUNCHES[_build.launch_key(core, "nuts_chunk")] += 1
+    return first_chain(new), draws[:, 0], stats[:, 0]

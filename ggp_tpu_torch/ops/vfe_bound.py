@@ -27,13 +27,18 @@ import math
 import torch
 
 from . import _build
-from .linalg import safe_cholesky
+from .linalg import capped_inv_ls, chol_upper
+from .sgpmc_bound import sgpmc_neg_logpost_vg
 
 __all__ = ["rbf_vfe_neg_logpost_vg", "vfe_potential", "prior_spec_of_tree",
-           "prior_terms", "chol_upper", "SPEC_RBF_DEFAULT"]
+           "prior_terms", "chol_upper", "SPEC_RBF_DEFAULT", "CORES",
+           "state_dim", "neg_logpost_vg"]
 
 SPEC_RBF_DEFAULT = (("gamma", 2.0, 1.0), ("hc_std", 1.0), ("hc_std", 1.0))
-_INV_LS_CAP_NUM = 1024.0
+# Potentials the kernels carry (``make_fused_nuts(target=...)``): the
+# collapsed bound over the d+2 log-hypers, and the whitened JointHMC target
+# over the hypers and the m whitened inducing values (ops/sgpmc_bound.py).
+CORES = ("vfe", "sgpmc")
 
 
 def prior_spec_of_tree(prior_tree):
@@ -138,31 +143,6 @@ def prior_leaf_doubles(prior_spec=None):
     return out
 
 
-def chol_upper(K: torch.Tensor, pivot_floor=None) -> torch.Tensor:
-    """U = chol(K)^T. Without ``pivot_floor`` a non-positive-definite K
-    gives NaN (sampler divergence semantics). With it, the modified
-    Cholesky of ``block_chol_u(..., pivot_floor=...)``: a pivot below the
-    floor becomes a sqrt(floor) e_i row and its elimination is skipped."""
-    if pivot_floor is None:
-        return safe_cholesky(K).T
-    floor = torch.as_tensor(pivot_floor, dtype=K.dtype, device=K.device)
-    L, info = torch.linalg.cholesky_ex(K)
-    if int(info) == 0 and bool((torch.diagonal(L) ** 2 >= floor).all()):
-        return L.T                  # no pivot reaches the floor
-    m = K.shape[0]
-    P = K.clone()
-    U = torch.zeros_like(K)
-    for i in range(m):
-        dp = P[i, i]
-        if bool(dp >= floor):
-            row = P[i, i:] * torch.rsqrt(dp)
-            U[i, i:] = row
-            P[i + 1:, i + 1:] -= torch.outer(row[1:], row[1:])
-        else:
-            U[i, i] = torch.sqrt(floor)
-    return U
-
-
 def _tri(U, b, *, trans=False):
     """Solve U x = b (or U^T x = b) for upper-triangular U, vector b."""
     A = U.T if trans else U
@@ -180,8 +160,7 @@ def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
     dt, dev = X.dtype, X.device
     eye = torch.eye(m, dtype=dt, device=dev)
     log_os, log_noise = theta[d], theta[d + 1]
-    scale = torch.clamp(torch.maximum(X.abs().max(), Z.abs().max()), min=1e-3)
-    inv_ls = torch.minimum(torch.exp(-theta[:d]), _INV_LS_CAP_NUM / scale)
+    inv_ls = capped_inv_ls(theta[:d], X, Z)
     sf2 = torch.exp(log_os)
     s2 = torch.exp(log_noise)
     sigma = torch.sqrt(s2)
@@ -243,6 +222,25 @@ def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
     return -F, -g, -(dZs * inv_ls)
 
 
+def state_dim(core, d, m):
+    """Length of one state row of ``core``: d+2 log-hypers, and for
+    ``"sgpmc"`` the m whitened inducing values after them."""
+    if core not in CORES:
+        raise ValueError(f"core must be one of {CORES}, got {core!r}")
+    return d + 2 + (m if core == "sgpmc" else 0)
+
+
+def neg_logpost_vg(core, z, X, y, Z, jitter, *, want_z_grad=False,
+                   want_prior=True, pivot_floor=None, prior_spec=None):
+    """The plain potential of ``core`` at one state row. The sgpmc core's
+    Gamma(2,1) hyperpriors are fixed (``prior_spec`` does not apply)."""
+    kw = dict(want_z_grad=want_z_grad, want_prior=want_prior,
+              pivot_floor=pivot_floor)
+    if core == "sgpmc":
+        return sgpmc_neg_logpost_vg(z, X, y, Z, jitter, **kw)
+    return rbf_vfe_neg_logpost_vg(z, X, y, Z, jitter, prior_spec=prior_spec, **kw)
+
+
 def bound_cfg(n, m, d, jitter, *, want_z_grad, want_prior, pivot_floor,
               prior_spec, **extra):
     """The kernels' cfg array for one bound configuration."""
@@ -253,51 +251,56 @@ def bound_cfg(n, m, d, jitter, *, want_z_grad, want_prior, pivot_floor,
         PRIOR=prior_leaf_doubles(prior_spec), **extra)
 
 
-def _check_shapes(name, theta, X, y, Z):
+def _check_shapes(name, z, X, y, Z, core="vfe"):
     n, d = X.shape
-    if theta.shape != (d + 2,) or y.shape != (n,) or Z.ndim != 2 \
-            or Z.shape[1] != d:
-        raise ValueError(f"{name}: shapes theta {tuple(theta.shape)}, X "
-                         f"{tuple(X.shape)}, y {tuple(y.shape)}, Z "
-                         f"{tuple(Z.shape)} do not fit (d+2,), (n,d), (n,), (m,d)")
-    if d + 2 > 128:
-        raise ValueError(f"{name}: d + 2 = {d + 2} exceeds 128")
+    if Z.ndim != 2 or Z.shape[1] != d or y.shape != (n,):
+        raise ValueError(f"{name}: shapes X {tuple(X.shape)}, y {tuple(y.shape)}, "
+                         f"Z {tuple(Z.shape)} do not fit (n,d), (n,), (m,d)")
+    dim = state_dim(core, d, Z.shape[0])
+    if z.shape != (dim,):
+        raise ValueError(f"{name}: a {core} state row is ({dim},), got {tuple(z.shape)}")
+    if dim > 128:
+        raise ValueError(f"{name}: state length {dim} exceeds 128")
 
 
-def _call_potential(theta, X, y, Z, jitter, want_z_grad, want_prior,
-                    pivot_floor, prior_spec, stream):
+def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
+                   want_prior=True, pivot_floor=None, prior_spec=None):
+    """One launch of the potential kernel of ``core`` (``csrc/vfe_potential.cu``)
+    on the C rows of ``zs`` (C, dim), one block each. Returns (U (C,), g (C,
+    dim)[, dU/dZ (C, m, d)])."""
     n, d = X.shape
     m = Z.shape[0]
-    out = torch.empty(d + 3, dtype=X.dtype, device=X.device)
-    dZ = torch.empty((m, d), dtype=X.dtype, device=X.device) if want_z_grad else None
-    work = _build.scratch(n, m, d, 0, X)
+    C, dim = zs.shape
+    out = torch.empty((C, dim + 1), dtype=X.dtype, device=X.device)
+    dZ = (torch.empty((C, m, d), dtype=X.dtype, device=X.device)
+          if want_z_grad else None)
+    work = _build.scratch(n, m, d, 0, X, chains=C, core=core)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=want_z_grad,
                     want_prior=want_prior, pivot_floor=pivot_floor,
-                    prior_spec=prior_spec)
+                    prior_spec=prior_spec, CHAINS=C)
     P = _build.ptr
-    err = _build.kernel_fn("ggp_vfe_potential", X.dtype)(
-        ctypes.cast(cfg, ctypes.c_void_p), P(theta), P(X), P(y), P(Z), P(out),
-        P(dZ), P(work), stream)
-    _build.check(err, "vfe_potential")
-    if want_z_grad:
-        return out[0], out[1:], dZ
-    return out[0], out[1:]
+    err = _build.kernel_fn(f"ggp_potential_{core}", X.dtype)(
+        ctypes.cast(cfg, ctypes.c_void_p), P(zs), P(X), P(y), P(Z), P(out),
+        P(dZ), P(work), _build.stream_ptr(X.device))
+    _build.check(err, f"{core} potential")
+    res = (out[:, 0].contiguous(), out[:, 1:].contiguous())
+    return res + (dZ,) if want_z_grad else res
 
 
 def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
-                  want_prior=True, pivot_floor=None, prior_spec=None):
-    """U and dU/dtheta (and dU/dZ) of :func:`rbf_vfe_neg_logpost_vg`.
+                  want_prior=True, pivot_floor=None, prior_spec=None,
+                  core="vfe"):
+    """U and dU/dz (and dU/dZ) of :func:`neg_logpost_vg` at one state row
+    of ``core``.
 
-    CPU tensors run the plain version; CUDA tensors launch kernel 1
-    (``csrc/vfe_potential.cu``) or raise."""
-    _check_shapes("vfe_potential", theta, X, y, Z)
+    CPU tensors run the plain version; CUDA tensors launch the potential
+    kernel (``csrc/vfe_potential.cu``) at grid 1 or raise."""
+    _check_shapes(f"{core} potential", theta, X, y, Z, core)
+    kw = dict(want_z_grad=want_z_grad, want_prior=want_prior,
+              pivot_floor=pivot_floor, prior_spec=prior_spec)
     if X.device.type == "cpu":
-        return rbf_vfe_neg_logpost_vg(
-            theta, X, y, Z, jitter, want_z_grad=want_z_grad,
-            want_prior=want_prior, pivot_floor=pivot_floor,
-            prior_spec=prior_spec)
-    _build.require_cuda("vfe_potential", X.dtype, theta, X, y, Z)
-    out = _call_potential(theta, X, y, Z, jitter, want_z_grad, want_prior,
-                          pivot_floor, prior_spec, _build.stream_ptr(X.device))
-    _build.LAUNCHES["vfe_potential"] += 1
-    return out
+        return neg_logpost_vg(core, theta, X, y, Z, jitter, **kw)
+    _build.require_cuda(f"{core} potential", X.dtype, theta, X, y, Z)
+    out = call_potential(core, theta[None], X, y, Z, jitter, **kw)
+    _build.LAUNCHES[_build.launch_key(core, "potential")] += 1
+    return tuple(a[0] for a in out)

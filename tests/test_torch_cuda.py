@@ -11,14 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from ggp_tpu_torch import BayesianSparseGPR_HMC
+from ggp_tpu_torch import SGPMC, BayesianSparseGPR_HMC
 from ggp_tpu_torch.ops import _build
-from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, mc_hmc_chunk,
+from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
                                           mc_hmc_chunk_plain, mc_nuts_chunk,
                                           mc_nuts_chunk_plain, mc_potential,
                                           mc_potential_plain)
-from ggp_tpu_torch.ops.nuts_chunk import (ChainState, draw_slabs, nuts_chunk,
-                                          nuts_chunk_plain)
+from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
+from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
+from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
+                                          first_chain, nuts_chunk, nuts_chunk_plain)
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
 from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, vfe_potential
@@ -228,3 +230,146 @@ def test_wrappers_raise_on_wrong_inputs(dev):
         vfe_potential(th, X, y, Z.cpu(), 1e-6)
     with pytest.raises(TypeError):
         vfe_potential(th, X, y, Z.float(), 1e-6)
+
+
+# -- the sgpmc core: the whitened JointHMC target over d+2+m ---------------------
+
+def _sgpmc_problem(dev, dt, n=120, m=24, d=5, seed=0):
+    """Distinct inducing rows; a state row [log_ls, log_os, log_noise, v]."""
+    th, X, y, Z = _problem(dev, dt, n=n, m=m, d=d, seed=seed)
+    v = 0.3 * torch.randn(m, dtype=dt, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed))
+    return torch.cat([th, v]), X, y, Z
+
+
+def _sgpmc_start(dev, dt, C, seed=4, log_eps=-3.0):
+    st0, X, y, Z = _sgpmc_problem(dev, dt, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = st0 + 0.05 * torch.randn((C, st0.shape[0]), generator=gen, dtype=dt, device=dev)
+    U, g = mc_potential_plain(z, X, y, Z, 1e-6, core="sgpmc")
+    le = log_eps + 0.1 * torch.arange(C, dtype=dt, device=dev)
+    zc, zv = torch.zeros(C, dtype=dt, device=dev), torch.zeros_like(z)
+    st = ChainState(z=z, U=U, g=g, inv_mass=torch.ones_like(z), log_eps=le,
+                    log_eps_avg=le, h_avg=zc, mu=le + np.log(10.0), t_da=zc,
+                    wf_mean=zv, wf_m2=zv, wf_count=zc)
+    return st, X, y, Z, gen
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("opts", [dict(), dict(want_z_grad=True, want_prior=False,
+                                               pivot_floor=1e-6)])
+def test_sgpmc_potential_kernel_matches_plain(dev, dt, opts):
+    st, X, y, Z = _sgpmc_problem(dev, dt)
+    before = _build.LAUNCHES["sgpmc_potential"]
+    out = vfe_potential(st, X, y, Z, 1e-6, core="sgpmc", **opts)
+    assert _build.LAUNCHES["sgpmc_potential"] == before + 1
+    ref = sgpmc_neg_logpost_vg(st, X, y, Z, 1e-6, **opts)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
+    rows = st + 0.1 * torch.randn((8, st.shape[0]), dtype=dt, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(2))
+    before = _build.LAUNCHES["sgpmc_mc_potential"]
+    out = mc_potential(rows, X, y, Z, 1e-6, core="sgpmc")
+    assert _build.LAUNCHES["sgpmc_mc_potential"] == before + 1
+    ref = mc_potential_plain(rows, X, y, Z, 1e-6, core="sgpmc")
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_sgpmc_warm_chunk_kernel_matches_plain(dev, dt):
+    st, X, y, Z = _sgpmc_problem(dev, dt, seed=3)
+    zs, zz = torch.zeros_like(st), torch.zeros_like(Z)
+    kw = dict(t0=2, num_steps=10, lr=0.01)
+    before = _build.LAUNCHES["sgpmc_warm_chunk"]
+    a = sgpmc_warm_chunk(st, Z, zs, zs, zz, zz, X, y, 1e-6, **kw)
+    assert _build.LAUNCHES["sgpmc_warm_chunk"] == before + 1
+    b = sgpmc_warm_chunk_plain(st, Z, zs, zs, zz, zz, X, y, 1e-6, **kw)
+    for u, v in zip(a, b):
+        assert _rel(u, v) <= 10 * TOL[dt]
+    assert a[1].is_contiguous() and not torch.equal(a[1], Z)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("adapt", [True, False])
+def test_sgpmc_hmc_chunk_kernel_matches_plain(dev, dt, C, adapt):
+    """K=6 steps (5 active) of L=4 at grid 1 (``hmc_chunk``) and grid C:
+    identical accept decisions, draws within the chunk tolerance."""
+    st, X, y, Z, gen = _sgpmc_start(dev, dt, C)
+    dim, K = st.z.shape[1], 6
+    sl = draw_mc_slabs(K, C, dim, algorithm="hmc", max_depth=0, generator=gen,
+                       dtype=dt, device=dev)
+    kw = dict(n_active=5, adapt=adapt, num_leapfrog=4, core="sgpmc",
+              in_window=torch.arange(K, device=dev) >= 1,
+              window_end=torch.arange(K, device=dev) == 3)
+    ref = mc_hmc_chunk_plain(st, X, y, Z, 1e-6, eps=torch.exp(st.log_eps), **kw, **sl)
+    if C == 1:
+        key = "sgpmc_hmc_chunk"
+        before = _build.LAUNCHES[key]
+        s1, d1, x1 = hmc_chunk(first_chain(st), X, y, Z, 1e-6, mom=sl["mom"][:, 0],
+                               mh=sl["mh"][:, 0], eps=torch.exp(st.log_eps[0]), **kw)
+        s_k, d_k, x_k = as_batch(s1), d1[:, None], x1[:, None]
+    else:
+        key = "sgpmc_mc_hmc_chunk"
+        before = _build.LAUNCHES[key]
+        s_k, d_k, x_k = mc_hmc_chunk(st, X, y, Z, 1e-6, eps=torch.exp(st.log_eps),
+                                     **kw, **sl)
+    assert _build.LAUNCHES[key] == before + 1
+    s_p, d_p, x_p = ref
+    mh = sl["mh"][:5]
+    assert torch.equal(mh < x_k[:5, :, 1], mh < x_p[:5, :, 1])
+    assert _rel(d_k, d_p) <= CHUNK_TOL[dt]
+    for f in ("z", "U", "inv_mass", "log_eps"):
+        assert _rel(getattr(s_k, f), getattr(s_p, f)) <= CHUNK_TOL[dt], f
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("C", [1, 8])
+def test_sgpmc_nuts_chunk_kernel_matches_plain(dev, dt, C):
+    """K=3 warm steps of max depth 5 at grid 1 (``nuts_chunk``) and grid
+    C: per chain, f64 on one path for the whole chunk, f32 at least for
+    its first transition."""
+    st, X, y, Z, gen = _sgpmc_start(dev, dt, C, seed=5)
+    dim, K, md = st.z.shape[1], 3, 5
+    sl = draw_mc_slabs(K, C, dim, algorithm="nuts", max_depth=md, generator=gen,
+                       dtype=dt, device=dev)
+    kw = dict(n_active=K, adapt=True, max_depth=md, core="sgpmc",
+              in_window=torch.arange(K, device=dev) >= 1,
+              window_end=torch.arange(K, device=dev) == 1)
+    if C == 1:
+        key = "sgpmc_nuts_chunk"
+        before = _build.LAUNCHES[key]
+        slabs = dict(mom=sl["mom"][:, 0], treeu=sl["treeu"][:, 0], leafu=sl["leafu"][:, 0])
+        s1, d1, x1 = nuts_chunk(first_chain(st), X, y, Z, 1e-6, **slabs, **kw)
+        s2, d2, x2 = nuts_chunk_plain(first_chain(st), X, y, Z, 1e-6, **slabs, **kw)
+        d_k, x_k, d_p, x_p = d1[:, None], x1[:, None], d2[:, None], x2[:, None]
+    else:
+        key = "sgpmc_mc_nuts_chunk"
+        before = _build.LAUNCHES[key]
+        _, d_k, x_k = mc_nuts_chunk(st, X, y, Z, 1e-6, **kw, **sl)
+        _, d_p, x_p = mc_nuts_chunk_plain(st, X, y, Z, 1e-6, **kw, **sl)
+    assert _build.LAUNCHES[key] == before + 1
+    for c in range(C):
+        p = _agreeing_prefix(d_k[:, c], d_p[:, c], x_k[:, c], x_p[:, c], CHUNK_TOL[dt])
+        assert p == K if dt == torch.float64 else p >= 1, (c, p)
+
+
+@pytest.mark.parametrize("num_chains,algorithm", [(1, "hmc"), (1, "nuts"), (3, "hmc")])
+def test_sgpmc_model_runs_on_the_card(dev, num_chains, algorithm):
+    """Warm start, then sampling through the model's entry point: every
+    launch after the warm start reads the Z it returned."""
+    st, X, y, Z = _sgpmc_problem(dev, torch.float32, seed=6)
+    model = SGPMC(X, y, Z_init=Z)
+    before = dict(_build.LAUNCHES)
+    losses = model.warm_start(num_steps=20)
+    assert torch.isfinite(losses).all() and model.Z.is_contiguous()
+    tr = model.train_model(20, 12, num_chains=num_chains, algorithm=algorithm,
+                           num_leapfrog=5)
+    assert tr.shape == (12 * num_chains, st.shape[0]) and torch.isfinite(tr).all()
+    kind = ("" if num_chains == 1 else "mc_") + f"{algorithm}_chunk"
+    pot = "potential" if num_chains == 1 else "mc_potential"
+    for k in ("sgpmc_warm_chunk", f"sgpmc_{kind}", f"sgpmc_{pot}"):
+        assert _build.LAUNCHES[k] > before[k], k
+    means, vars_ = model.mixture_posterior_predictive(X[:10])
+    assert torch.isfinite(means).all() and (vars_ > 0).all()
