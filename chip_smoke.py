@@ -14,7 +14,9 @@ non-zero exit:
    in float64 and float32, with the time per call of both;
    The JointHMC (SGPMC) kernels, the "sgpmc" core of the sampler kernels
    and the warm start, are held the same way at the same shape (state row
-   d+2+M = 115), at grid 1 and grid 8;
+   d+2+M = 115), at grid 1 and grid 8; and the GPR+HMC kernels, the dense
+   "gpr" core of the potential and NUTS kernels, at N=404, D=13 (state row
+   d+2 = 15), at grid 1 and grid 8;
 4. the main paths through the models' entry points, in float32, each with
    the launch counters set to 0 just before it and read just after:
    a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
@@ -29,17 +31,25 @@ non-zero exit:
    e. joint-nuts: SGPMC, one chain of NUTS, 100 warmup + 50 draws;
    f. joint-c4: SGPMC, 4 chains of HMC, L=10, 100 warmup + 100 draws;
    g. joint-c4-nuts: SGPMC, 4 chains of NUTS, 100 warmup + 50 draws;
+   h. gpr-hmc: bench.py's ``cell_gpr_hmc`` (GPR_HMC, one chain of NUTS, 50
+      warmup + 10 draws, once untimed, then the min of 2 timed runs), and
+      the full mixture predictive on the held-out 20 %;
+   i. gpr-c4: GPR_HMC, 4 chains of NUTS, 100 warmup + 25 draws;
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
-   other?);
+   other?); where one gpr evaluation's time goes (its six parts, timed as
+   prefixes), beside cholesky_ex + cholesky_inverse of the same K; the gpr
+   potential at bench.py's winered shape (N=1279, D=11);
 6. a JSON line of per-kernel results, then the final status line.
 
 Every kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its operations over the float32 peak
 and its bytes (inputs read once, outputs written once) over the memory
 rate. The operations are the least the call's evaluations of its core need
-(:func:`bound_ops`, :func:`sgpmc_ops`), not those the kernel happens to do.
+(:func:`bound_ops`, :func:`sgpmc_ops`, :func:`gpr_ops`), not those the
+kernel happens to do.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
+                                    [gpr-hmc] [gpr-c4]
 
 runs the named main paths instead (default: all) once each under
 ``torch.profiler`` after a short warm-up, and prints where the device time
@@ -61,11 +71,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ggp_tpu_torch import SGPMC, BayesianSparseGPR_HMC
+from ggp_tpu_torch import GPR_HMC, SGPMC, BayesianSparseGPR_HMC
 from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
 from ggp_tpu_torch.inference.hmc import (find_reasonable_step_size,
                                          find_reasonable_step_size_batched)
 from ggp_tpu_torch.ops import _build
+from ggp_tpu_torch.ops.gpr_bound import gpr_neg_logpost_vg
 from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
                                           mc_hmc_chunk_plain, mc_nuts_chunk,
                                           mc_nuts_chunk_plain, mc_potential,
@@ -76,7 +87,8 @@ from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
-from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, state_dim, vfe_potential
+from ggp_tpu_torch.ops.vfe_bound import (call_potential, rbf_vfe_neg_logpost_vg, state_dim,
+                                         vfe_potential)
 from ggp_tpu_torch.utils.datasets import normalize
 from ggp_tpu_torch.utils.metrics import nlpd_mixture, rmse
 
@@ -115,6 +127,16 @@ KERNELS = {
                             "ggp_tpu/ops/fused_multichain.py:1966"),
     "sgpmc_warm_chunk": ("ggp_tpu_torch/csrc/sgpmc_warm.cu",
                          "ggp_tpu/ops/fused_sgpmc.py:131", None),
+    # the "gpr" core (csrc/gpr_bound.cuh); the JAX package ran C chains of
+    # GPR on its XLA sampler, the port runs the same sites' core at grid C
+    "gpr_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
+                      "ggp_tpu/ops/fused_nuts.py:807", None),
+    "gpr_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                       "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
+    "gpr_mc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
+                         "ggp_tpu/ops/fused_nuts.py:807", None),
+    "gpr_mc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                          "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
 }
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
@@ -144,10 +166,13 @@ T_START = time.perf_counter()
 CARD = ""            # nvidia-smi's name and power limit, printed beside the paths' times
 
 
-def make_data(seed=173):
-    """bench.py ``_make_data("boston")`` in numpy: (X, y, Z) float64, and
-    the held-out 20 % (X_test, y_test)."""
-    N, D = 506, 13
+SHAPES = {"boston": (506, 13), "winered": (1599, 11)}      # bench.py SHAPES
+
+
+def make_data(name="boston", seed=173):
+    """bench.py ``_make_data(name)`` in numpy: (X, y, Z) float64, and the
+    held-out 20 % (X_test, y_test)."""
+    N, D = SHAPES[name]
     rng = np.random.default_rng(seed)
     X_raw = rng.normal(size=(N, D))
     w = rng.normal(size=(D, 8)) / np.sqrt(D)
@@ -266,6 +291,21 @@ def sgpmc_ops(n, m, d, want_z=False):
     return float(ops)
 
 
+def gpr_ops(n, d):
+    """The least floating-point operations one evaluation of the dense GP
+    marginal with its gradient needs at (n, d), counted as :func:`bound_ops`
+    counts the collapsed bound. Leading terms: potrf, trtri and K^-1 = V V^T
+    (lauum), n^3/3 each; Kcore and P = Kbar o Kcore (symmetric); P Xs."""
+    ops = (3 * n * d                           # scaled inputs, their norms
+           + n * (n + 1) / 2 * (2 * d + 6)     # Kcore (symmetric), K
+           + n ** 3                            # potrf + trtri + lauum
+           + 2 * n * n + 3 * n                 # two substitutions; logdet, quad
+           + n * (n + 1) / 2 * 4 + n * n       # Kbar, P (symmetric); its row sums
+           + 2 * n * n * d                     # P Xs
+           + 6 * n * d)                        # chain rule to the lengthscales
+    return float(ops)
+
+
 def register_report():
     """One line per kernel instantiation from the build's ``-Xptxas -v``
     output: registers, spill stores and static shared memory."""
@@ -294,7 +334,8 @@ def nbytes(*tensors):
 def roofline(evals, n, m, d, in_bytes, out_bytes, want_z=False, core="vfe"):
     """(bound_ms, bound_by) of a call that makes ``evals`` evaluations of
     ``core`` and reads ``in_bytes``, writes ``out_bytes`` (float32 peak)."""
-    ops = (sgpmc_ops if core == "sgpmc" else bound_ops)(n, m, d, want_z)
+    ops = (gpr_ops(n, d) if core == "gpr"
+           else (sgpmc_ops if core == "sgpmc" else bound_ops)(n, m, d, want_z))
     t_ops = evals * ops / PEAK_F32_OPS
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -658,6 +699,174 @@ def phase_parity_sgpmc(Xd, yd, Zd, res, C=8, L=10, md=8):
                          K=16 if (algo, grid) == ("hmc", 1) else 8, L=L, md=md)
 
 
+def phase_parity_gpr(Xd, yd, res, C=8, md=8):
+    """The gpr core of the potential and NUTS kernels against the plain
+    version at bench.py's GPR+HMC shape (N=404, D=13, state row 15): the
+    potential at grid 1 (two rows) and grid C; a warm and a sample NUTS
+    chunk of K=8 transitions (max depth md) at grid 1 and grid C. In float32 both
+    versions are also held against the float64 plain version on the same
+    inputs."""
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, y = Xd.to(dt), yd.to(dt)
+        n, d = X.shape
+        Z = X.new_empty((0, d))
+        jit = 1e-5
+        st0, gen = mc_start(X, y, Z, jit, C, seed=17, core="gpr")
+        rows = [st0.z[0].contiguous(),
+                torch.tensor([0.5] * d + [0.0, -2.0], dtype=dt, device="cuda")]
+        errs, aerr, e64 = [], [], []
+        for row in rows:
+            out = vfe_potential(row, X, y, Z, jit, core="gpr")
+            ref = gpr_neg_logpost_vg(row, X, y, jit)
+            errs += [rel(a, b) for a, b in zip(out, ref)]
+            aerr += [abs_err(a, b) for a, b in zip(out, ref)]
+            if f32:
+                r64 = gpr_neg_logpost_vg(row.double(), X.double(), y.double(), jit)
+                e64 += [(rel(a, c), rel(b, c)) for a, b, c in zip(out, ref, r64)]
+        e = max(errs)
+        row = rows[0]
+        ms = cuda_ms(lambda: vfe_potential(row, X, y, Z, jit, core="gpr"), 20)
+        pms = cuda_ms(lambda: gpr_neg_logpost_vg(row, X, y, jit), 20)
+        txt = ""
+        if f32:
+            txt = (f"; against float64 from the same inputs: kernel "
+                   f"{max(k for k, _ in e64):.3e}, plain {max(p for _, p in e64):.3e}")
+        print(f"parity gpr_potential {tag}: max rel err {e:.3e}{txt}; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+        assert e <= TOL[dt], f"gpr_potential {tag} rel err {e}"
+        res["gpr_potential"]["rel"][tag] = e
+        if f32:
+            res["gpr_potential"].update(
+                abs32=max(aerr), ms=ms, plain_ms=pms,
+                bound=roofline(1, n, 0, d, nbytes(X, y, row), (row.numel() + 1) * 4,
+                               core="gpr"))
+        th = st0.z + 0.3 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
+        potential_parity(
+            "gpr_mc_potential", lambda r: mc_potential(r, X, y, Z, jit, core="gpr"),
+            lambda r: mc_potential_plain(r, X, y, Z, jit, core="gpr"), th, res, 5,
+            lambda out: (C, n, 0, d, nbytes(X, y, th), nbytes(*out), False, "gpr"))
+        for grid in (1, C):
+            st = as_batch(first_chain(st0)) if grid == 1 else st0
+            chunk_parity(X, y, Z, jit, st, gen, res, core="gpr", algo="nuts", grid=grid,
+                         K=8, md=md)
+
+
+def phase_gpr_parts(Xd, yd):
+    """Where one float32 evaluation of the gpr core goes at (N, D) =
+    (404, 13): the six parts of csrc/gpr_bound.cuh timed as prefixes (grams;
+    + Cholesky; + inverse; + substitutions; + V V^T and P; + the rest of
+    the adjoint), and, as the yardstick of a faster factorisation, the time
+    of torch.linalg.cholesky_ex + torch.cholesky_inverse on the same K.
+    Then the whole evaluation at bench.py's winered shape (N=1279, D=11),
+    against the plain version once."""
+    X, y = Xd.float(), yd.float()
+    n, d = X.shape
+    Z = X.new_empty((0, d))
+    row = torch.tensor([0.5] * d + [0.0, -2.0], device="cuda")
+    prefix = [cuda_ms(lambda: call_potential("gpr", row[None], X, y, Z, 1e-5, stages=s), 20)
+              for s in range(1, 7)]
+    parts = [prefix[0]] + [b - a for a, b in zip(prefix, prefix[1:])]
+    names = ("grams", "Cholesky", "inverse U^-1", "substitutions", "V V^T and P",
+             "rest of the adjoint")
+    print(f"gpr evaluation parts f32 (N={n}, D={d}, on {CARD}): "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in zip(names, parts))
+          + f"; whole {prefix[-1]:.4f} ms")
+    ls = torch.exp(-row[:d]).clamp(max=1024.0 / float(X.abs().max()))
+    Xs = X * ls
+    K = (torch.exp(row[d]) * torch.exp(-0.5 * torch.cdist(Xs, Xs) ** 2)
+         + (torch.exp(row[d + 1]) + 1e-5) * torch.eye(n, device="cuda"))
+
+    def lib():
+        L, _ = torch.linalg.cholesky_ex(K)
+        return torch.cholesky_inverse(L)
+    print(f"reference torch.linalg.cholesky_ex + torch.cholesky_inverse f32 on the "
+          f"same K: {cuda_ms(lib, 20):.4f} ms")
+    Xw, yw, *_ = (torch.tensor(a, dtype=torch.float32, device="cuda")
+                  for a in make_data("winered"))
+    nw, dw = Xw.shape
+    Zw = Xw.new_empty((0, dw))
+    th = torch.tensor([0.5] * dw + [0.0, -2.0], device="cuda")
+    out = vfe_potential(th, Xw, yw, Zw, 1e-5, core="gpr")
+    ref = gpr_neg_logpost_vg(th, Xw, yw, 1e-5)
+    e = max(rel(a, b) for a, b in zip(out, ref))
+    ms = cuda_ms(lambda: vfe_potential(th, Xw, yw, Zw, 1e-5, core="gpr"), 3)
+    print(f"envelope gpr_potential f32 at winered shape (N={nw}, D={dw}): {ms:.3f} ms "
+          f"per call (3 calls), max rel err against the plain version {e:.3e}, "
+          f"scratch {_build.build().ggp_scratch_elems(2, nw, 0, dw) * 4 / 1e6:.1f} MB")
+    assert all(torch.isfinite(a).all() for a in out)
+
+
+def phase_gpr(Xd, yd, Xte, yte, label, num_chains=1, num_warmup=50, num_samples=10,
+              reps=2, untimed_first=True):
+    """bench.py ``cell_gpr_hmc`` (bench.py:215-234) through the port, float32:
+    GPR_HMC(X, y), ``train_model`` once untimed (generator seed 99) when
+    ``untimed_first``, then the min of ``reps`` timed runs (seed 0); then
+    the full mixture predictive on the held-out rows."""
+    X, y, Xt, yt = (a.to(torch.float32) for a in (Xd, yd, Xte, yte))
+    d = X.shape[1]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    model = GPR_HMC(X, y)
+
+    def run(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return model.train_model(num_warmup, num_samples, num_chains=num_chains,
+                                 generator=gen)
+    first = (f"; first untimed run {once_ms(lambda: run(99))[1] / 1e3:.3f} s"
+             if untimed_first else "")
+    times = []
+    for _ in range(reps):
+        tr, ms = once_ms(lambda: run(0))
+        times.append(ms / 1e3)
+    (means, vars_), t_pred = once_ms(lambda: model.full_mixture_posterior_predictive(Xt))
+    launches = dict(_build.LAUNCHES)
+    secs = min(times)
+    st = model.stats
+    div = float(st["diverging"].float().mean())
+    acc = float(st["accept_prob"].mean())
+    leaps = float(st["n_leapfrog"].sum() + st["warmup_n_leapfrog"].sum())
+    trace = tr.double().cpu().numpy()
+    ess = min_ess_per_s(trace, secs)
+    r = float(rmse(means.mean(0), yt))
+    nl = float(nlpd_mixture(means, vars_, yt))
+    rhat = ""
+    if num_chains > 1:
+        chains = trace.reshape(num_chains, -1, d + 2)
+        rhat = (f"; max split-R-hat "
+                f"{max(split_rhat(chains[:, :, j]) for j in range(d + 2)):.4f}")
+    print(f"{label} sampling on {CARD} ({num_chains} chain(s) x ({num_warmup} warmup + "
+          f"{num_samples} draws), NUTS): {secs:.3f} s (min of "
+          f"{', '.join(f'{t:.3f}' for t in times)}{first}); "
+          f"divergence fraction {div:.4f}; mean accept {acc:.4f}; min-ESS/s {ess:.3f}; "
+          f"step size {', '.join(f'{e:.4g}' for e in st['step_size'].reshape(-1).tolist())}; "
+          f"mean leapfrogs/draw {float(st['n_leapfrog'].mean()):.1f}; "
+          f"{secs * 1e3 * num_chains / leaps:.3f} ms per leapfrog of a chain "
+          f"({leaps:.0f} leapfrogs, warmup included){rhat}")
+    print(f"{label} predictive ({means.shape[0]} components, {Xt.shape[0]} held-out rows): "
+          f"{t_pred / 1e3:.3f} s; RMSE {r:.4f}; NLPD {nl:.4f}")
+    pot, chunk = (("gpr_potential", "gpr_nuts_chunk") if num_chains == 1
+                  else ("gpr_mc_potential", "gpr_mc_nuts_chunk"))
+    check_launches(label, launches, [pot, chunk])
+    assert trace.shape == (num_chains * num_samples, d + 2) and np.isfinite(trace).all()
+    assert div <= 0.1, f"{label} divergence fraction {div}"
+    assert acc >= 0.5, f"{label} mean accept {acc}"
+    assert means.shape == (num_chains * num_samples, Xt.shape[0]) == vars_.shape
+    assert torch.isfinite(means).all() and torch.isfinite(vars_).all()
+    assert math.isfinite(nl) and r < 1.0, (r, nl)
+    return launches
+
+
+def gpr_paths(X, y, Xte, yte):
+    """The GPR+HMC main paths by name."""
+    return {
+        "gpr-hmc": lambda: phase_gpr(X, y, Xte, yte, "gpr-hmc"),
+        "gpr-c4": lambda: phase_gpr(X, y, Xte, yte, "gpr-c4", num_chains=4,
+                                    num_warmup=100, num_samples=25, reps=1,
+                                    untimed_first=False),
+    }
+
+
 def min_ess_per_s(trace: np.ndarray, seconds: float) -> float:
     """bench.py ``_min_ess_per_s`` for a (S, dim) trace."""
     idx = np.unique(np.linspace(0, trace.shape[1] - 1,
@@ -880,7 +1089,7 @@ def profile_paths(X, y, Z, Xte, yte, names):
     paths = {"slice": lambda: phase_rounds(X, y, Z, 1, "slice"),
              "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
              "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
-             **joint_paths(X, y, Z, Xte, yte)}
+             **joint_paths(X, y, Z, Xte, yte), **gpr_paths(X, y, Xte, yte)}
     Xf, yf, Zf = (a.float() for a in (X, y, Z))
     mc_potential(torch.zeros((2, X.shape[1] + 2), device="cuda"), Xf, yf, Zf, 1e-5)
     torch.linalg.cholesky(torch.eye(8, device="cuda"))
@@ -920,17 +1129,20 @@ def main(argv):
     phase_parity(X, y, Zd, res)
     phase_parity_mc(X, y, Zd, res)
     phase_parity_sgpmc(X, y, Zd, res)
+    phase_parity_gpr(X, y, res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
     launches = {k: 0 for k in KERNELS}
     for run in (lambda: phase_rounds(X, y, Z, 1, "slice"),
                 lambda: phase_hmc_c8(X, y, Z),
                 lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
-                *joint_paths(X, y, Z, Xte, yte).values()):
+                *joint_paths(X, y, Z, Xte, yte).values(),
+                *gpr_paths(X, y, Xte, yte).values()):
         for k, v in run().items():
             if k in launches:
                 launches[k] += v
         print(f"main paths at {time.perf_counter() - T_START:.1f} s")
     phase_scaling(X, y, Z)
+    phase_gpr_parts(X, y)
     assert all(v > 0 for v in launches.values()), launches
     out = []
     for name, (src, site, also) in KERNELS.items():

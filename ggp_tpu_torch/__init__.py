@@ -1,17 +1,20 @@
 """ggp_tpu_torch — the PyTorch/CUDA port of ggp_tpu for NVIDIA Hopper.
 
-It carries two models. BayesianSparseGPR_HMC: ML-II warm start, NUTS or
-HMC over the hyperparameters under the collapsed Titsias bound (one chain
-or C), Adam on the inducing locations between rounds, and the mixture
-predictive. SGPMC ("JointHMC"): Adam warm start of (hypers, whitened
-inducing values, Z), then NUTS or HMC jointly over the hypers and the
-whitened inducing values, and the 50-component mixture predictive. The
+It carries three models. BayesianSparseGPR_HMC: ML-II warm start, NUTS
+or HMC over the hyperparameters under the collapsed Titsias bound (one
+chain or C), Adam on the inducing locations between rounds, and the
+mixture predictive. SGPMC ("JointHMC"): Adam warm start of (hypers,
+whitened inducing values, Z), then NUTS or HMC jointly over the hypers and
+the whitened inducing values, and the 50-component mixture predictive.
+GPR_HMC: NUTS (one chain or C) over the hyperparameters of the exact GP
+under its dense marginal likelihood, and the full mixture predictive. The
 hand-written CUDA kernels (``csrc/``) are built at first use on a machine
 with ``nvcc``; CPU tensors run each kernel's plain PyTorch version.
 """
 
 from . import config  # noqa: F401  (sets the TF32 policy)
 from .config import BASE_SEED, default_jitter
-from .models import SGPMC, BayesianSparseGPR_HMC
+from .models import GPR_HMC, SGPMC, BayesianSparseGPR_HMC, gp_marginal_loglik, gp_predict
 
-__all__ = ["BayesianSparseGPR_HMC", "SGPMC", "BASE_SEED", "default_jitter"]
+__all__ = ["BayesianSparseGPR_HMC", "GPR_HMC", "SGPMC", "gp_marginal_loglik",
+           "gp_predict", "BASE_SEED", "default_jitter"]

@@ -18,6 +18,8 @@ BASE_SEED = 173          # split / data seed of the reference (utils/config.py:1
 
 
 def default_jitter(dtype: torch.dtype) -> float:
-    """Relative diagonal jitter added before every Kmm factorisation:
-    1e-8 in float64, 1e-5 in float32 (``ggp_tpu/config.py`` ``default_jitter``)."""
+    """Diagonal jitter added before every factorisation: 1e-8 in float64,
+    1e-5 in float32 (``ggp_tpu/config.py`` ``default_jitter``). The sparse
+    models scale it by max(sf2, 1) before each Kmm factorisation (relative);
+    GPR_HMC adds it to K + s2 I as it is (absolute)."""
     return 1e-8 if dtype == torch.float64 else 1e-5

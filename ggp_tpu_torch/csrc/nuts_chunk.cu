@@ -1,7 +1,8 @@
 // Kernel 2: K transitions of iterative multinomial NUTS over a sampler
 // potential (template parameter `Core`: the collapsed bound of
-// BayesianSGPR_HMC over its d+2 log-hypers, VfeCore, or the whitened
-// JointHMC target over d+2+m, SgpmcCore), with Stan warmup adaptation
+// BayesianSGPR_HMC over its d+2 log-hypers, VfeCore; the whitened
+// JointHMC target over d+2+m, SgpmcCore; or the dense GP marginal of
+// GPR_HMC over d+2, GprCore), with Stan warmup adaptation
 // in-kernel (adapt=1) or at a fixed step size with per-draw outputs
 // (adapt=0), for one chain per block and cfg[C_CHAINS] chains per launch.
 //
@@ -12,11 +13,14 @@
 // `_mc_nuts_sample_chunk_body` (the NUTS `warm_call`/`sample_call` of
 // `make_fused_hmc_multichain`, built on `_nuts_transition_batched`; grid
 // C); each for targets "vfe" and "sgpmc" (entries
-// ggp_nuts_chunk_{vfe,sgpmc}_{f32,f64}).
+// ggp_nuts_chunk_{vfe,sgpmc}_{f32,f64}); and the grid-1 chunks with
+// target="gpr" (ggp_nuts_chunk_gpr_{f32,f64}), which the port also runs at
+// grid C for C chains of GPR_HMC.
 //
 // What bounds it on the card: each chain is sequential. Every leapfrog is
 // one evaluation of the core (a latency chain of barriers and L2 reads in
-// one block, ~2.3 ms for the bound at N=404, M=100), and the tree logic
+// one block, ~2.4 ms for the bound at N=404, M=100; the dense gpr core
+// factorises N x N), and the tree logic
 // between evaluations is a handful of dim-length vector operations. C
 // chains take C SMs of 132; a launch ends when its longest tree does.
 //
@@ -35,6 +39,7 @@
 // per-step indexing (momentum row t*C+c; tree uniforms at (t*C+c, depth);
 // leaf uniforms at (t*C+c, global leaf index)), which makes the kernel
 // deterministic and comparable draw for draw with its plain version.
+#include "gpr_bound.cuh"
 #include "stan_adapt.cuh"
 
 namespace ggp {
@@ -309,5 +314,11 @@ int ggp_nuts_chunk_sgpmc_f32(GGP_NUTS_ARGS) {
 }
 int ggp_nuts_chunk_sgpmc_f64(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::SgpmcCore, double>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_gpr_f32(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::GprCore, float>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_gpr_f64(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::GprCore, double>(GGP_NUTS_PASS);
 }
 }

@@ -49,7 +49,8 @@ enum CfgIndex {
   C_N = 0, C_M, C_D, C_JITTER, C_FLOOR, C_WANT_PRIOR, C_WANT_ZGRAD,
   C_PRIOR = 7,                       // 3 leaves x (kind, p1, p2, const)
   C_DIM = 19, C_MAX_DEPTH, C_K, C_ADAPT, C_TARGET, C_ADAPT_MASS,
-  C_LR, C_CLIP, C_MIN_NOISE, C_T0, C_S_ACT, C_EPS, C_CHAINS, C_LEAPFROG, C_LEN
+  C_LR, C_CLIP, C_MIN_NOISE, C_T0, C_S_ACT, C_EPS, C_CHAINS, C_LEAPFROG,
+  C_STAGES, C_LEN
 };
 
 enum PriorKind { P_GAMMA = 0, P_HC_STD, P_HC, P_HALF_NORMAL, P_LOGNORMAL, P_FLAT };
@@ -58,6 +59,7 @@ struct PriorLeaf { int kind; double p1, p2, c; };
 
 struct BoundCfg {
   int n, m, d, want_prior, want_z;
+  int stages;                        // gpr core: stop after this part (0: all)
   double jitter, floor;
   PriorLeaf leaf[3];                 // lengthscales, outputscale, noise
 };
@@ -71,6 +73,7 @@ inline BoundCfg bound_cfg(const double* cfg) {
   b.floor = cfg[C_FLOOR];
   b.want_prior = (int)cfg[C_WANT_PRIOR];
   b.want_z = (int)cfg[C_WANT_ZGRAD];
+  b.stages = (int)cfg[C_STAGES];
   for (int l = 0; l < 3; ++l) {
     const double* p = cfg + C_PRIOR + 4 * l;
     b.leaf[l].kind = (int)p[0];

@@ -1,8 +1,9 @@
 // Kernel 1: one evaluation of a sampler potential and its gradient (and,
 // on request, the inducing-location gradient) for each of gridDim.x =
 // cfg[C_CHAINS] state rows, one row per block. The potential is the
-// template parameter `Core`: the collapsed bound (VfeCore, vfe_bound.cuh)
-// or the whitened JointHMC target (SgpmcCore, sgpmc_bound.cuh).
+// template parameter `Core`: the collapsed bound (VfeCore, vfe_bound.cuh),
+// the whitened JointHMC target (SgpmcCore, sgpmc_bound.cuh) or the dense
+// GP marginal (GprCore, gpr_bound.cuh).
 //
 // Replaces: ggp_tpu/ops/fused_nuts.py `_potential_kernel_body` (the
 // `pot_call` pallas_call of `make_fused_nuts`, grid 1), which serves the
@@ -10,14 +11,18 @@
 // ggp_tpu/ops/fused_multichain.py `_mc_potential_body` (the `pot_call` of
 // `make_fused_hmc_multichain`, grid C), which serves the C-chain initial
 // U/g and the batched step-size search; each for targets "vfe" and
-// "sgpmc" (entries ggp_potential_{vfe,sgpmc}_{f32,f64}).
+// "sgpmc" (entries ggp_potential_{vfe,sgpmc}_{f32,f64}); and the same
+// single-row call with target="gpr" (ggp_potential_gpr_{f32,f64}), which
+// the port also runs at grid C for C chains of GPR_HMC (the JAX package
+// samples those with its XLA sampler).
 //
 // What bounds it on the card and what the design does about it: see
-// vfe_bound.cuh and sgpmc_bound.cuh; each block runs the core's device
-// function once on its own row and its own scratch area, so a call's time
-// is one evaluation's latency chain (barriers and L2 reads), not bandwidth
-// or FLOPs, as long as the C blocks fit on the 132 SMs and their scratch
-// areas in L2.
+// vfe_bound.cuh, sgpmc_bound.cuh and gpr_bound.cuh; each block runs the
+// core's device function once on its own row and its own scratch area, so
+// a call's time is one evaluation's latency chain (barriers and L2 reads),
+// not bandwidth or FLOPs, as long as the C blocks fit on the 132 SMs and
+// their scratch areas in L2.
+#include "gpr_bound.cuh"
 #include "sgpmc_bound.cuh"
 
 namespace ggp {
@@ -64,9 +69,10 @@ int launch_potential(const double* cfg, const void* theta, const void* X,
 
 extern "C" {
 
-// elements of one evaluation's scratch area; core 0 = vfe, 1 = sgpmc
-// (ggp_tpu_torch/ops/_build.py _CORE_ID)
+// elements of one evaluation's scratch area; core 0 = vfe, 1 = sgpmc,
+// 2 = gpr (ggp_tpu_torch/ops/_build.py _CORE_ID)
 long ggp_scratch_elems(int core, int n, int m, int d) {
+  if (core == 2) return ggp::gpr_work_elems(n, d);
   return core == 1 ? ggp::sgpmc_work_elems(n, m, d) : ggp::work_elems(n, m, d);
 }
 
@@ -82,6 +88,12 @@ int ggp_potential_sgpmc_f32(GGP_POT_ARGS) {
 }
 int ggp_potential_sgpmc_f64(GGP_POT_ARGS) {
   return ggp::launch_potential<ggp::SgpmcCore, double>(GGP_POT_PASS);
+}
+int ggp_potential_gpr_f32(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::GprCore, float>(GGP_POT_PASS);
+}
+int ggp_potential_gpr_f64(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::GprCore, double>(GGP_POT_PASS);
 }
 
 }  // extern "C"

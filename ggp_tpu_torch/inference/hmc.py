@@ -152,7 +152,9 @@ def single_chain_fused(potential_vg: Callable, X, y, Z, jitter, z0,
     for ``"hmc"``. Both draw the same slabs per chunk (``draw_slabs``); HMC
     takes its momenta from ``mom`` and its Metropolis uniform of step t
     from ``treeu[t, 0, 0]``, the JAX kernels' single-chain layout.
-    Returns (draws (num_samples, dim), stats dict)."""
+    Returns (draws (num_samples, dim), stats dict: per draw the fields of
+    ``STAT_FIELDS``, ``step_size``, ``inv_mass``, and the leapfrogs of each
+    warmup transition, ``warmup_n_leapfrog``)."""
     dim = z0.shape[0]
     dt, dev = z0.dtype, z0.device
     K = cfg.chunk
@@ -187,10 +189,12 @@ def single_chain_fused(potential_vg: Callable, X, y, Z, jitter, z0,
     pad = n_wchunks * K - cfg.num_warmup
     in_w = torch.as_tensor(np.concatenate([in_w, np.zeros(pad, bool)]), device=dev)
     w_end = torch.as_tensor(np.concatenate([w_end, np.zeros(pad, bool)]), device=dev)
+    wstats = []
     for c in range(n_wchunks):
-        state, _, _ = chunk(state, n_active=min(K, cfg.num_warmup - c * K),
-                            adapt=True, in_window=in_w[c * K:(c + 1) * K],
-                            window_end=w_end[c * K:(c + 1) * K])
+        state, _, st = chunk(state, n_active=min(K, cfg.num_warmup - c * K),
+                             adapt=True, in_window=in_w[c * K:(c + 1) * K],
+                             window_end=w_end[c * K:(c + 1) * K])
+        wstats.append(st)
     eps = torch.exp(state.log_eps_avg)
 
     draws, stats = [], []
@@ -205,6 +209,7 @@ def single_chain_fused(potential_vg: Callable, X, y, Z, jitter, z0,
     out["diverging"] = out["diverging"] > 0.5
     out["step_size"] = eps
     out["inv_mass"] = state.inv_mass
+    out["warmup_n_leapfrog"] = torch.cat(wstats)[:cfg.num_warmup, 4]
     return zs, out
 
 
@@ -283,7 +288,8 @@ def multichain_fused(mk: MultichainKernels, z0s, generator: torch.Generator,
 
     Returns (draws (C, S, dim), stats): ``accept_prob``, ``diverging``,
     ``depth``, ``n_leapfrog``, ``potential`` and ``energy`` (C, S) (for HMC,
-    depth 0 and n_leapfrog L), ``step_size`` (C,) and ``inv_mass`` (C, dim).
+    depth 0 and n_leapfrog L), ``step_size`` (C,), ``inv_mass`` (C, dim) and
+    ``warmup_n_leapfrog`` (C, num_warmup).
     """
     C, dim = z0s.shape
     dt, dev = z0s.dtype, z0s.device
@@ -313,11 +319,13 @@ def multichain_fused(mk: MultichainKernels, z0s, generator: torch.Generator,
     pad = n_wchunks * K - cfg.num_warmup
     in_w = torch.as_tensor(np.concatenate([in_w, np.zeros(pad, bool)]), device=dev)
     w_end = torch.as_tensor(np.concatenate([w_end, np.zeros(pad, bool)]), device=dev)
+    wstats = []
     for c in range(n_wchunks):
-        state, _, _ = mk.chunk(state, n_active=min(K, cfg.num_warmup - c * K),
-                               adapt=True, eps=None,
-                               in_window=in_w[c * K:(c + 1) * K],
-                               window_end=w_end[c * K:(c + 1) * K], **slabs())
+        state, _, st = mk.chunk(state, n_active=min(K, cfg.num_warmup - c * K),
+                                adapt=True, eps=None,
+                                in_window=in_w[c * K:(c + 1) * K],
+                                window_end=w_end[c * K:(c + 1) * K], **slabs())
+        wstats.append(st)
     eps = torch.exp(state.log_eps_avg)
 
     draws, stats = [], []
@@ -334,4 +342,5 @@ def multichain_fused(mk: MultichainKernels, z0s, generator: torch.Generator,
     out["diverging"] = out["diverging"] > 0.5
     out["step_size"] = eps
     out["inv_mass"] = state.inv_mass
+    out["warmup_n_leapfrog"] = torch.cat(wstats)[:cfg.num_warmup, :, 4].transpose(0, 1)
     return zs, out

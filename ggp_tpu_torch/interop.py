@@ -3,7 +3,10 @@
 ``params_from_jax`` turns the JAX model's hyper pytree (as numpy arrays:
 ``{"kernel": {"base": {"log_lengthscale": (d,)}, "log_outputscale": ()},
 "log_noise": ()}``) and Z into the port's flat ``theta`` (d+2,) and Z;
-``params_to_numpy`` goes back. ``sgpmc_state_from_jax`` and
+``params_to_numpy`` goes back. The same pair converts ``GPR_HMC.params``
+and its trace: the JAX model's ``params`` has that tree, and its
+``ravel_pytree`` order is the flat row's ``[log_ls (d), log_os,
+log_noise]``. ``sgpmc_state_from_jax`` and
 ``sgpmc_state_to_numpy`` do the same for the SGPMC state (``{"kernel",
 "lik": {"log_noise"}, "mean": {}, "v"}``) and its flat row ``[log_ls (d),
 log_os, log_noise, v (m)]`` (``ravel_pytree`` order). All accept a leading

@@ -10,8 +10,10 @@ by a stale library. A failed build raises.
 Every wrapper that launches a kernel adds one to its entry of
 :data:`LAUNCHES` right where it launches, and nowhere else. The sampler
 kernels take the potential core as a template parameter and have one entry
-per core and dtype (``ggp_{kind}_{core}_{f32,f64}``); their counters name
-the core (:func:`launch_key`). Each source is compiled with ``-Xptxas -v``;
+per core and dtype (``ggp_{kind}_{core}_{f32,f64}``) for the kinds each core
+carries (:data:`CORE_KINDS`: the gpr core has no HMC chunk, which no model
+runs); their counters name the core (:func:`launch_key`). Each source is
+compiled with ``-Xptxas -v``;
 the compiler's report of registers, shared memory and spills is kept beside
 the library (:func:`ptxas_report`).
 """
@@ -28,12 +30,14 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "launch_key", "build", "kernel_fn",
            "cfg_array", "check", "stream_ptr", "scratch", "ptr",
-           "require_cuda", "ptxas_report", "CFG"]
+           "require_cuda", "require_kind", "ptxas_report", "CFG", "CORE_KINDS"]
 
-# what a sampler wrapper launches: one row or chain, or C of them
+# what a sampler wrapper launches, per core: one row or chain, or C of them
 _SAMPLER_KINDS = ("potential", "nuts_chunk", "hmc_chunk", "mc_potential",
                   "mc_nuts_chunk", "mc_hmc_chunk")
-_CORE_ID = {"vfe": 0, "sgpmc": 1}       # csrc vfe_potential.cu ggp_scratch_elems
+CORE_KINDS = {"vfe": _SAMPLER_KINDS, "sgpmc": _SAMPLER_KINDS,
+              "gpr": ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk")}
+_CORE_ID = {"vfe": 0, "sgpmc": 1, "gpr": 2}   # csrc vfe_potential.cu ggp_scratch_elems
 
 
 def launch_key(core: str, kind: str) -> str:
@@ -44,8 +48,14 @@ def launch_key(core: str, kind: str) -> str:
     return f"{core}_{kind}"
 
 
-LAUNCHES = {**{launch_key(c, k): 0 for c in _CORE_ID for k in _SAMPLER_KINDS},
+LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
             "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "sgpmc_warm_chunk": 0}
+
+
+def require_kind(core: str, kind: str) -> None:
+    """Raise unless the kernels carry sampler ``kind`` for ``core``."""
+    if kind not in CORE_KINDS.get(core, ()):
+        raise ValueError(f"no {kind} kernel for the {core!r} core")
 
 
 def reset_launches() -> None:
@@ -57,7 +67,7 @@ def reset_launches() -> None:
 CFG = dict(N=0, M=1, D=2, JITTER=3, FLOOR=4, WANT_PRIOR=5, WANT_ZGRAD=6,
            PRIOR=7, DIM=19, MAX_DEPTH=20, K=21, ADAPT=22, TARGET=23,
            ADAPT_MASS=24, LR=25, CLIP=26, MIN_NOISE=27, T0=28, S_ACT=29,
-           EPS=30, CHAINS=31, LEAPFROG=32, LEN=33)
+           EPS=30, CHAINS=31, LEAPFROG=32, STAGES=33, LEN=34)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -65,10 +75,12 @@ _BUILD = os.path.join(os.path.dirname(_PKG), "build", "ggp_tpu_torch")
 _LIB = None
 
 _P = ctypes.c_void_p
+# the sampler entries ggp_{kind}_{core}, each serving one row or chain and
+# C of them (kinds "mc_*"), and their argument counts
+_NARGS = {"potential": 9, "nuts_chunk": 18, "hmc_chunk": 17}
 _SIGS = {
-    **{f"ggp_potential_{c}": [_P] * 9 for c in _CORE_ID},
-    **{f"ggp_nuts_chunk_{c}": [_P] * 18 for c in _CORE_ID},
-    **{f"ggp_hmc_chunk_{c}": [_P] * 17 for c in _CORE_ID},
+    **{f"ggp_{k}_{c}": [_P] * n for c, kinds in CORE_KINDS.items()
+       for k, n in _NARGS.items() if k in kinds},
     "ggp_sgpr_adam": [_P] * 12,
     "ggp_z_adam": [_P] * 10,
     "ggp_sgpmc_warm": [_P] * 12,

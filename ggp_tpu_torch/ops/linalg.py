@@ -2,10 +2,12 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["add_jitter", "safe_cholesky", "tri_solve", "chol_upper",
-           "capped_inv_ls"]
+           "capped_inv_ls", "mvn_logpdf_chol"]
 
 _INV_LS_CAP_NUM = 1024.0
 
@@ -67,9 +69,23 @@ def chol_upper(K: torch.Tensor, pivot_floor=None) -> torch.Tensor:
 
 
 def capped_inv_ls(log_ls: torch.Tensor, X: torch.Tensor,
-                  Z: torch.Tensor) -> torch.Tensor:
+                  Z: torch.Tensor | None = None) -> torch.Tensor:
     """exp(-log_ls) capped at 1024 / max(1e-3, max|X|, max|Z|), the fused
     cores' guard (``fused_bound.capped_inv_ls``): beyond the cap the norm
-    expansion of the squared distances loses all accuracy in float32."""
-    scale = torch.clamp(torch.maximum(X.abs().max(), Z.abs().max()), min=1e-3)
-    return torch.minimum(torch.exp(-log_ls), _INV_LS_CAP_NUM / scale)
+    expansion of the squared distances loses all accuracy in float32. The
+    dense GPR core has no Z and caps by max|X| alone (``Z=None``)."""
+    scale = X.abs().max()
+    if Z is not None:
+        scale = torch.maximum(scale, Z.abs().max())
+    return torch.minimum(torch.exp(-log_ls),
+                         _INV_LS_CAP_NUM / torch.clamp(scale, min=1e-3))
+
+
+def mvn_logpdf_chol(y: torch.Tensor, mean: torch.Tensor,
+                    L: torch.Tensor) -> torch.Tensor:
+    """log N(y | mean, L L^T) for a single (n,) observation."""
+    n = y.shape[-1]
+    alpha = tri_solve(L, y - mean)
+    quad = (alpha * alpha).sum(-1)
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))

@@ -1,5 +1,6 @@
 """C chains at once on a sampler potential (``core="vfe"``, the collapsed
-bound, or ``"sgpmc"``, the whitened JointHMC target): plain PyTorch beside
+bound, ``"sgpmc"``, the whitened JointHMC target, or ``"gpr"``, the dense
+GP marginal, which has no HMC chunk): plain PyTorch beside
 the CUDA kernels ``mc_potential`` (kernel 1 at grid C), ``mc_hmc_chunk``
 (kernel 5, ``csrc/mc_hmc_chunk.cu``) and ``mc_nuts_chunk`` (kernel 2 at
 grid C, ``csrc/nuts_chunk.cu``), one thread block per chain on the card;
@@ -11,7 +12,10 @@ Counterpart of ``ggp_tpu/ops/fused_multichain.py`` for the ``"vfe"`` and
 ``_mc_potential_body``, ``_mc_warm_chunk_body``/``_mc_sample_chunk_body``
 (``_hmc_transition_batched`` with ``_stan_adapt_rows``) and
 ``_mc_nuts_warm_chunk_body``/``_mc_nuts_sample_chunk_body``
-(``_nuts_transition_batched``); and of the fixed-leapfrog HMC chunks of
+(``_nuts_transition_batched``); for ``"gpr"``, which the JAX package
+samples at C chains with its vmapped XLA sampler, the same kernels run the
+single-chain gpr core of ``fused_nuts.py`` one block per chain; and of the
+fixed-leapfrog HMC chunks of
 ``ggp_tpu/ops/fused_nuts.py`` (``_hmc_transition_inkernel``). The JAX kernels advance C chains in lock
 step inside one program; per chain that changes nothing (the JAX package's
 tests show the batched NUTS transition equal, bit for bit, to each chain run
@@ -295,6 +299,7 @@ def mc_hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active,
     (``csrc/mc_hmc_chunk.cu``, the whole chunk of all C chains in one
     launch, one block per chain), or a raise. ``eps`` (C,) is the fixed
     per-chain step size of a sample chunk."""
+    _build.require_kind(core, "mc_hmc_chunk")
     _check_chunk(f"{core} mc_hmc_chunk", state, X, y, Z, mom, adapt, adapt_mass,
                  in_window, window_end, eps, core)
     if mh.shape != mom.shape[:2]:
@@ -318,6 +323,7 @@ def hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active, adapt,
     a scalar. :func:`mc_hmc_chunk_plain` on a batch of one for CPU tensors;
     kernel 5 at grid 1 for CUDA tensors. Returns (state, draws (K, dim),
     stats (K, 6))."""
+    _build.require_kind(core, "hmc_chunk")
     _check_shapes(f"{core} hmc_chunk", state.z, X, y, Z, core)
     if mom.shape[1:] != state.z.shape or mh.shape != mom.shape[:1]:
         raise ValueError("hmc_chunk: slabs must be mom (K, dim) and mh (K,)")
@@ -400,6 +406,7 @@ def make_multichain(X, y, Z, jitter, *, num_chains, algo="hmc",
                          f"points, got {Z.shape[0]}")
     if algo not in ("hmc", "nuts"):
         raise ValueError(f"algo must be 'hmc' or 'nuts', got {algo!r}")
+    _build.require_kind(core, f"mc_{algo}_chunk")
     common = dict(target_accept=target_accept, adapt_mass=adapt_mass,
                   prior_spec=prior_spec, core=core)
 

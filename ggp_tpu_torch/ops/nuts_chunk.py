@@ -1,7 +1,7 @@
 """K transitions of iterative multinomial NUTS on a sampler potential (the
-collapsed bound, ``core="vfe"``, or the whitened JointHMC target,
-``core="sgpmc"``): plain PyTorch beside the CUDA kernel ``nuts_chunk``
-(kernel 2).
+collapsed bound, ``core="vfe"``, the whitened JointHMC target,
+``core="sgpmc"``, or the dense GP marginal, ``core="gpr"``): plain PyTorch
+beside the CUDA kernel ``nuts_chunk`` (kernel 2).
 
 Counterpart of ``ggp_tpu/ops/fused_nuts.py`` ``_warm_chunk_kernel_body``
 (``adapt=True``: dual averaging and Welford windows in the chunk) and

@@ -36,9 +36,10 @@ __all__ = ["rbf_vfe_neg_logpost_vg", "vfe_potential", "prior_spec_of_tree",
 
 SPEC_RBF_DEFAULT = (("gamma", 2.0, 1.0), ("hc_std", 1.0), ("hc_std", 1.0))
 # Potentials the kernels carry (``make_fused_nuts(target=...)``): the
-# collapsed bound over the d+2 log-hypers, and the whitened JointHMC target
-# over the hypers and the m whitened inducing values (ops/sgpmc_bound.py).
-CORES = ("vfe", "sgpmc")
+# collapsed bound over the d+2 log-hypers, the whitened JointHMC target
+# over the hypers and the m whitened inducing values (ops/sgpmc_bound.py),
+# and the dense GP marginal over the d+2 log-hypers (ops/gpr_bound.py).
+CORES = ("vfe", "sgpmc", "gpr")
 
 
 def prior_spec_of_tree(prior_tree):
@@ -233,12 +234,23 @@ def state_dim(core, d, m):
 def neg_logpost_vg(core, z, X, y, Z, jitter, *, want_z_grad=False,
                    want_prior=True, pivot_floor=None, prior_spec=None):
     """The plain potential of ``core`` at one state row. The sgpmc core's
-    Gamma(2,1) hyperpriors are fixed (``prior_spec`` does not apply)."""
+    Gamma(2,1) hyperpriors are fixed (``prior_spec`` does not apply); the
+    gpr core reads no Z and takes none of the trainers' options."""
     kw = dict(want_z_grad=want_z_grad, want_prior=want_prior,
               pivot_floor=pivot_floor)
+    if core == "gpr":
+        from .gpr_bound import gpr_neg_logpost_vg
+        _check_gpr_options(**kw)
+        return gpr_neg_logpost_vg(z, X, y, jitter, prior_spec=prior_spec)
     if core == "sgpmc":
         return sgpmc_neg_logpost_vg(z, X, y, Z, jitter, **kw)
     return rbf_vfe_neg_logpost_vg(z, X, y, Z, jitter, prior_spec=prior_spec, **kw)
+
+
+def _check_gpr_options(want_z_grad, want_prior, pivot_floor):
+    if want_z_grad or not want_prior or pivot_floor is not None:
+        raise ValueError("the gpr core is a sampler target: no Z gradient, "
+                         "no pivot floor, always with its prior")
 
 
 def bound_cfg(n, m, d, jitter, *, want_z_grad, want_prior, pivot_floor,
@@ -252,10 +264,15 @@ def bound_cfg(n, m, d, jitter, *, want_z_grad, want_prior, pivot_floor,
 
 
 def _check_shapes(name, z, X, y, Z, core="vfe"):
+    """Raise unless the shapes fit ``core``. The gpr core has no inducing
+    points: it takes an empty Z of shape (0, d) (``GPR_HMC`` passes one)."""
     n, d = X.shape
     if Z.ndim != 2 or Z.shape[1] != d or y.shape != (n,):
         raise ValueError(f"{name}: shapes X {tuple(X.shape)}, y {tuple(y.shape)}, "
                          f"Z {tuple(Z.shape)} do not fit (n,d), (n,), (m,d)")
+    if (core == "gpr") != (Z.shape[0] == 0):
+        raise ValueError(f"{name}: the gpr core takes an empty Z (0, d), every "
+                         f"other core m >= 1 rows; got {tuple(Z.shape)}")
     dim = state_dim(core, d, Z.shape[0])
     if z.shape != (dim,):
         raise ValueError(f"{name}: a {core} state row is ({dim},), got {tuple(z.shape)}")
@@ -264,10 +281,12 @@ def _check_shapes(name, z, X, y, Z, core="vfe"):
 
 
 def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
-                   want_prior=True, pivot_floor=None, prior_spec=None):
+                   want_prior=True, pivot_floor=None, prior_spec=None, stages=0):
     """One launch of the potential kernel of ``core`` (``csrc/vfe_potential.cu``)
     on the C rows of ``zs`` (C, dim), one block each. Returns (U (C,), g (C,
-    dim)[, dU/dZ (C, m, d)])."""
+    dim)[, dU/dZ (C, m, d)]). ``stages`` > 0 stops the gpr core after that
+    many of its six parts (``csrc/gpr_bound.cuh``), whose outputs are then
+    not filled: it exists to time where one evaluation's time goes."""
     n, d = X.shape
     m = Z.shape[0]
     C, dim = zs.shape
@@ -277,7 +296,7 @@ def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
     work = _build.scratch(n, m, d, 0, X, chains=C, core=core)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=want_z_grad,
                     want_prior=want_prior, pivot_floor=pivot_floor,
-                    prior_spec=prior_spec, CHAINS=C)
+                    prior_spec=prior_spec, CHAINS=C, STAGES=stages)
     P = _build.ptr
     err = _build.kernel_fn(f"ggp_potential_{core}", X.dtype)(
         ctypes.cast(cfg, ctypes.c_void_p), P(zs), P(X), P(y), P(Z), P(out),
@@ -296,6 +315,8 @@ def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
     CPU tensors run the plain version; CUDA tensors launch the potential
     kernel (``csrc/vfe_potential.cu``) at grid 1 or raise."""
     _check_shapes(f"{core} potential", theta, X, y, Z, core)
+    if core == "gpr":
+        _check_gpr_options(want_z_grad, want_prior, pivot_floor)
     kw = dict(want_z_grad=want_z_grad, want_prior=want_prior,
               pivot_floor=pivot_floor, prior_spec=prior_spec)
     if X.device.type == "cpu":

@@ -7,12 +7,15 @@ imports jax, which this file does not need). The kernels build from
 ``ggp_tpu_torch/csrc`` at first use.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from ggp_tpu_torch import SGPMC, BayesianSparseGPR_HMC
+from ggp_tpu_torch import GPR_HMC, SGPMC, BayesianSparseGPR_HMC
 from ggp_tpu_torch.ops import _build
+from ggp_tpu_torch.ops.gpr_bound import gpr_neg_logpost_vg
 from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
                                           mc_hmc_chunk_plain, mc_nuts_chunk,
                                           mc_nuts_chunk_plain, mc_potential,
@@ -373,3 +376,88 @@ def test_sgpmc_model_runs_on_the_card(dev, num_chains, algorithm):
         assert _build.LAUNCHES[k] > before[k], k
     means, vars_ = model.mixture_posterior_predictive(X[:10])
     assert torch.isfinite(means).all() and (vars_ > 0).all()
+
+
+# -- the gpr core: the dense GP marginal over d+2 --------------------------------
+
+def _gpr_problem(dev, dt, n=150, d=5, seed=0):
+    """GPR_HMC's inputs: theta, X, y and the empty Z the gpr core takes."""
+    th, X, y, _ = _problem(dev, dt, n=n, d=d, seed=seed)
+    return th, X, y, X.new_empty((0, d))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gpr_potential_kernel_matches_plain(dev, dt):
+    """One row at grid 1 and C=8 rows at grid 8 against the plain version."""
+    th, X, y, Z = _gpr_problem(dev, dt)
+    before = _build.LAUNCHES["gpr_potential"]
+    out = vfe_potential(th, X, y, Z, 1e-6, core="gpr")
+    assert _build.LAUNCHES["gpr_potential"] == before + 1
+    ref = gpr_neg_logpost_vg(th, X, y, 1e-6)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
+    rows = th + 0.2 * torch.randn((8, th.shape[0]), dtype=dt, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(2))
+    before = _build.LAUNCHES["gpr_mc_potential"]
+    out = mc_potential(rows, X, y, Z, 1e-6, core="gpr")
+    assert _build.LAUNCHES["gpr_mc_potential"] == before + 1
+    ref = mc_potential_plain(rows, X, y, Z, 1e-6, core="gpr")
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gpr_nuts_chunk_grid_c_equals_grid_1(dev, dt):
+    """Chain c of a grid-C launch (``mc_nuts_chunk``) equals a grid-1 launch
+    (``nuts_chunk``) on chain c's state and slabs, bit for bit (each block
+    runs its chain alone); and in f64 both stay on the plain version's path."""
+    th, X, y, Z = _gpr_problem(dev, dt, seed=3)
+    C, K, md = 4, 3, 5
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z = th + 0.1 * torch.randn((C, th.shape[0]), generator=gen, dtype=dt, device=dev)
+    U, g = mc_potential_plain(z, X, y, Z, 1e-6, core="gpr")
+    le = -2.0 + 0.1 * torch.arange(C, dtype=dt, device=dev)
+    zc, zv = torch.zeros(C, dtype=dt, device=dev), torch.zeros_like(z)
+    st = ChainState(z=z, U=U, g=g, inv_mass=torch.ones_like(z), log_eps=le,
+                    log_eps_avg=le, h_avg=zc, mu=le + np.log(10.0), t_da=zc,
+                    wf_mean=zv, wf_m2=zv, wf_count=zc)
+    sl = draw_mc_slabs(K, C, z.shape[1], algorithm="nuts", max_depth=md, generator=gen,
+                       dtype=dt, device=dev)
+    kw = dict(n_active=K, adapt=True, max_depth=md, core="gpr",
+              in_window=torch.arange(K, device=dev) >= 1,
+              window_end=torch.arange(K, device=dev) == 1)
+    before = dict(_build.LAUNCHES)
+    s_c, d_c, x_c = mc_nuts_chunk(st, X, y, Z, 1e-6, **kw, **sl)
+    for c in range(C):
+        one = {k: v[:, c].contiguous() for k, v in sl.items()}
+        chain_c = ChainState(**{f.name: getattr(st, f.name)[c] for f in dataclasses.fields(st)})
+        s1, d1, x1 = nuts_chunk(chain_c, X, y, Z, 1e-6, **one, **kw)
+        assert torch.equal(d1, d_c[:, c]) and torch.equal(x1, x_c[:, c]), c
+        assert torch.equal(s1.z, s_c.z[c]) and torch.equal(s1.log_eps, s_c.log_eps[c]), c
+    assert _build.LAUNCHES["gpr_mc_nuts_chunk"] == before["gpr_mc_nuts_chunk"] + 1
+    assert _build.LAUNCHES["gpr_nuts_chunk"] == before["gpr_nuts_chunk"] + C
+    if dt == torch.float64:
+        _, d_p, x_p = mc_nuts_chunk_plain(st, X, y, Z, 1e-6, **kw, **sl)
+        for c in range(C):
+            assert _agreeing_prefix(d_c[:, c], d_p[:, c], x_c[:, c], x_p[:, c],
+                                    CHUNK_TOL[dt]) == K, c
+
+
+@pytest.mark.parametrize("num_chains", [1, 3])
+def test_gpr_model_runs_on_the_card(dev, num_chains):
+    """The GPR+HMC protocol through the model's entry point: 20 warmup
+    transitions and 12 draws take more than one chunk launch, so a chunk
+    takes the state the previous launch returned."""
+    th, X, y, _ = _gpr_problem(dev, torch.float32, seed=6)
+    model = GPR_HMC(X, y)
+    before = dict(_build.LAUNCHES)
+    tr = model.train_model(20, 12, num_chains=num_chains)
+    assert tr.shape == (12 * num_chains, th.shape[0]) and torch.isfinite(tr).all()
+    pot, chunk = (("gpr_potential", "gpr_nuts_chunk") if num_chains == 1
+                  else ("gpr_mc_potential", "gpr_mc_nuts_chunk"))
+    per = 16 if num_chains == 1 else 8                 # transitions per launch
+    assert _build.LAUNCHES[chunk] - before[chunk] == -(-20 // per) + -(-12 // per)
+    assert _build.LAUNCHES[pot] > before[pot]
+    assert float(model.stats["diverging"].float().mean()) <= 0.1
+    means, vars_ = model.full_mixture_posterior_predictive(X[:10])
+    assert means.shape == (12 * num_chains, 10) and (vars_ > 0).all()
