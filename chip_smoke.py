@@ -16,7 +16,10 @@ non-zero exit:
    and the warm start, are held the same way at the same shape (state row
    d+2+M = 115), at grid 1 and grid 8; and the GPR+HMC kernels, the dense
    "gpr" core of the potential and NUTS kernels, at N=404, D=13 (state row
-   d+2 = 15), at grid 1 and grid 8;
+   d+2 = 15), at grid 1 and grid 8; and the three SVI kernels (svi_chunk
+   with its Gaussian, Bernoulli-probit and Poisson terms, bsvgp_chunk at
+   S=5, svi_softmax_chunk at C=3, n_half=32), one chunk of 16 Adam steps
+   at M=100, batch 200, beside cholesky_ex of the same Kmm;
 4. the main paths through the models' entry points, in float32, each with
    the launch counters set to 0 just before it and read just after:
    a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
@@ -35,6 +38,17 @@ non-zero exit:
       warmup + 10 draws, once untimed, then the min of 2 timed runs), and
       the full mixture predictive on the held-out 20 %;
    i. gpr-c4: GPR_HMC, 4 chains of NUTS, 100 warmup + 25 draws;
+   j. svgp: StochasticVariationalGP, Gaussian, experiments/regression.py's
+      protocol (M=100, batch 200, 200 epochs), held-out RMSE and NLPD;
+   k. svgp-probit: the banana Bernoulli-probit SVGP of
+      experiments/classification_banana.py (M=32, batch 256, 800 epochs),
+      test accuracy;
+   l. svgp-poisson: a Poisson SVGP on counts at the boston-shaped inputs
+      (as j), the held-out rate's mean absolute error;
+   m. svgp-softmax: a 3-class softmax SVGP on the tertiles of y (Z =
+      X[::6], batch 200, 500 epochs, lr 0.05), train accuracy;
+   n. bsvgp: BayesianStochasticVariationalGP (as j, prior_var 1, S=5), the
+      100-draw mixture predictive's held-out RMSE and NLPD;
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?); where one gpr evaluation's time goes (its six parts, timed as
    prefixes), beside cholesky_ex + cholesky_inverse of the same K; the gpr
@@ -45,11 +59,12 @@ Every kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its operations over the float32 peak
 and its bytes (inputs read once, outputs written once) over the memory
 rate. The operations are the least the call's evaluations of its core need
-(:func:`bound_ops`, :func:`sgpmc_ops`, :func:`gpr_ops`), not those the
-kernel happens to do.
+(:func:`bound_ops`, :func:`sgpmc_ops`, :func:`gpr_ops`, :func:`svi_ops`),
+not those the kernel happens to do.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
-                                    [gpr-hmc] [gpr-c4]
+                                    [gpr-hmc] [gpr-c4] [svgp] [svgp-probit]
+                                    [svgp-poisson] [svgp-softmax] [bsvgp]
 
 runs the named main paths instead (default: all) once each under
 ``torch.profiler`` after a short warm-up, and prints where the device time
@@ -71,10 +86,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ggp_tpu_torch import GPR_HMC, SGPMC, BayesianSparseGPR_HMC
+from ggp_tpu_torch import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC,
+                           BayesianStochasticVariationalGP, StochasticVariationalGP)
 from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
 from ggp_tpu_torch.inference.hmc import (find_reasonable_step_size,
                                          find_reasonable_step_size_batched)
+from ggp_tpu_torch.likelihoods import BernoulliProbit, PoissonLogCox, Softmax
 from ggp_tpu_torch.ops import _build
 from ggp_tpu_torch.ops.gpr_bound import gpr_neg_logpost_vg
 from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
@@ -87,10 +104,12 @@ from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
+from ggp_tpu_torch.ops.svi import (bsvgp_chunk, bsvgp_chunk_plain, svi_chunk, svi_chunk_plain,
+                                   svi_softmax_chunk, svi_softmax_chunk_plain)
 from ggp_tpu_torch.ops.vfe_bound import (call_potential, rbf_vfe_neg_logpost_vg, state_dim,
                                          vfe_potential)
 from ggp_tpu_torch.utils.datasets import normalize
-from ggp_tpu_torch.utils.metrics import nlpd_mixture, rmse
+from ggp_tpu_torch.utils.metrics import nlpd, nlpd_mixture, rmse
 
 # name: (source, the pallas_call it replaces, the other one it replaces)
 KERNELS = {
@@ -137,6 +156,11 @@ KERNELS = {
                          "ggp_tpu/ops/fused_nuts.py:807", None),
     "gpr_mc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
                           "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
+    # the SVI kernels (csrc/svgp_core.cuh)
+    "svi_chunk": ("ggp_tpu_torch/csrc/svi_chunk.cu", "ggp_tpu/ops/fused_svi.py:1012", None),
+    "bsvgp_chunk": ("ggp_tpu_torch/csrc/svi_chunk.cu", "ggp_tpu/ops/fused_svi.py:873", None),
+    "svi_softmax_chunk": ("ggp_tpu_torch/csrc/svi_chunk.cu", "ggp_tpu/ops/fused_svi.py:660",
+                          None),
 }
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
@@ -187,6 +211,43 @@ def make_data(name="boston", seed=173):
     X_test = Xn[n_train:].astype(np.float32).astype(np.float64)
     y_test = yn[n_train:, 0].astype(np.float32).astype(np.float64)
     return X, y, Z, X_test, y_test
+
+
+def make_banana():
+    """``ggp_tpu/utils/datasets.py`` ``SyntheticBanana`` (800 points, 2-D)
+    with its Dataset split: X z-scored, rows permuted by RandomState(173),
+    the first 80 % train. Returns (X, y, X_test, y_test) float64."""
+    rng = np.random.RandomState(42)
+    n = 400
+    t = rng.uniform(-3, 3, size=n)
+    x1 = np.stack([t, t ** 2 / 3 - 1 + 0.35 * rng.normal(size=n)], axis=1)
+    x2 = np.stack([t + 1.0, -(t ** 2) / 3 + 1 + 0.35 * rng.normal(size=n)], axis=1)
+    X, _, _ = normalize(np.concatenate([x1, x2]))
+    y = np.concatenate([np.zeros(n), np.ones(n)])
+    perm = np.random.RandomState(173).permutation(2 * n)
+    tr, te = perm[:int(0.8 * 2 * n)], perm[int(0.8 * 2 * n):]
+    return X[tr], y[tr], X[te], y[te]
+
+
+def make_counts(X, X_test, seed=7):
+    """Poisson counts at the boston-shaped inputs: y ~ Poisson(exp(f)) with
+    f = 1 + 0.8 sin(X w), w (d,) / sqrt(d) from ``seed``. Returns (y,
+    y_test, the held-out rate exp(f(X_test)))."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=X.shape[1]) / np.sqrt(X.shape[1])
+    rate, rate_test = (np.exp(1.0 + 0.8 * np.sin(A @ w)) for A in (X, X_test))
+    return rng.poisson(rate).astype(np.float64), rng.poisson(rate_test).astype(np.float64), rate_test
+
+
+def make_classes(y):
+    """Three classes from the tertiles of y."""
+    return np.digitize(y, np.quantile(y, [1 / 3, 2 / 3])).astype(np.float64)
+
+
+def svi_inducing(X, M=100, seed=45):
+    """``experiments/regression.py`` ``single_run``'s Z: M rows drawn with
+    replacement by RandomState(seed)."""
+    return X[np.random.RandomState(seed).randint(0, X.shape[0], M)]
 
 
 def rel(a, b):
@@ -303,6 +364,39 @@ def gpr_ops(n, d):
            + n * (n + 1) / 2 * 4 + n * n       # Kbar, P (symmetric); its row sums
            + 2 * n * n * d                     # P Xs
            + 6 * n * d)                        # chain rule to the lengthscales
+    return float(ops)
+
+
+def svi_ops(m, nb, d, C=1, lik="gauss", n_half=32):
+    """The least floating-point operations one SVGP minibatch step (loss,
+    hand adjoint, Adam) needs at (m, nb, d) with C latents, counted as
+    :func:`bound_ops` counts the collapsed bound. Leading terms: A = L^-1 Kms
+    and Kms_b = L^-T G (trsm, nb m^2 each); per latent SA = qL^T A and qL SA
+    (trmm, nb m^2 each) and the lower triangle of A (SA bv)^T (nb m (m+1));
+    the lower triangle of G A^T (nb m (m+1)); L^-T Phi L^-1 (sygst, m^3);
+    potrf and trtri (m^3/3 each). The data term per point: 10 operations
+    (Gaussian), 12 (Poisson), 16 per node of the 20-node rule (probit), 11
+    per class and signed draw (softmax)."""
+    data = {"gauss": 10 * nb, "poisson": 12 * nb, "bernoulli_probit": 20 * 16 * nb,
+            "softmax": 2 * n_half * nb * C * 11}[lik]
+    ops = (3 * (nb + m) * d                              # gather, scaled inputs, norms
+           + nb * m * (2 * d + 6)                        # Kms: cross products, r2, exp
+           + m * (m + 1) / 2 * (2 * d + 6)               # Kmm (symmetric)
+           + 2 * m ** 3 / 3                              # potrf + trtri
+           + nb * m * m + 2 * nb * m                     # A = L^-1 Kms (trsm); colsum A^2
+           + C * (nb * m * m + 6 * nb * m)               # SA = qL^T A (trmm); mean, colsum SA^2
+           + data
+           + C * (m * (m + 1) + 2 * m) + 2 * m * C       # KL
+           + C * (nb * m * m + 4 * nb * m)               # G: qL SA (trmm), alpha and bv terms
+           + 2 * C * nb * m                              # dELBO/dq_mu = A alpha
+           + C * (nb * m * (m + 1) + nb * m)             # dELBO/dqL, lower triangle
+           + nb * m * (m + 1)                            # G A^T, lower triangle
+           + nb * m * m                                  # Kms_b = L^-T G (trsm)
+           + m ** 3                                      # Kmm_b = -L^-T Phi L^-1 (sygst)
+           + m * (m + 1) / 2 + nb * m + m * m + 2 * nb * m   # Pmm (symmetric), Pms, sums
+           + 2 * m * m * d + 2 * nb * m * d              # Pmm Zs, Pms Xs
+           + 6 * (nb + m) * d + 6 * m * d                # chain rules to the lengthscales, Z
+           + 12 * (d + 2 + m * d + m * C + C * m * (m + 1) / 2))   # Adam
     return float(ops)
 
 
@@ -752,6 +846,183 @@ def phase_parity_gpr(Xd, yd, res, C=8, md=8):
                          K=8, md=md)
 
 
+def phase_parity_svi(Xd, yd, Zd, res, K=16, nb=200, S=5, C=3, n_half=32):
+    """The three SVI kernels against their plain versions at the parity
+    shape (N=404, D=13, M=100 distinct rows, batch nb), one chunk of K Adam
+    steps on shared row indices and eps, in float64 and float32:
+    svi_chunk with each of its three data terms, bsvgp_chunk at S hyper
+    draws, svi_softmax_chunk at C classes and n_half antithetic pairs. Held
+    on losses and parameters; the time per call of both. Then, as the
+    yardstick of the step's factorisation, torch.linalg.cholesky_ex of the
+    same float32 Kmm."""
+    n, d = Xd.shape
+    m = Zd.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    kw = dict(generator=gen, dtype=torch.float64, device="cuda")
+    idx = torch.stack([torch.randperm(n, generator=gen, device="cuda")[:nb] for _ in range(K)])
+    targets = {"gauss": yd, "bernoulli_probit": (yd > 0).double(),
+               "poisson": torch.poisson(torch.exp(0.5 * yd), generator=gen),
+               "softmax": torch.bucketize(yd, torch.quantile(yd, yd.new_tensor([1 / 3, 2 / 3])))
+               .double()}
+    hyp = torch.tensor([0.5] * d + [0.0, -2.0], dtype=torch.float64, device="cuda")
+    q_mu, q_raw = 0.1 * torch.randn((m, C), **kw), 0.05 * torch.randn((C, m, m), **kw)
+    eps_soft, eps_b = torch.randn((K, n_half, nb, C), **kw), torch.randn((K, S, d + 2), **kw)
+    hmu = 0.1 * torch.randn(d + 2, **kw)
+    # q(theta) at the model's initial scale: L_h diagonal ~0.1 (raw log(0.1))
+    Lraw = (torch.tril(0.05 * torch.randn((d + 2, d + 2), **kw), -1)
+            + torch.diag(math.log(0.1) + 0.05 * torch.randn(d + 2, **kw)))
+    jit = 1e-5
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, Z = Xd.to(dt), Zd.to(dt)
+        cases = []
+        for lik in ("gauss", "bernoulli_probit", "poisson"):
+            p = {"hyp": hyp[:d + 2 if lik == "gauss" else d + 1], "Z": Z, "q_mu": q_mu[:, :1],
+                 "q_raw": q_raw[:1]}
+            cases.append(("svi_chunk", lik, svi_chunk, svi_chunk_plain, p, (targets[lik],),
+                          dict(likelihood=lik), None, 1))
+        p = {"hmu": hmu, "Lraw": Lraw, "Z": Z, "q_mu": q_mu[:, :1], "q_raw": q_raw[:1]}
+        cases.append(("bsvgp_chunk", f"S={S}", bsvgp_chunk, bsvgp_chunk_plain, p, (yd,),
+                      dict(prior_var=1.0), eps_b, S))
+        p = {"hyp": hyp[:d + 1], "Z": Z, "q_mu": q_mu, "q_raw": q_raw}
+        cases.append(("svi_softmax_chunk", f"C={C}, n_half={n_half}", svi_softmax_chunk,
+                      svi_softmax_chunk_plain, p, (targets["softmax"],), {}, eps_soft, 1))
+        for name, what, kern, plain, p, (yt,), extra, eps, draws in cases:
+            p = {k: v.to(dt).contiguous() for k, v in p.items()}
+            zeros = {k: torch.zeros_like(v) for k, v in p.items()}
+            args = (p, zeros, dict(zeros), X, yt.to(dt), idx) + (
+                () if eps is None else (eps.to(dt),))
+            akw = dict(t0=0, lr=0.01, **extra)
+            out = kern(*args, jit, **akw)
+            ref = plain(*args, jit, **akw)
+            errs = {k: rel(out[0][k], ref[0][k]) for k in p}
+            errs["losses"] = rel(out[3], ref[3])
+            aerr = [abs_err(out[0][k], ref[0][k]) for k in p] + [abs_err(out[3], ref[3])]
+            worst = max(errs, key=errs.get)
+            e = errs[worst]
+            ms = cuda_ms(lambda: kern(*args, jit, **akw), 3)
+            pms = cuda_ms(lambda: plain(*args, jit, **akw), 1)
+            lik = extra.get("likelihood", "softmax" if name == "svi_softmax_chunk" else "gauss")
+            ops = K * draws * svi_ops(m, nb, d, p["q_mu"].shape[1], lik, n_half)
+            in_b = nbytes(X, yt.to(dt), idx, *(() if eps is None else (args[-1],))) \
+                + 3 * nbytes(*p.values())
+            out_b = 3 * nbytes(*p.values()) + nbytes(out[3])
+            t_ops, t_b = ops / PEAK_F32_OPS, (in_b + out_b) / PEAK_BYTES
+            bound = (max(t_ops, t_b) * 1e3, "operations" if t_ops >= t_b else "bytes")
+            print(f"parity {name} {tag} ({what}, K={K}, nb={nb}): max rel err {e:.3e} over "
+                  f"losses and parameters (at {worst}); kernel {ms:.3f} ms, plain {pms:.3f} ms per chunk "
+                  f"({ms / K:.4f} ms per step)" + (f", bound {bound[0]:.5f} ms" if f32 else ""))
+            tol = ADAM_TOL[dt] if f32 else TOL[dt]
+            assert e <= tol, f"{name} {tag} {what} rel err {e}"
+            r = res[name]
+            r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
+            if f32:
+                r["abs32"] = max(r["abs32"], max(aerr))
+                if r["ms"] is None:          # svi_chunk: the Gaussian case, the svgp path's
+                    r.update(ms=ms, plain_ms=pms, bound=bound)
+    Zs, hs = Zd.float(), hyp.float()
+    Zs = Zs * torch.exp(-hs[:d])
+    Kmm = (torch.exp(hs[d]) * torch.exp(-0.5 * torch.cdist(Zs, Zs) ** 2)
+           + jit * torch.eye(m, device="cuda"))
+    print(f"reference torch.linalg.cholesky_ex f32 of the same Kmm (M={m}): "
+          f"{cuda_ms(lambda: torch.linalg.cholesky_ex(Kmm), 20):.4f} ms")
+
+
+def phase_svi(label, build, train_kw, seed, evaluate, kernel):
+    """One SVI main path through a model's entry points, float32: build the
+    model, ``train_model(**train_kw)`` with a generator of ``seed``, timed
+    once; then ``evaluate(model)`` -> (metric text, gate passed)."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    model = build()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    losses, ms = once_ms(lambda: model.train_model(generator=gen, **train_kw))
+    (text, ok), t_eval = once_ms(lambda: evaluate(model))
+    launches = dict(_build.LAUNCHES)
+    n = model.train_x.shape[0]
+    steps = train_kw["num_epochs"] * (n // min(train_kw["batch_size"], n))
+    print(f"{label} on {CARD}: {ms / 1e3:.3f} s for {steps} Adam steps ({ms / steps:.4f} ms "
+          f"per step, {launches[kernel]} launches); epoch loss {float(losses[0]):.4f} -> "
+          f"{float(losses[-1]):.4f}; predictive {t_eval / 1e3:.3f} s; {text}")
+    check_launches(label, launches, [kernel])
+    assert torch.isfinite(losses).all() and float(losses[-1]) < float(losses[0]), label
+    assert ok, f"{label}: {text}"
+    return launches
+
+
+def svi_paths(Xd, yd, Xte, yte):
+    """The SVI main paths by name, float32, at the protocols of the
+    experiments: experiments/regression.py (SVGP, BayesianSVGP: M=100 rows
+    drawn by RandomState(45), batch 200, 200 epochs) and
+    experiments/classification_banana.py (banana probit SVGP: M=32, batch
+    256, 800 epochs, lr 0.03; softmax SVGP: Z = X[::6], batch 200, 500
+    epochs, lr 0.05). The gates sit a margin beyond the JAX package's CPU
+    run of the same protocols (svi_reference.py: RMSE 0.6152 and NLPD 0.9059
+    for svgp, 0.6226 and 0.9266 for bsvgp, test accuracy 0.8875, rate MAE
+    0.3097, train accuracy 0.7252), which draws other permutations."""
+    X, y, Xt, yt = (a.float() for a in (Xd, yd, Xte, yte))
+    Xn, Xtn, yn = X.double().cpu().numpy(), Xt.double().cpu().numpy(), y.double().cpu().numpy()
+    Z = svi_inducing(Xn)
+    f = dict(dtype=torch.float32, device="cuda")
+
+    def gauss_eval(model):
+        mean, var = model.posterior_predictive(Xt)
+        r, nl = float(rmse(mean, yt)), float(nlpd(mean, var, yt))
+        return f"held-out RMSE {r:.4f}, NLPD {nl:.4f}", r <= 0.70 and nl <= 1.05
+
+    def bsvgp_eval(model):
+        means, vars_ = model.mixture_posterior_predictive(Xt, num_samples=100)
+        r, nl = float(rmse(means.mean(0), yt)), float(nlpd_mixture(means, vars_, yt))
+        return (f"mixture ({means.shape[0]} components) held-out RMSE {r:.4f}, NLPD {nl:.4f}",
+                means.shape[0] == 100 and r <= 0.70 and nl <= 1.05)
+
+    Xb, yb, Xbt, ybt = (torch.tensor(a, **f) for a in make_banana())
+    Zb = Xb[torch.as_tensor(np.random.RandomState(0).randint(0, Xb.shape[0], 32), device="cuda")]
+
+    def probit_eval(model):
+        p, _ = model.posterior_predictive(Xbt)
+        acc = float(((p > 0.5).float() == ybt).float().mean())
+        return f"test accuracy {acc:.4f}", acc >= 0.84
+
+    yc, _, rate_t = (torch.tensor(a, **f) for a in make_counts(Xn, Xtn))
+
+    def poisson_eval(model):
+        r, _ = model.posterior_predictive(Xt)
+        mae = float((r - rate_t).abs().mean())
+        return f"held-out rate MAE {mae:.4f}", mae <= 0.45
+
+    ycl = torch.tensor(make_classes(yn), **f)
+
+    def softmax_eval(model):
+        p, _ = model.posterior_predictive(X)
+        acc = float((p.argmax(-1).float() == ycl).float().mean())
+        return f"train accuracy {acc:.4f}", acc >= 0.65
+
+    reg = dict(num_epochs=200, batch_size=200, lr=0.01)
+    return {
+        "svgp": lambda: phase_svi(
+            "svgp", lambda: StochasticVariationalGP(X, y, Z_init=torch.tensor(Z, **f)), reg, 45,
+            gauss_eval, "svi_chunk"),
+        "svgp-probit": lambda: phase_svi(
+            "svgp-probit", lambda: StochasticVariationalGP(Xb, yb, likelihood=BernoulliProbit(),
+                                                           Z_init=Zb),
+            dict(num_epochs=800, batch_size=256, lr=0.03), 0, probit_eval, "svi_chunk"),
+        "svgp-poisson": lambda: phase_svi(
+            "svgp-poisson", lambda: StochasticVariationalGP(X, yc, likelihood=PoissonLogCox(),
+                                                            Z_init=torch.tensor(Z, **f)),
+            reg, 45, poisson_eval, "svi_chunk"),
+        "svgp-softmax": lambda: phase_svi(
+            "svgp-softmax", lambda: StochasticVariationalGP(X, ycl, likelihood=Softmax(3),
+                                                            Z_init=X[::6]),
+            dict(num_epochs=500, batch_size=200, lr=0.05), 2, softmax_eval,
+            "svi_softmax_chunk"),
+        "bsvgp": lambda: phase_svi(
+            "bsvgp", lambda: BayesianStochasticVariationalGP(X, y, Z_init=torch.tensor(Z, **f),
+                                                             prior_var=1.0),
+            reg, 45, bsvgp_eval, "bsvgp_chunk"),
+    }
+
+
 def phase_gpr_parts(Xd, yd):
     """Where one float32 evaluation of the gpr core goes at (N, D) =
     (404, 13): the six parts of csrc/gpr_bound.cuh timed as prefixes (grams;
@@ -1089,7 +1360,8 @@ def profile_paths(X, y, Z, Xte, yte, names):
     paths = {"slice": lambda: phase_rounds(X, y, Z, 1, "slice"),
              "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
              "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
-             **joint_paths(X, y, Z, Xte, yte), **gpr_paths(X, y, Xte, yte)}
+             **joint_paths(X, y, Z, Xte, yte), **gpr_paths(X, y, Xte, yte),
+             **svi_paths(X, y, Xte, yte)}
     Xf, yf, Zf = (a.float() for a in (X, y, Z))
     mc_potential(torch.zeros((2, X.shape[1] + 2), device="cuda"), Xf, yf, Zf, 1e-5)
     torch.linalg.cholesky(torch.eye(8, device="cuda"))
@@ -1130,13 +1402,15 @@ def main(argv):
     phase_parity_mc(X, y, Zd, res)
     phase_parity_sgpmc(X, y, Zd, res)
     phase_parity_gpr(X, y, res)
+    phase_parity_svi(X, y, Zd, res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
     launches = {k: 0 for k in KERNELS}
     for run in (lambda: phase_rounds(X, y, Z, 1, "slice"),
                 lambda: phase_hmc_c8(X, y, Z),
                 lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
                 *joint_paths(X, y, Z, Xte, yte).values(),
-                *gpr_paths(X, y, Xte, yte).values()):
+                *gpr_paths(X, y, Xte, yte).values(),
+                *svi_paths(X, y, Xte, yte).values()):
         for k, v in run().items():
             if k in launches:
                 launches[k] += v

@@ -7,14 +7,19 @@ mixture predictive. SGPMC ("JointHMC"): Adam warm start of (hypers,
 whitened inducing values, Z), then NUTS or HMC jointly over the hypers and
 the whitened inducing values, and the 50-component mixture predictive.
 GPR_HMC: NUTS (one chain or C) over the hyperparameters of the exact GP
-under its dense marginal likelihood, and the full mixture predictive. The
+under its dense marginal likelihood, and the full mixture predictive.
+StochasticVariationalGP (Gaussian, Bernoulli-probit, Poisson or softmax
+likelihood) and BayesianStochasticVariationalGP: minibatch SVI, whole
+epochs of Adam steps per kernel launch, and their predictives. The
 hand-written CUDA kernels (``csrc/``) are built at first use on a machine
 with ``nvcc``; CPU tensors run each kernel's plain PyTorch version.
 """
 
 from . import config  # noqa: F401  (sets the TF32 policy)
 from .config import BASE_SEED, default_jitter
-from .models import GPR_HMC, SGPMC, BayesianSparseGPR_HMC, gp_marginal_loglik, gp_predict
+from .models import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC, BayesianStochasticVariationalGP,
+                     StochasticVariationalGP, gp_marginal_loglik, gp_predict)
 
-__all__ = ["BayesianSparseGPR_HMC", "GPR_HMC", "SGPMC", "gp_marginal_loglik",
-           "gp_predict", "BASE_SEED", "default_jitter"]
+__all__ = ["BayesianSparseGPR_HMC", "BayesianStochasticVariationalGP", "GPR_HMC", "SGPMC",
+           "StochasticVariationalGP", "gp_marginal_loglik", "gp_predict", "BASE_SEED",
+           "default_jitter"]

@@ -50,7 +50,9 @@ enum CfgIndex {
   C_PRIOR = 7,                       // 3 leaves x (kind, p1, p2, const)
   C_DIM = 19, C_MAX_DEPTH, C_K, C_ADAPT, C_TARGET, C_ADAPT_MASS,
   C_LR, C_CLIP, C_MIN_NOISE, C_T0, C_S_ACT, C_EPS, C_CHAINS, C_LEAPFROG,
-  C_STAGES, C_LEN
+  C_STAGES, C_NB, C_NUM_DATA, C_LIK, C_LATENTS, C_NHALF, C_PRIOR_VAR,
+  C_QUAD = 40,                       // 20 Gauss-Hermite nodes, then 20 weights
+  C_LEN = 80
 };
 
 enum PriorKind { P_GAMMA = 0, P_HC_STD, P_HC, P_HALF_NORMAL, P_LOGNORMAL, P_FLAT };

@@ -10,8 +10,12 @@ log_noise]``. ``sgpmc_state_from_jax`` and
 ``sgpmc_state_to_numpy`` do the same for the SGPMC state (``{"kernel",
 "lik": {"log_noise"}, "mean": {}, "v"}``) and its flat row ``[log_ls (d),
 log_os, log_noise, v (m)]`` (``ravel_pytree`` order). All accept a leading
-sample axis, so a trace converts the same way. The tests use them so that both
-packages compute from identical state.
+sample axis, so a trace converts the same way. ``svgp_params_from_jax`` and
+``bsvgp_params_from_jax`` map the params dict of the JAX
+``StochasticVariationalGP`` / ``BayesianStochasticVariationalGP`` (numpy
+leaves) onto the port model's ``params``, which has the same tree;
+``svgp_params_to_numpy`` and ``bsvgp_params_to_numpy`` go back. The tests use
+them so that both packages compute from identical state.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_numpy", "sgpmc_state_from_jax",
-           "sgpmc_state_to_numpy"]
+           "sgpmc_state_to_numpy", "svgp_params_from_jax", "svgp_params_to_numpy",
+           "bsvgp_params_from_jax", "bsvgp_params_to_numpy"]
 
 
 def params_from_jax(hypers: dict, Z=None, *, dtype=torch.float64,
@@ -69,3 +74,27 @@ def sgpmc_state_to_numpy(flat: torch.Tensor, d: int, Z: torch.Tensor | None = No
     if Z is None:
         return state
     return state, Z.detach().cpu().numpy()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def svgp_params_from_jax(params: dict, *, dtype=torch.float64, device="cpu") -> dict:
+    """The port's SVGP ``params`` ({"kernel", "lik", "Z", "q_mu",
+    "q_sqrt_raw"}) from the JAX model's (numpy leaves)."""
+    return _tree_map(lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device),
+                     params)
+
+
+def svgp_params_to_numpy(params: dict) -> dict:
+    """The JAX SVGP params dict (numpy leaves) from the port's."""
+    return _tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+# The BayesianSVGP params tree (the SVGP tree without "lik", plus
+# "hyper_mu" (h,) and the packed "hyper_L_vec") converts leaf by leaf alike.
+bsvgp_params_from_jax = svgp_params_from_jax
+bsvgp_params_to_numpy = svgp_params_to_numpy

@@ -49,7 +49,8 @@ def launch_key(core: str, kind: str) -> str:
 
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
-            "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "sgpmc_warm_chunk": 0}
+            "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "sgpmc_warm_chunk": 0,
+            "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0}
 
 
 def require_kind(core: str, kind: str) -> None:
@@ -63,11 +64,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# indices of the cfg double array (csrc/vfe_bound.cuh, enum CfgIndex)
+# indices of the cfg double array (csrc/vfe_bound.cuh, enum CfgIndex); PRIOR
+# holds 12 doubles, QUAD the 20 Gauss-Hermite nodes and then their 20 weights
 CFG = dict(N=0, M=1, D=2, JITTER=3, FLOOR=4, WANT_PRIOR=5, WANT_ZGRAD=6,
            PRIOR=7, DIM=19, MAX_DEPTH=20, K=21, ADAPT=22, TARGET=23,
            ADAPT_MASS=24, LR=25, CLIP=26, MIN_NOISE=27, T0=28, S_ACT=29,
-           EPS=30, CHAINS=31, LEAPFROG=32, STAGES=33, LEN=34)
+           EPS=30, CHAINS=31, LEAPFROG=32, STAGES=33, NB=34, NUM_DATA=35,
+           LIK=36, LATENTS=37, NHALF=38, PRIOR_VAR=39, QUAD=40, LEN=80)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -84,6 +87,9 @@ _SIGS = {
     "ggp_sgpr_adam": [_P] * 12,
     "ggp_z_adam": [_P] * 10,
     "ggp_sgpmc_warm": [_P] * 12,
+    "ggp_svi_chunk": [_P] * 19,
+    "ggp_svi_softmax_chunk": [_P] * 20,
+    "ggp_bsvgp_chunk": [_P] * 23,
 }
 
 
@@ -147,6 +153,8 @@ def _load(path: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib_.ggp_scratch_elems.argtypes = [ctypes.c_int] * 4
     lib_.ggp_scratch_elems.restype = ctypes.c_long
+    lib_.ggp_svi_scratch_elems.argtypes = [ctypes.c_int] * 4
+    lib_.ggp_svi_scratch_elems.restype = ctypes.c_long
     return lib_
 
 
@@ -163,14 +171,12 @@ def kernel_fn(base: str, dtype: torch.dtype):
 
 def cfg_array(**kv) -> ctypes.Array:
     """The kernels' ``cfg`` double array from named entries of :data:`CFG`;
-    ``PRIOR`` takes the 12 prior-leaf doubles."""
+    ``PRIOR`` takes the 12 prior-leaf doubles, ``QUAD`` the 40 quadrature
+    doubles."""
     a = (ctypes.c_double * CFG["LEN"])()
     for k, v in kv.items():
-        if k == "PRIOR":
-            for i, x in enumerate(v):
-                a[CFG["PRIOR"] + i] = float(x)
-        else:
-            a[CFG[k]] = float(v)
+        for i, x in enumerate(v if k in ("PRIOR", "QUAD") else [v]):
+            a[CFG[k] + i] = float(x)
     return a
 
 

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from ggp_tpu_torch import GPR_HMC, SGPMC, BayesianSparseGPR_HMC
+from ggp_tpu_torch import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC,
+                           BayesianStochasticVariationalGP, StochasticVariationalGP)
+from ggp_tpu_torch.likelihoods import BernoulliProbit, PoissonLogCox, Softmax
 from ggp_tpu_torch.ops import _build
 from ggp_tpu_torch.ops.gpr_bound import gpr_neg_logpost_vg
 from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
@@ -26,6 +28,7 @@ from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
                                           first_chain, nuts_chunk, nuts_chunk_plain)
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
+from ggp_tpu_torch.ops import svi
 from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, vfe_potential
 
 pytestmark = pytest.mark.cuda
@@ -461,3 +464,100 @@ def test_gpr_model_runs_on_the_card(dev, num_chains):
     assert float(model.stats["diverging"].float().mean()) <= 0.1
     means, vars_ = model.full_mixture_posterior_predictive(X[:10])
     assert means.shape == (12 * num_chains, 10) and (vars_ > 0).all()
+
+
+# -- the SVI kernels: SVGP (Gaussian, probit, Poisson, softmax) and BayesianSVGP ---------
+# A chunk of Adam steps: f64 to one evaluation's tolerance; f32 to Adam's
+# (a coordinate whose gradient is 1e-3 of the largest carries 1e-3 times the
+# roundoff of the largest into its normalised step).
+SVI_TOL = {torch.float64: 1e-9, torch.float32: 1e-2}
+
+
+def _svi_problem(dev, dt, lik, n=120, m=24, d=5, nb=40, K=6, C=3, seed=0):
+    r = np.random.default_rng(seed)
+    X = r.normal(size=(n, d))
+    f = np.sin(X @ r.normal(size=d))
+    y = {"gauss": f + 0.2 * r.normal(size=n), "bernoulli_probit": (f > 0) * 1.0,
+         "poisson": r.poisson(np.exp(f)) * 1.0, "softmax": np.digitize(f, [-0.3, 0.3]) * 1.0,
+         "bsvgp": f + 0.2 * r.normal(size=n)}[lik]
+    Cl = C if lik == "softmax" else 1
+    hd = {"gauss": d + 2, "bsvgp": d + 2}.get(lik, d + 1)
+    params = {"hyp": np.r_[0.2 * r.normal(size=d), 0.1, -1.0][:hd],
+              "Z": X[r.choice(n, m, replace=False)], "q_mu": 0.3 * r.normal(size=(m, Cl)),
+              "q_raw": 0.1 * r.normal(size=(Cl, m, m))}
+    if lik == "bsvgp":
+        h = d + 2
+        params = {"hmu": 0.1 * r.normal(size=h), "Lraw": np.tril(0.2 * r.normal(size=(h, h))),
+                  **{k: params[k] for k in ("Z", "q_mu", "q_raw")}}
+    idx = torch.tensor(np.stack([r.choice(n, nb, replace=False) for _ in range(K)]),
+                       device=dev)
+    T = lambda a: torch.tensor(a, dtype=dt, device=dev)      # noqa: E731
+    p = {k: T(v) for k, v in params.items()}
+    zeros = {k: torch.zeros_like(v) for k, v in p.items()}
+    return p, zeros, T(X), T(y), idx, r
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("lik", ["gauss", "bernoulli_probit", "poisson"])
+def test_svi_chunk_kernel_matches_plain(dev, dt, lik):
+    p, z, X, y, idx, _ = _svi_problem(dev, dt, lik)
+    before = _build.LAUNCHES["svi_chunk"]
+    kw = dict(likelihood=lik, t0=2, lr=0.01)
+    a = svi.svi_chunk(p, z, dict(z), X, y, idx, 1e-5, **kw)
+    assert _build.LAUNCHES["svi_chunk"] == before + 1
+    b = svi.svi_chunk_plain(p, z, dict(z), X, y, idx, 1e-5, **kw)
+    for u, v in zip(a[:3], b[:3]):
+        for k in svi.SVI_NAMES:
+            assert _rel(u[k], v[k]) <= SVI_TOL[dt], (k, _rel(u[k], v[k]))
+    assert _rel(a[3], b[3]) <= SVI_TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_svi_softmax_chunk_kernel_matches_plain(dev, dt):
+    p, z, X, y, idx, r = _svi_problem(dev, dt, "softmax")
+    eps = torch.tensor(r.normal(size=(idx.shape[0], 8, idx.shape[1], 3)), dtype=dt, device=dev)
+    before = _build.LAUNCHES["svi_softmax_chunk"]
+    a = svi.svi_softmax_chunk(p, z, dict(z), X, y, idx, eps, 1e-5, t0=0, lr=0.01)
+    assert _build.LAUNCHES["svi_softmax_chunk"] == before + 1
+    b = svi.svi_softmax_chunk_plain(p, z, dict(z), X, y, idx, eps, 1e-5, t0=0, lr=0.01)
+    for k in svi.SVI_NAMES:
+        assert _rel(a[0][k], b[0][k]) <= SVI_TOL[dt], k
+    assert _rel(a[3], b[3]) <= SVI_TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_bsvgp_chunk_kernel_matches_plain(dev, dt):
+    p, z, X, y, idx, r = _svi_problem(dev, dt, "bsvgp")
+    eps = torch.tensor(r.normal(size=(idx.shape[0], 5, X.shape[1] + 2)), dtype=dt, device=dev)
+    before = _build.LAUNCHES["bsvgp_chunk"]
+    kw = dict(prior_var=1.0, t0=0, lr=0.01)
+    a = svi.bsvgp_chunk(p, z, dict(z), X, y, idx, eps, 1e-5, **kw)
+    assert _build.LAUNCHES["bsvgp_chunk"] == before + 1
+    b = svi.bsvgp_chunk_plain(p, z, dict(z), X, y, idx, eps, 1e-5, **kw)
+    for k in svi.BSVGP_NAMES:
+        assert _rel(a[0][k], b[0][k]) <= SVI_TOL[dt], k
+    assert _rel(a[3], b[3]) <= SVI_TOL[dt]
+
+
+@pytest.mark.parametrize("lik", ["gauss", "bernoulli_probit", "poisson", "softmax", "bsvgp"])
+def test_svi_models_run_on_the_card(dev, lik):
+    """30 epochs of N // 40 = 3 steps through each model's entry point: two
+    launches of whole epochs (21 and 9), so the second launch takes the
+    parameters and moments the first returned."""
+    _, _, X, y, _, _ = _svi_problem(dev, torch.float32, lik)
+    key = "bsvgp_chunk" if lik == "bsvgp" else (
+        "svi_softmax_chunk" if lik == "softmax" else "svi_chunk")
+    before = _build.LAUNCHES[key]
+    if lik == "bsvgp":
+        m = BayesianStochasticVariationalGP(X, y, Z_init=X[:16], prior_var=1.0)
+    else:
+        lk = {"gauss": None, "bernoulli_probit": BernoulliProbit(), "poisson": PoissonLogCox(),
+              "softmax": Softmax(3, 16)}[lik]
+        m = StochasticVariationalGP(X, y, likelihood=lk, Z_init=X[:16])
+    losses = m.train_model(num_epochs=30, batch_size=40, lr=0.02)
+    assert losses.shape == (30,) and torch.isfinite(losses).all()
+    assert float(losses[-1]) < float(losses[0])
+    assert _build.LAUNCHES[key] - before == 2
+    out = (m.mixture_posterior_predictive(X[:10], 20) if lik == "bsvgp"
+           else m.posterior_predictive(X[:10]))
+    assert all(torch.isfinite(a).all() for a in out)
