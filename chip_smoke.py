@@ -18,8 +18,10 @@ non-zero exit:
    "gpr" core of the potential and NUTS kernels, at N=404, D=13 (state row
    d+2 = 15), at grid 1 and grid 8; and the three SVI kernels (svi_chunk
    with its Gaussian, Bernoulli-probit and Poisson terms, bsvgp_chunk at
-   S=5, svi_softmax_chunk at C=3, n_half=32), one chunk of 16 Adam steps
-   at M=100, batch 200, beside cholesky_ex of the same Kmm;
+   S=5 with q(theta) at spread 0.1 and 1, svi_softmax_chunk at C=3,
+   n_half=32), one chunk of 16 Adam steps at M=100, batch 200, and one of
+   64 steps at the shapes svgp-softmax (M=68) and svgp-probit (banana,
+   M=32, batch 256) launch, beside cholesky_ex of the same Kmm;
 4. the main paths through the models' entry points, in float32, each with
    the launch counters set to 0 just before it and read just after:
    a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
@@ -59,7 +61,8 @@ Every kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its operations over the float32 peak
 and its bytes (inputs read once, outputs written once) over the memory
 rate. The operations are the least the call's evaluations of its core need
-(:func:`bound_ops`, :func:`sgpmc_ops`, :func:`gpr_ops`, :func:`svi_ops`),
+(:func:`bound_ops`, :func:`sgpmc_ops`, :func:`gpr_ops`, :func:`svi_ops`,
+:func:`bsvgp_ops`),
 not those the kernel happens to do.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
@@ -171,6 +174,15 @@ TOL = {torch.float64: 1e-9, torch.float32: 1e-3}
 # roundoff of the largest into its moments and step: ~1e-3 in float32 after
 # 20 steps. In float64 the same effect stays below 1e-12.
 ADAM_TOL = {torch.float64: 1e-8, torch.float32: 1e-2}
+# Where Kmm is conditioned past float32 (q(theta) at unit spread draws
+# lengthscales of e^±3; 32 inducing points in 2-D), the float32 plain
+# version itself departs from the float64 one by more than F32_RESOLVES,
+# and two float32 versions differ by as much. An SVI chunk there is held to
+# accuracy instead: the kernel's error against float64 within
+# F32_AS_ACCURATE times the plain version's. The float64 parity of the same
+# case holds the function.
+F32_RESOLVES = ADAM_TOL[torch.float32] / 2
+F32_AS_ACCURATE = 2.0
 # A NUTS chunk integrates hundreds of leapfrog steps of a chaotic
 # trajectory: the per-evaluation roundoff difference of the two versions
 # (~1e-13 relative in f64, ~1e-6 in f32) grows along it, so draws are held
@@ -367,22 +379,23 @@ def gpr_ops(n, d):
     return float(ops)
 
 
-def svi_ops(m, nb, d, C=1, lik="gauss", n_half=32):
+def svi_ops(m, nb, d, C=1, lik="gauss", n_half=32, adam=True):
     """The least floating-point operations one SVGP minibatch step (loss,
-    hand adjoint, Adam) needs at (m, nb, d) with C latents, counted as
-    :func:`bound_ops` counts the collapsed bound. Leading terms: A = L^-1 Kms
-    and Kms_b = L^-T G (trsm, nb m^2 each); per latent SA = qL^T A and qL SA
-    (trmm, nb m^2 each) and the lower triangle of A (SA bv)^T (nb m (m+1));
-    the lower triangle of G A^T (nb m (m+1)); L^-T Phi L^-1 (sygst, m^3);
-    potrf and trtri (m^3/3 each). The data term per point: 10 operations
-    (Gaussian), 12 (Poisson), 16 per node of the 20-node rule (probit), 11
-    per class and signed draw (softmax)."""
+    hand adjoint and, with ``adam``, the Adam update) needs at (m, nb, d)
+    with C latents, counted as :func:`bound_ops` counts the collapsed bound.
+    Leading terms: A = L^-1 Kms and Kms_b = L^-T G (trsm, nb m^2 each); per
+    latent SA = qL^T A and qL SA (trmm, nb m^2 each) and the lower triangle
+    of A (SA bv)^T (nb m (m+1)); the lower triangle of G A^T (nb m (m+1));
+    L^-T Phi L^-1 from the factor (sygst, m^3); potrf (m^3/3). The data term
+    per point: 10 operations (Gaussian), 12 (Poisson), 16 per node of the
+    20-node rule (probit), 11 per class and signed draw (softmax)."""
     data = {"gauss": 10 * nb, "poisson": 12 * nb, "bernoulli_probit": 20 * 16 * nb,
             "softmax": 2 * n_half * nb * C * 11}[lik]
+    n_hyp = d + 2 if lik == "gauss" else d + 1
     ops = (3 * (nb + m) * d                              # gather, scaled inputs, norms
            + nb * m * (2 * d + 6)                        # Kms: cross products, r2, exp
            + m * (m + 1) / 2 * (2 * d + 6)               # Kmm (symmetric)
-           + 2 * m ** 3 / 3                              # potrf + trtri
+           + m ** 3 / 3                                  # potrf
            + nb * m * m + 2 * nb * m                     # A = L^-1 Kms (trsm); colsum A^2
            + C * (nb * m * m + 6 * nb * m)               # SA = qL^T A (trmm); mean, colsum SA^2
            + data
@@ -396,8 +409,27 @@ def svi_ops(m, nb, d, C=1, lik="gauss", n_half=32):
            + m * (m + 1) / 2 + nb * m + m * m + 2 * nb * m   # Pmm (symmetric), Pms, sums
            + 2 * m * m * d + 2 * nb * m * d              # Pmm Zs, Pms Xs
            + 6 * (nb + m) * d + 6 * m * d                # chain rules to the lengthscales, Z
-           + 12 * (d + 2 + m * d + m * C + C * m * (m + 1) / 2))   # Adam
+           + (12 * (n_hyp + m * d + m * C + C * m * (m + 1) / 2) if adam else 0))  # Adam
     return float(ops)
+
+
+def bsvgp_ops(m, nb, d, S):
+    """The least operations of one BayesianSVGP step with S hyper draws
+    (h = d+2): per draw theta_s = hmu + L_h eps_s (triangular), the Gaussian
+    core without Adam (:func:`svi_ops`), its (Z, q_mu, q_raw) gradient added
+    into the average and G_theta eps_s^T into the lower triangle of dL_h;
+    once a step the hyper KL with its gradient and Adam on the h + h(h+1)/2 +
+    m d + m + m(m+1)/2 parameters."""
+    h = d + 2
+    n_var = m * d + m + m * (m + 1) / 2
+    per_draw = (h * (h + 1) + h                          # theta_s (trmv)
+                + svi_ops(m, nb, d, adam=False)
+                + n_var                                  # gradients into the average
+                + h * (h + 1) + 2 * h)                   # dL_h += G eps^T (lower), dhmu
+    once = (h * (h + 1) + 3 * h                          # hyper KL
+            + h * (h + 1) + 5 * h                        # its gradient, the diagonal's exp chain
+            + 12 * (h + h * (h + 1) / 2 + n_var))        # Adam
+    return float(S * per_draw + once)
 
 
 def register_report():
@@ -846,20 +878,37 @@ def phase_parity_gpr(Xd, yd, res, C=8, md=8):
                          K=8, md=md)
 
 
+def svi_errs(out, ref):
+    """({name: rel err} over the parameters and the losses, worst name)."""
+    errs = {k: rel(out[0][k], ref[0][k]) for k in ref[0]}
+    errs["losses"] = rel(out[3], ref[3])
+    return errs, max(errs, key=errs.get)
+
+
 def phase_parity_svi(Xd, yd, Zd, res, K=16, nb=200, S=5, C=3, n_half=32):
-    """The three SVI kernels against their plain versions at the parity
-    shape (N=404, D=13, M=100 distinct rows, batch nb), one chunk of K Adam
-    steps on shared row indices and eps, in float64 and float32:
+    """The three SVI kernels against their plain versions, one chunk of Adam
+    steps on shared row indices and eps, in float64 and float32. At the
+    parity shape (N=404, D=13, M=100 distinct rows, batch nb, K steps):
     svi_chunk with each of its three data terms, bsvgp_chunk at S hyper
-    draws, svi_softmax_chunk at C classes and n_half antithetic pairs. Held
-    on losses and parameters; the time per call of both. Then, as the
-    yardstick of the step's factorisation, torch.linalg.cholesky_ex of the
-    same float32 Kmm."""
+    draws with q(theta) at the model's initial spread (L_h diagonal 0.1) and
+    at unit spread (where the prior_var=1 KL pulls it), svi_softmax_chunk at
+    C classes and n_half antithetic pairs. At the shapes the paths launch
+    (64 steps): svi_softmax_chunk at svgp-softmax's M=68 (Z = X[::6]), and
+    svi_chunk's probit term at svgp-probit's banana shape (N=640, D=2, M=32
+    distinct rows, batch 256). Held on losses and parameters; in float32
+    both versions are also read against the float64 plain version on the
+    same inputs, and a chunk that float32 does not resolve is held to
+    accuracy (``F32_AS_ACCURATE``). The time per call of both. Then, as the yardstick of the
+    step's factorisation, torch.linalg.cholesky_ex of the same float32 Kmm."""
     n, d = Xd.shape
     m = Zd.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(19)
     kw = dict(generator=gen, dtype=torch.float64, device="cuda")
-    idx = torch.stack([torch.randperm(n, generator=gen, device="cuda")[:nb] for _ in range(K)])
+
+    def batches(N, b, steps):
+        return torch.stack([torch.randperm(N, generator=gen, device="cuda")[:b]
+                            for _ in range(steps)])
+    idx = batches(n, nb, K)
     targets = {"gauss": yd, "bernoulli_probit": (yd > 0).double(),
                "poisson": torch.poisson(torch.exp(0.5 * yd), generator=gen),
                "softmax": torch.bucketize(yd, torch.quantile(yd, yd.new_tensor([1 / 3, 2 / 3])))
@@ -868,58 +917,96 @@ def phase_parity_svi(Xd, yd, Zd, res, K=16, nb=200, S=5, C=3, n_half=32):
     q_mu, q_raw = 0.1 * torch.randn((m, C), **kw), 0.05 * torch.randn((C, m, m), **kw)
     eps_soft, eps_b = torch.randn((K, n_half, nb, C), **kw), torch.randn((K, S, d + 2), **kw)
     hmu = 0.1 * torch.randn(d + 2, **kw)
-    # q(theta) at the model's initial scale: L_h diagonal ~0.1 (raw log(0.1))
-    Lraw = (torch.tril(0.05 * torch.randn((d + 2, d + 2), **kw), -1)
-            + torch.diag(math.log(0.1) + 0.05 * torch.randn(d + 2, **kw)))
+    L_off = torch.tril(0.05 * torch.randn((d + 2, d + 2), **kw), -1)
+    L_diag = 0.05 * torch.randn(d + 2, **kw)
+
+    # case: (kernel name, label, wrapper, plain, params, X, y, idx, eps, options,
+    #        likelihood, draws, feeds the JSON line)
+    cases = []
+    for lik in ("gauss", "bernoulli_probit", "poisson"):
+        p = {"hyp": hyp[:d + 2 if lik == "gauss" else d + 1], "Z": Zd, "q_mu": q_mu[:, :1],
+             "q_raw": q_raw[:1]}
+        cases.append(("svi_chunk", lik, svi_chunk, svi_chunk_plain, p, Xd, targets[lik], idx,
+                      None, dict(likelihood=lik), lik, 1, lik == "gauss"))
+    for spread, first in ((0.1, True), (1.0, False)):
+        p = {"hmu": hmu, "Lraw": L_off + torch.diag(math.log(spread) + L_diag), "Z": Zd,
+             "q_mu": q_mu[:, :1], "q_raw": q_raw[:1]}
+        cases.append(("bsvgp_chunk", f"S={S}, L_h diagonal {spread}", bsvgp_chunk,
+                      bsvgp_chunk_plain, p, Xd, yd, idx, eps_b, dict(prior_var=1.0), "gauss", S,
+                      first))
+    p = {"hyp": hyp[:d + 1], "Z": Zd, "q_mu": q_mu, "q_raw": q_raw}
+    cases.append(("svi_softmax_chunk", f"C={C}, n_half={n_half}, M={m}", svi_softmax_chunk,
+                  svi_softmax_chunk_plain, p, Xd, targets["softmax"], idx, eps_soft, {},
+                  "softmax", 1, False))
+    # the paths' own shapes, 64 steps a launch (models.svgp.STEPS_PER_LAUNCH)
+    Kp, Zs6 = 64, Xd[::6]
+    ms6 = Zs6.shape[0]
+    p = {"hyp": hyp[:d + 1], "Z": Zs6, "q_mu": 0.1 * torch.randn((ms6, C), **kw),
+         "q_raw": 0.05 * torch.randn((C, ms6, ms6), **kw)}
+    cases.append(("svi_softmax_chunk", f"C={C}, n_half={n_half}, M={ms6} (svgp-softmax)",
+                  svi_softmax_chunk, svi_softmax_chunk_plain, p, Xd, targets["softmax"],
+                  batches(n, nb, Kp), torch.randn((Kp, n_half, nb, C), **kw), {}, "softmax", 1,
+                  True))
+    Xb, yb = (torch.tensor(a, dtype=torch.float64, device="cuda") for a in make_banana()[:2])
+    Zb = Xb[torch.as_tensor(np.random.RandomState(0).choice(Xb.shape[0], 32, replace=False),
+                            device="cuda")]
+    p = {"hyp": torch.tensor([0.5, 0.5, 0.0], dtype=torch.float64, device="cuda"), "Z": Zb,
+         "q_mu": 0.1 * torch.randn((32, 1), **kw), "q_raw": 0.05 * torch.randn((1, 32, 32), **kw)}
+    cases.append(("svi_chunk", "bernoulli_probit, banana M=32 (svgp-probit)", svi_chunk,
+                  svi_chunk_plain, p, Xb, yb, batches(Xb.shape[0], 256, Kp), None,
+                  dict(likelihood="bernoulli_probit"), "bernoulli_probit", 1, False))
     jit = 1e-5
+    failed = []
     for dt in (torch.float64, torch.float32):
         tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
-        X, Z = Xd.to(dt), Zd.to(dt)
-        cases = []
-        for lik in ("gauss", "bernoulli_probit", "poisson"):
-            p = {"hyp": hyp[:d + 2 if lik == "gauss" else d + 1], "Z": Z, "q_mu": q_mu[:, :1],
-                 "q_raw": q_raw[:1]}
-            cases.append(("svi_chunk", lik, svi_chunk, svi_chunk_plain, p, (targets[lik],),
-                          dict(likelihood=lik), None, 1))
-        p = {"hmu": hmu, "Lraw": Lraw, "Z": Z, "q_mu": q_mu[:, :1], "q_raw": q_raw[:1]}
-        cases.append(("bsvgp_chunk", f"S={S}", bsvgp_chunk, bsvgp_chunk_plain, p, (yd,),
-                      dict(prior_var=1.0), eps_b, S))
-        p = {"hyp": hyp[:d + 1], "Z": Z, "q_mu": q_mu, "q_raw": q_raw}
-        cases.append(("svi_softmax_chunk", f"C={C}, n_half={n_half}", svi_softmax_chunk,
-                      svi_softmax_chunk_plain, p, (targets["softmax"],), {}, eps_soft, 1))
-        for name, what, kern, plain, p, (yt,), extra, eps, draws in cases:
+        for name, what, kern, plain, p, Xc, yc, ix, eps, extra, lik, draws, js in cases:
             p = {k: v.to(dt).contiguous() for k, v in p.items()}
             zeros = {k: torch.zeros_like(v) for k, v in p.items()}
-            args = (p, zeros, dict(zeros), X, yt.to(dt), idx) + (
-                () if eps is None else (eps.to(dt),))
+            X, yt = Xc.to(dt), yc.to(dt)
+            args = (p, zeros, dict(zeros), X, yt, ix) + (() if eps is None else (eps.to(dt),))
             akw = dict(t0=0, lr=0.01, **extra)
             out = kern(*args, jit, **akw)
             ref = plain(*args, jit, **akw)
-            errs = {k: rel(out[0][k], ref[0][k]) for k in p}
-            errs["losses"] = rel(out[3], ref[3])
-            aerr = [abs_err(out[0][k], ref[0][k]) for k in p] + [abs_err(out[3], ref[3])]
-            worst = max(errs, key=errs.get)
+            errs, worst = svi_errs(out, ref)
             e = errs[worst]
+            aerr = [abs_err(out[0][k], ref[0][k]) for k in p] + [abs_err(out[3], ref[3])]
+            txt, ok = "", e <= (ADAM_TOL[dt] if f32 else TOL[dt])
+            if f32:     # both float32 versions against the float64 run from the same inputs
+                a64 = tuple({k: v.double() for k, v in a.items()} if isinstance(a, dict)
+                            else a.double() if a.is_floating_point() else a for a in args)
+                r64 = plain(*a64, jit, **akw)
+                (ek, wk), (ep, wp) = svi_errs(out, r64), svi_errs(ref, r64)
+                txt = (f"; against float64 from the same inputs: kernel {ek[wk]:.3e} (at "
+                       f"{wk}), plain {ep[wp]:.3e} (at {wp})")
+                if not ok and ep[wp] > F32_RESOLVES:
+                    # float32 cannot resolve this chunk: the kernel must be as
+                    # accurate as its plain version, both read against float64
+                    ok = ek[wk] <= F32_AS_ACCURATE * ep[wp]
+                    txt += (f" (float32 does not resolve this chunk: kernel held to "
+                            f"{F32_AS_ACCURATE:g}x the plain version's error)")
             ms = cuda_ms(lambda: kern(*args, jit, **akw), 3)
             pms = cuda_ms(lambda: plain(*args, jit, **akw), 1)
-            lik = extra.get("likelihood", "softmax" if name == "svi_softmax_chunk" else "gauss")
-            ops = K * draws * svi_ops(m, nb, d, p["q_mu"].shape[1], lik, n_half)
-            in_b = nbytes(X, yt.to(dt), idx, *(() if eps is None else (args[-1],))) \
-                + 3 * nbytes(*p.values())
+            Kc, nbc = ix.shape
+            mc, dc = p["Z"].shape
+            ops = Kc * (bsvgp_ops(mc, nbc, dc, draws) if name == "bsvgp_chunk"
+                        else svi_ops(mc, nbc, dc, p["q_mu"].shape[1], lik, n_half))
+            in_b = nbytes(X, yt, ix, *args[6:]) + 3 * nbytes(*p.values())
             out_b = 3 * nbytes(*p.values()) + nbytes(out[3])
             t_ops, t_b = ops / PEAK_F32_OPS, (in_b + out_b) / PEAK_BYTES
             bound = (max(t_ops, t_b) * 1e3, "operations" if t_ops >= t_b else "bytes")
-            print(f"parity {name} {tag} ({what}, K={K}, nb={nb}): max rel err {e:.3e} over "
-                  f"losses and parameters (at {worst}); kernel {ms:.3f} ms, plain {pms:.3f} ms per chunk "
-                  f"({ms / K:.4f} ms per step)" + (f", bound {bound[0]:.5f} ms" if f32 else ""))
-            tol = ADAM_TOL[dt] if f32 else TOL[dt]
-            assert e <= tol, f"{name} {tag} {what} rel err {e}"
+            print(f"parity {name} {tag} ({what}, K={Kc}, nb={nbc}): max rel err {e:.3e} over "
+                  f"losses and parameters (at {worst}){txt}; kernel {ms:.3f} ms, plain "
+                  f"{pms:.3f} ms per chunk ({ms / Kc:.4f} ms per step)"
+                  + (f", bound {bound[0]:.5f} ms" if f32 else ""))
+            if not ok:
+                failed.append(f"{name} {tag} {what} rel err {e}{txt}")
             r = res[name]
             r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
             if f32:
                 r["abs32"] = max(r["abs32"], max(aerr))
-                if r["ms"] is None:          # svi_chunk: the Gaussian case, the svgp path's
+                if js:                       # the case at its main path's shape
                     r.update(ms=ms, plain_ms=pms, bound=bound)
+    assert not failed, "; ".join(failed)
     Zs, hs = Zd.float(), hyp.float()
     Zs = Zs * torch.exp(-hs[:d])
     Kmm = (torch.exp(hs[d]) * torch.exp(-0.5 * torch.cdist(Zs, Zs) ** 2)
@@ -973,7 +1060,11 @@ def svi_paths(Xd, yd, Xte, yte):
     def bsvgp_eval(model):
         means, vars_ = model.mixture_posterior_predictive(Xt, num_samples=100)
         r, nl = float(rmse(means.mean(0), yt)), float(nlpd_mixture(means, vars_, yt))
-        return (f"mixture ({means.shape[0]} components) held-out RMSE {r:.4f}, NLPD {nl:.4f}",
+        vec = model.params["hyper_L_vec"]      # the trained spread of q(theta): L_h's diagonal
+        diag = torch.exp(vec[torch.arange(1, model.hyper_dim + 1, device=vec.device).cumsum(0) - 1])
+        return (f"mixture ({means.shape[0]} components) held-out RMSE {r:.4f}, NLPD {nl:.4f}; "
+                f"trained L_h diagonal {float(diag.min()):.4f}-{float(diag.max()):.4f} "
+                f"(median {float(diag.median()):.4f})",
                 means.shape[0] == 100 and r <= 0.70 and nl <= 1.05)
 
     Xb, yb, Xbt, ybt = (torch.tensor(a, **f) for a in make_banana())

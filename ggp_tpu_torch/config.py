@@ -23,3 +23,14 @@ def default_jitter(dtype: torch.dtype) -> float:
     models scale it by max(sf2, 1) before each Kmm factorisation (relative);
     GPR_HMC adds it to K + s2 I as it is (absolute)."""
     return 1e-8 if dtype == torch.float64 else 1e-5
+
+
+def resolve_device(name: str, device) -> torch.device:
+    """The device of model ``name``: the card unless ``device`` says
+    otherwise. The card without CUDA raises; nothing falls back to the CPU
+    quietly."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name} runs on the card by default and no CUDA device is "
+                           "available; pass device='cpu' for the plain CPU versions")
+    return device

@@ -27,7 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..config import default_jitter
+from ..config import default_jitter, resolve_device
 from ..inference.hmc import NUTSConfig, multichain_fused, single_chain_fused
 from ..kernels import default_rbf
 from ..ops.multichain import make_multichain
@@ -55,11 +55,7 @@ class BayesianSparseGPR_HMC:
     def __init__(self, train_x, train_y, Z_init=None, *, prior_tree=None,
                  jitter: float | None = None, dtype=None, device=None):
         dtype = dtype or torch.as_tensor(train_x).dtype
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("BayesianSparseGPR_HMC runs on the card by "
-                               "default and no CUDA device is available; pass "
-                               "device='cpu' for the plain CPU versions")
+        device = resolve_device("BayesianSparseGPR_HMC", device)
         self.train_x = torch.as_tensor(train_x, dtype=dtype, device=device).contiguous()
         self.train_y = torch.as_tensor(train_y, dtype=dtype, device=device).contiguous()
         n, d = self.train_x.shape

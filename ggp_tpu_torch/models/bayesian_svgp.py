@@ -28,12 +28,11 @@ import math
 
 import torch
 
-from ..config import default_jitter
+from ..config import default_jitter, resolve_device
 from ..kernels import default_rbf
 from ..likelihoods import BernoulliProbit, GaussianLikelihood, PoissonLogCox
 from ..ops.svi import bsvgp_chunk
-from .svgp import (_build_L, _kl_whitened, _whitened_q_f, check_rbf_ard, epoch_chunks,
-                   resolve_device)
+from .svgp import _build_L, _kl_whitened, _whitened_q_f, check_rbf_ard, epoch_chunks
 
 __all__ = ["BayesianStochasticVariationalGP", "bsvgp_elbo"]
 

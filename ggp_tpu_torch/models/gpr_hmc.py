@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import default_jitter
+from ..config import default_jitter, resolve_device
 from ..inference.hmc import NUTSConfig, multichain_fused, single_chain_fused
 from ..kernels import RBF, Kernel, Scale, default_rbf
 from ..likelihoods import GaussianLikelihood
@@ -102,11 +102,7 @@ class GPR_HMC:
                 "closed-form prior tree, d + 2 <= 128, no mesh; still to port: "
                 + ", ".join(unsupported))
         dtype = dtype or torch.as_tensor(train_x).dtype
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("GPR_HMC runs on the card by default and no CUDA "
-                               "device is available; pass device='cpu' for the "
-                               "plain CPU versions")
+        device = resolve_device("GPR_HMC", device)
         self.train_x = torch.as_tensor(train_x, dtype=dtype, device=device).contiguous()
         self.train_y = torch.as_tensor(train_y, dtype=dtype, device=device).contiguous()
         self.kernel = default_rbf(ard=True)

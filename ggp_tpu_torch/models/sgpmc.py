@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import default_jitter
+from ..config import default_jitter, resolve_device
 from ..inference.hmc import NUTSConfig, multichain_fused, single_chain_fused
 from ..kernels import RBF, Scale, default_rbf
 from ..likelihoods import GaussianLikelihood
@@ -88,11 +88,7 @@ class SGPMC:
                 "x Gamma(2, 1); still to port (ROADMAP queue 1, JointHMC "
                 "follow-ups): " + ", ".join(unsupported))
         dtype = dtype or torch.as_tensor(train_x).dtype
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SGPMC runs on the card by default and no CUDA "
-                               "device is available; pass device='cpu' for the "
-                               "plain CPU versions")
+        device = resolve_device("SGPMC", device)
         self.train_x = torch.as_tensor(train_x, dtype=dtype, device=device).contiguous()
         self.train_y = torch.as_tensor(train_y, dtype=dtype, device=device).contiguous()
         n, d = self.train_x.shape

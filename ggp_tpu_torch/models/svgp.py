@@ -25,14 +25,14 @@ from __future__ import annotations
 
 import torch
 
-from ..config import default_jitter
+from ..config import default_jitter, resolve_device
 from ..kernels import RBF, Scale, default_rbf
 from ..likelihoods import BernoulliProbit, GaussianLikelihood, PoissonLogCox, Softmax
 from ..ops.linalg import safe_cholesky, tri_solve
 from ..ops.svi import svi_chunk, svi_softmax_chunk
 
 __all__ = ["StochasticVariationalGP", "svgp_elbo", "svgp_predict_f", "pack_svgp",
-           "unpack_svgp", "lik_tag", "resolve_device", "check_rbf_ard", "epoch_chunks",
+           "unpack_svgp", "lik_tag", "check_rbf_ard", "epoch_chunks",
            "STEPS_PER_LAUNCH"]
 
 _TAGS = {GaussianLikelihood: "gauss", BernoulliProbit: "bernoulli_probit",
@@ -119,14 +119,6 @@ def unpack_svgp(flat: dict, params: dict, tag: str) -> dict:
     if tag == "gauss":
         out["lik"] = {"log_noise": hyp[d + 1]}
     return out
-
-
-def resolve_device(name, device):
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{name} runs on the card by default and no CUDA device is "
-                           "available; pass device='cpu' for the plain CPU versions")
-    return device
 
 
 def check_rbf_ard(kernel) -> bool:

@@ -512,6 +512,26 @@ def test_svi_chunk_kernel_matches_plain(dev, dt, lik):
     assert _rel(a[3], b[3]) <= SVI_TOL[dt]
 
 
+@pytest.mark.parametrize("nb", [256, 300])
+@pytest.mark.parametrize("lik", ["bernoulli_probit", "softmax"])
+def test_svi_batch_at_and_past_the_block_width(dev, lik, nb):
+    """Batches of one block's 256 threads (svgp-probit's) and more, at D=2
+    and M=32 (the banana shape), float64."""
+    dt = torch.float64
+    p, z, X, y, idx, r = _svi_problem(dev, dt, lik, n=320, m=32, d=2, nb=nb, K=4)
+    if lik == "softmax":
+        eps = torch.tensor(r.normal(size=(4, 4, nb, 3)), dtype=dt, device=dev)
+        a = svi.svi_softmax_chunk(p, z, dict(z), X, y, idx, eps, 1e-5, t0=0, lr=0.03)
+        b = svi.svi_softmax_chunk_plain(p, z, dict(z), X, y, idx, eps, 1e-5, t0=0, lr=0.03)
+    else:
+        kw = dict(likelihood=lik, t0=0, lr=0.03)
+        a = svi.svi_chunk(p, z, dict(z), X, y, idx, 1e-5, **kw)
+        b = svi.svi_chunk_plain(p, z, dict(z), X, y, idx, 1e-5, **kw)
+    for k in svi.SVI_NAMES:
+        assert _rel(a[0][k], b[0][k]) <= SVI_TOL[dt], k
+    assert _rel(a[3], b[3]) <= SVI_TOL[dt]
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 def test_svi_softmax_chunk_kernel_matches_plain(dev, dt):
     p, z, X, y, idx, r = _svi_problem(dev, dt, "softmax")
