@@ -21,7 +21,13 @@ non-zero exit:
    S=5 with q(theta) at spread 0.1 and 1, svi_softmax_chunk at C=3,
    n_half=32), one chunk of 16 Adam steps at M=100, batch 200, and one of
    64 steps at the shapes svgp-softmax (M=68) and svgp-probit (banana,
-   M=32, batch 256) launch, beside cholesky_ex of the same Kmm;
+   M=32, batch 256) launch, beside cholesky_ex of the same Kmm; and the
+   big-N statistics kernels (vfe_stats_fwd, vfe_stats_bwd) at the SGHMC
+   step's shape (C=4, B=2048 rows gathered by index from 1e6, M=100,
+   D=18), the anchor's (N=1e6, C=2), each stationary family (N=3000, Z
+   rows from X) and bf16 once, with the peak memory of a full-N call and
+   cuBLAS's product on a materialised K; sgpr_adam_chunk at the SGHMC
+   experiment's warm-start shape (n=4096, 200 steps);
 4. the main paths through the models' entry points, in float32, each with
    the launch counters set to 0 just before it and read just after:
    a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
@@ -51,6 +57,16 @@ non-zero exit:
       X[::6], batch 200, 500 epochs, lr 0.05), train accuracy;
    n. bsvgp: BayesianStochasticVariationalGP (as j, prior_var 1, S=5), the
       100-draw mixture predictive's held-out RMSE and NLPD;
+   o. sghmc-1m: bench.py's ``cell_sghmc_1m`` (synthetic-large tiled to
+      N=1e6, M=100, 2 chains x 2000 SGHMC steps with the SVRG anchor,
+      after an untimed 20-step run), steps/s and finite draws; then the
+      same protocol on 100,000 rows, its kept draws' mean log-hypers held
+      against the JAX package's CPU run (sghmc_reference.py);
+   p. sghmc-exp: the port's experiments/large_scale_regression_sghmc.py
+      ``main()`` at N=1e6 (SparseGPR warm start on 4096 rows, SGHMC as o,
+      30-component mixture predictive), held-out RMSE and NLPD; then at
+      100,000 rows, its warm start's loss and log-noise and the kept
+      draws' mean log-hypers held against the JAX package's CPU run;
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?); where one gpr evaluation's time goes (its six parts, timed as
    prefixes), beside cholesky_ex + cholesky_inverse of the same K; the gpr
@@ -62,12 +78,13 @@ work of the timed call: the larger of its operations over the float32 peak
 and its bytes (inputs read once, outputs written once) over the memory
 rate. The operations are the least the call's evaluations of its core need
 (:func:`bound_ops`, :func:`sgpmc_ops`, :func:`gpr_ops`, :func:`svi_ops`,
-:func:`bsvgp_ops`),
+:func:`bsvgp_ops`, ``ops.vfe_stats.stats_ops``),
 not those the kernel happens to do.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
                                     [gpr-hmc] [gpr-c4] [svgp] [svgp-probit]
                                     [svgp-poisson] [svgp-softmax] [bsvgp]
+                                    [sghmc-1m] [sghmc-exp]
 
 runs the named main paths instead (default: all) once each under
 ``torch.profiler`` after a short warm-up, and prints where the device time
@@ -91,9 +108,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from ggp_tpu_torch import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC,
                            BayesianStochasticVariationalGP, StochasticVariationalGP)
+from ggp_tpu_torch.experiments.large_scale_regression_sghmc import main as sghmc_main
+from ggp_tpu_torch.experiments.large_scale_regression_sghmc import tiled_data
 from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
 from ggp_tpu_torch.inference.hmc import (find_reasonable_step_size,
                                          find_reasonable_step_size_batched)
+from ggp_tpu_torch.inference.sghmc import SGHMCConfig, ravel_tree, run_sghmc
+from ggp_tpu_torch.kernels import default_rbf
 from ggp_tpu_torch.likelihoods import BernoulliProbit, PoissonLogCox, Softmax
 from ggp_tpu_torch.ops import _build
 from ggp_tpu_torch.ops.gpr_bound import gpr_neg_logpost_vg
@@ -109,8 +130,13 @@ from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
 from ggp_tpu_torch.ops.svi import (bsvgp_chunk, bsvgp_chunk_plain, svi_chunk, svi_chunk_plain,
                                    svi_softmax_chunk, svi_softmax_chunk_plain)
+from ggp_tpu_torch.models.sgpr import sgpr_elbo_from_stats, vfe_stats
 from ggp_tpu_torch.ops.vfe_bound import (call_potential, rbf_vfe_neg_logpost_vg, state_dim,
                                          vfe_potential)
+from ggp_tpu_torch.ops.vfe_stats import (FAMILIES, stats_ops, vfe_stats_bwd,
+                                         vfe_stats_bwd_plain, vfe_stats_fwd,
+                                         vfe_stats_fwd_plain)
+from ggp_tpu_torch.priors import log_prior, prior_tree_rbf
 from ggp_tpu_torch.utils.datasets import normalize
 from ggp_tpu_torch.utils.metrics import nlpd, nlpd_mixture, rmse
 
@@ -121,7 +147,7 @@ KERNELS = {
     "nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
                    "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
     "sgpr_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
-                        "ggp_tpu/ops/fused_sgpr.py:434", None),
+                        "ggp_tpu/ops/fused_sgpr.py:434", "ggp_tpu/ops/fused_sgpr.py:420"),
     "z_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
                      "ggp_tpu/ops/fused_sgpr.py:352", None),
     "mc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
@@ -164,6 +190,9 @@ KERNELS = {
     "bsvgp_chunk": ("ggp_tpu_torch/csrc/svi_chunk.cu", "ggp_tpu/ops/fused_svi.py:873", None),
     "svi_softmax_chunk": ("ggp_tpu_torch/csrc/svi_chunk.cu", "ggp_tpu/ops/fused_svi.py:660",
                           None),
+    # the big-N statistics (csrc/vfe_stats.cu), C chains, rows gathered in the kernel
+    "vfe_stats_fwd": ("ggp_tpu_torch/csrc/vfe_stats.cu", "ggp_tpu/ops/pallas_vfe.py:152", None),
+    "vfe_stats_bwd": ("ggp_tpu_torch/csrc/vfe_stats.cu", "ggp_tpu/ops/pallas_vfe.py:238", None),
 }
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
@@ -194,6 +223,77 @@ F32_AS_ACCURATE = 2.0
 # HMC chunk (8 transitions of L=10) is held to the same draw tolerance and
 # to identical accept decisions.
 NUTS_TOL = {torch.float64: 1e-6, torch.float32: 1e-2}
+# The statistics kernels against their plain versions: the same sums in
+# another order, over up to 1e6 rows (float32 ~1e-6-1e-5 relative; the
+# float32 results are also held against float64 from the same inputs).
+STATS_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+# The sghmc-exp gates: ~2 % beyond the JAX package's CPU run of the same
+# protocol (sghmc_reference.py: test RMSE 2.0418 at 100,000 rows and 2.0482
+# at 200,000, mixture NLPD 2.1337 and 2.1365, in the data's units), which
+# draws other minibatches and warm-starts on its XLA Adam. On this data set
+# the fit explains y as noise in both packages: a predictor of 0 scores
+# RMSE 2.0325 (the test y's root mean square) and NLPD ~2.128, so these
+# gates check the output's sanity only. What the protocols move is held by
+# SGHMC_REF.
+SGHMC_EXP_GATES = {"rmse": 2.08, "nlpd": 2.18}
+# The JAX package's CPU runs of sghmc-exp and of bench.py's SGHMC-1M
+# protocol at 100,000 rows (sghmc_reference.py, float32): the warm start's
+# final loss and log-hypers, the kept draws' mean log-hypers pooled and per
+# chain, in the order [log_lengthscale (18), log_outputscale, log_noise].
+SGHMC_REF = {
+    "sghmc-exp": {
+        "n_rows": 100000,
+        "warm_loss": 5795.9492, "rmse": 2.0418, "nlpd": 2.1337,
+        "warm_log_hypers": [
+            1.732563, 0.358438, 3.992038, 0.554169, 1.329153, 3.837901, 3.595728, 0.744773,
+            0.879128, 3.511023, 4.158322, -0.032983, 3.350976, 0.476800, 3.790990, 3.677514,
+            3.433597, 2.717163, -3.546430, -0.024933],
+        "draws_mean_log_hypers": [
+            1.719018, 0.362686, 3.975774, 0.564875, 1.318211, 3.844060, 3.608223, 0.741066,
+            0.876401, 3.513010, 4.163793, -0.051732, 3.346118, 0.481252, 3.804036, 3.656407,
+            3.428304, 2.711174, -3.545303, -0.026516],
+        "chain_mean_log_hypers": [
+            [
+                1.726333, 0.359268, 3.966520, 0.565070, 1.306320, 3.855122, 3.599099, 0.745864,
+                0.870943, 3.516513, 4.170117, -0.055115, 3.344822, 0.480022, 3.803821,
+                3.641549, 3.438143, 2.706612, -3.545100, -0.027936],
+            [
+                1.711703, 0.366105, 3.985029, 0.564681, 1.330101, 3.832997, 3.617346, 0.736268,
+                0.881860, 3.509506, 4.157470, -0.048349, 3.347414, 0.482482, 3.804251,
+                3.671266, 3.418464, 2.715737, -3.545506, -0.025096],
+        ],
+    },
+    "sghmc-1m": {
+        "n_rows": 100000,
+        "draws_mean_log_hypers": [
+            -0.016037, 0.001553, -0.018812, 0.008384, -0.013585, 0.003617, 0.010430, -0.006447,
+            -0.005234, -0.000323, 0.002837, -0.021695, -0.007457, 0.001602, 0.010407,
+            -0.023246, -0.007941, -0.008780, -0.713772, -1.396849],
+        "chain_mean_log_hypers": [
+            [
+                -0.008745, -0.001815, -0.028002, 0.008560, -0.025451, 0.014728, 0.001242,
+                -0.001678, -0.010725, 0.003204, 0.009042, -0.024974, -0.008825, 0.000373,
+                0.010231, -0.038171, 0.001868, -0.013451, -0.714527, -1.397058],
+            [
+                -0.023329, 0.004921, -0.009621, 0.008208, -0.001719, -0.007493, 0.019617,
+                -0.011216, 0.000256, -0.003849, -0.003368, -0.018416, -0.006089, 0.002830,
+                0.010582, -0.008321, -0.017750, -0.004110, -0.713018, -1.396639],
+        ],
+    },
+}
+# Per log-hyper, the port's kept draws' mean is held to the JAX run's within
+# DRAW_MEAN_TOL plus 3x the JAX run's difference between its two chains:
+# each chain starts at its init + 0.01 N(0, 1), and the port draws other
+# starts, minibatches and noise (0.05 is five times that jitter). From
+# bench.py's start the log-outputscale and log-noise drift by 0.7 and 1.6
+# in the 2000 steps. The warm start (a deterministic Adam run on the same
+# rows) is held to WARM_LOSS_TOL in relative loss and WARM_NOISE_TOL in
+# log-noise; the port's plain version on the CPU lands 6e-7 and 2e-5 from
+# the JAX run. Its lengthscales and outputscale are not held: at an
+# outputscale of e^-3.5 the bound is flat in them.
+DRAW_MEAN_TOL = 0.05
+WARM_LOSS_TOL = 1e-4
+WARM_NOISE_TOL = 1e-3
 # NVIDIA H100 SXM data sheet (at 700 W): float32 outside the tensor cores,
 # and HBM3 bandwidth.
 PEAK_F32_OPS = 67e12
@@ -473,7 +573,7 @@ def state_tensors(s):
 
 def new_res():
     return {k: {"rel": {}, "abs32": 0.0, "ms": None, "plain_ms": None,
-                "bound": (None, None)} for k in KERNELS}
+                "bound": (None, None), "library_ms": None, "extra": {}} for k in KERNELS}
 
 
 def phase_parity(Xd, yd, Zd, res):
@@ -1452,7 +1552,7 @@ def profile_paths(X, y, Z, Xte, yte, names):
              "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
              "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
              **joint_paths(X, y, Z, Xte, yte), **gpr_paths(X, y, Xte, yte),
-             **svi_paths(X, y, Xte, yte)}
+             **svi_paths(X, y, Xte, yte), **sghmc_paths(big_data())}
     Xf, yf, Zf = (a.float() for a in (X, y, Z))
     mc_potential(torch.zeros((2, X.shape[1] + 2), device="cuda"), Xf, yf, Zf, 1e-5)
     torch.linalg.cholesky(torch.eye(8, device="cuda"))
@@ -1464,6 +1564,374 @@ def profile_paths(X, y, Z, Xte, yte, names):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         device_breakdown(prof, wall, name)
+
+
+def big_data(n_rows=1_000_000):
+    """bench.py ``cell_sghmc_1m``'s data: synthetic-large's train split
+    tiled to ``n_rows`` rows, float32 on the card; with the held-out split
+    and the data set (for y_std)."""
+    data, Xn, yn = tiled_data("synthetic-large", 0, n_rows)
+    f = dict(dtype=torch.float32, device="cuda")
+    return (torch.tensor(Xn, **f), torch.tensor(yn, **f), torch.tensor(data.X_test, **f),
+            torch.tensor(data.Y_test, **f), data)
+
+
+def stats_inputs(X, C, M, seed, B=None):
+    """Inputs of the statistics kernels for C rows at (X, M): Z rows taken
+    from X (scaled), per-row lengthscales e^{N(0, 0.2^2)} and outputscales,
+    minibatch indices (C, B) when B, and a random symmetric cotangent. A
+    function of the dtype ``dt`` that makes them, so that the float64 reading
+    of a float32 case scales the same rows in float64 (Z rows coincide with
+    X rows in both)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=gen, dtype=torch.float64, device="cuda")
+    N, D = X.shape
+    il = torch.exp(0.2 * torch.randn((C, D), **kw))
+    rows = torch.randint(0, N, (C, M), generator=gen, device="cuda")
+    os = torch.exp(0.1 * torch.randn(C, **kw))
+    idx = None if B is None else torch.randint(0, N, (C, B), generator=gen, device="cuda")
+    g = torch.randn((C, M, M), **kw)
+    gsym, dsky = g + g.transpose(-1, -2), torch.randn((C, M), **kw)
+
+    def make(dt):
+        il_t = il.to(dt)
+        Zs = (X[rows].to(dt) * il_t[:, None, :]).contiguous()
+        return Zs, il_t, os.to(dt), idx, gsym.to(dt).contiguous(), dsky.to(dt)
+    return make
+
+
+def stats_bound(kind, X, Zs, idx, outs, fam="rbf"):
+    """(bound_ms, bound_by) of one statistics call: C chains of
+    :func:`stats_ops` over the call's rows against the bytes it must move
+    (X and y, or the gathered rows and their indices, read once; Zs,
+    inv_ls, os and, backward, the cotangents read; the outputs written)."""
+    C, M, D = Zs.shape
+    n = X.shape[0] if idx is None else idx.shape[1]
+    es = X.element_size()
+    rows = X.shape[0] * (D + 1) * es if idx is None else C * n * ((D + 1) * es + 8)
+    ins = rows + C * (M * D + D + 1) * es + (C * (M * M + M) * es if kind == "bwd" else 0)
+    t_ops = C * stats_ops(n, M, D, fam, backward=kind == "bwd") / PEAK_F32_OPS
+    t_bytes = (ins + nbytes(*outs)) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def stats_case(label, X, y, inputs, fam, res, bf16=False, record=False, reps=5):
+    """Both statistics kernels against their plain versions on
+    ``inputs(X.dtype)``; in float32 both versions are also read against the
+    float64 plain version on the same inputs. Prints the errors and the
+    times of both; ``record`` writes the kernels' rows of ``res`` (ms,
+    plain_ms, bound)."""
+    dt = X.dtype
+    Zs, il, os, idx, gsym, dsky = inputs(dt)
+    tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+    fwd_in, bwd_in = (X, y, Zs, il, os, idx), (X, y, Zs, il, os, idx, gsym, dsky)
+    out_f, ref_f = vfe_stats_fwd(*fwd_in, fam, bf16), vfe_stats_fwd_plain(*fwd_in, fam, bf16)
+    out_b, ref_b = vfe_stats_bwd(*bwd_in, fam), vfe_stats_bwd_plain(*bwd_in, fam)
+    errs = {"fwd": max(rel(a, b) for a, b in zip(out_f, ref_f)),
+            "bwd": max(rel(a, b) for a, b in zip(out_b, ref_b))}
+    txt, e64 = "", {}
+    if f32:
+        up = (X.double(), y.double(), *inputs(torch.float64))
+        r64f = vfe_stats_fwd_plain(*up[:6], fam, bf16)
+        r64b = vfe_stats_bwd_plain(*up, fam)
+        for k, o, r, r64 in (("fwd", out_f, ref_f, r64f), ("bwd", out_b, ref_b, r64b)):
+            e64[k] = (max(rel(a, c) for a, c in zip(o, r64)),
+                      max(rel(b, c) for b, c in zip(r, r64)))
+        txt = ("; against float64 from the same inputs: kernel fwd {:.3e} bwd {:.3e}, plain "
+               "fwd {:.3e} bwd {:.3e}").format(e64["fwd"][0], e64["bwd"][0], e64["fwd"][1],
+                                               e64["bwd"][1])
+    ms = {"fwd": cuda_ms(lambda: vfe_stats_fwd(*fwd_in, fam, bf16), reps),
+          "bwd": cuda_ms(lambda: vfe_stats_bwd(*bwd_in, fam), reps)}
+    pms = {"fwd": cuda_ms(lambda: vfe_stats_fwd_plain(*fwd_in, fam, bf16), 1),
+           "bwd": cuda_ms(lambda: vfe_stats_bwd_plain(*bwd_in, fam), 1)}
+    print(f"parity vfe_stats {tag} {label}: max rel err fwd {errs['fwd']:.3e} bwd "
+          f"{errs['bwd']:.3e}{txt}; kernel fwd {ms['fwd']:.4f} ms bwd {ms['bwd']:.4f} ms, plain "
+          f"fwd {pms['fwd']:.4f} ms bwd {pms['bwd']:.4f} ms")
+    for k in ("fwd", "bwd"):
+        assert errs[k] <= STATS_TOL[dt], f"vfe_stats_{k} {tag} {label} rel err {errs[k]}"
+        if f32:
+            assert e64[k][0] <= STATS_TOL[dt], f"vfe_stats_{k} f32 {label} vs f64 {e64[k][0]}"
+        r = res[f"vfe_stats_{k}"]
+        r["rel"][tag] = max(r["rel"].get(tag, 0.0), errs[k])
+    if f32:
+        for k, o, ref in (("fwd", out_f, ref_f), ("bwd", out_b, ref_b)):
+            r = res[f"vfe_stats_{k}"]
+            r["abs32"] = max(r["abs32"], max(abs_err(a, b) for a, b in zip(o, ref)))
+            if record:
+                r.update(ms=ms[k], plain_ms=pms[k],
+                         bound=stats_bound(k, X, Zs, idx, o, fam))
+
+
+def phase_parity_stats(Xb, yb, res):
+    """The statistics kernels (csrc/vfe_stats.cu) against their plain
+    versions, float64 and float32: at the SGHMC step's shape (C=4 rows: 2
+    chains at z and at the anchor; B=2048 rows gathered by index from the
+    1M-row X; M=100, D=18), at the anchor's shape (N=1,000,000, C=2), each
+    family at N=3000 with Z rows taken from X, and bf16 once. At the anchor
+    shape: the peak device memory one forward + backward call adds, against
+    N M 4 bytes (a materialised Knm), and cuBLAS's product on a materialised
+    K of the same shape (the library yardstick). Then sgpr_adam_chunk at
+    the sghmc-exp warm start's shape (n=4096, M=100, D=18, 200 steps)."""
+    N = Xb.shape[0]
+    M = 100
+    for dt in (torch.float64, torch.float32):
+        X, y = Xb.to(dt), yb.to(dt)
+        stats_case("step shape (C=4, B=2048 by idx, M=100, D=18)", X, y,
+                   stats_inputs(X, 4, M, 21, B=2048), "rbf", res)
+        anchor = stats_inputs(X, 2, M, 22)
+        stats_case(f"anchor shape (N={N}, C=2, M=100, D=18)", X, y, anchor, "rbf", res,
+                   record=True, reps=3)
+        Xs, ys = X[:3000].contiguous(), y[:3000].contiguous()
+        for i, fam in enumerate(FAMILIES):
+            stats_case(f"{fam} (N=3000, C=2, M=100, Z rows from X)", Xs, ys,
+                       stats_inputs(Xs, 2, M, 23 + i), fam, res)
+        if dt == torch.float32:
+            stats_case("bf16 S_kk inputs, step shape", X, y, stats_inputs(X, 4, M, 27, B=2048),
+                       "rbf", res, bf16=True)
+            Zs, il, os, idx, gsym, dsky = anchor(dt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            vfe_stats_fwd(X, y, Zs, il, os)
+            vfe_stats_bwd(X, y, Zs, il, os, None, gsym, dsky)
+            torch.cuda.synchronize()
+            added = torch.cuda.max_memory_allocated() - base
+            knm = N * M * 4
+            print(f"memory vfe_stats f32 anchor shape: one forward + backward adds "
+                  f"{added / 1e6:.3f} MB of device memory at peak; a materialised Knm of one "
+                  f"chain is N M 4 = {knm / 1e6:.1f} MB")
+            assert added < knm / 4, f"vfe_stats peak memory {added} B"
+            K = torch.rand((2, N, M), device="cuda")
+            lib_f = cuda_ms(lambda: torch.matmul(K.transpose(-1, -2), K), 5)
+            lib_b = cuda_ms(lambda: torch.matmul(K, gsym), 5)
+            del K
+            print(f"reference cuBLAS f32 on a materialised K (2, {N}, {M}): K^T K {lib_f:.4f} "
+                  f"ms, K g {lib_b:.4f} ms")
+            res["vfe_stats_fwd"]["library_ms"] = lib_f
+            res["vfe_stats_bwd"]["library_ms"] = lib_b
+    phase_parity_warm4096(Xb, yb, res)
+
+
+def phase_parity_warm4096(Xb, yb, res, steps=200):
+    """sgpr_adam_chunk (site 6's function: the warm start with X read from
+    device memory) at the sghmc-exp warm start's shape: the experiment's Z and
+    4096-row subsample (RandomState(45)), theta 0, SparseGPR's chain (lr
+    0.02, clip 100, noise floor 1e-4), one chunk of 200 steps, kernel against
+    plain. Float32 is held to ADAM_TOL, and both float32 versions are read
+    against the float64 run from the same inputs; where the plain version
+    itself sits more than F32_RESOLVES from float64, the kernel is held to
+    F32_AS_ACCURATE times the plain version's error instead (as the SVI
+    chunks are)."""
+    rng = np.random.RandomState(45)
+    N = Xb.shape[0]
+    Zi = torch.as_tensor(rng.randint(0, N, 100), device="cuda")
+    sub = torch.as_tensor(rng.randint(0, N, 4096), device="cuda")
+    akw = dict(t0=0, lr=0.02, clip_norm=100.0, min_noise=1e-4)
+    r = res["sgpr_adam_chunk"]
+    ref64 = None
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, y, Z = (Xb[sub].to(dt).contiguous(), yb[sub].to(dt).contiguous(),
+                   Xb[Zi].to(dt).contiguous())
+        n, d = X.shape
+        th = torch.zeros(d + 2, dtype=dt, device="cuda")
+        zt, zz = torch.zeros_like(th), torch.zeros_like(Z)
+        args = (th, Z, zt, zt, zz, zz, X, y, 1e-5)
+        out, ms = once_ms(lambda: sgpr_adam_chunk(*args, num_steps=steps, **akw))
+        ref, pms = once_ms(lambda: sgpr_adam_chunk_plain(*args, num_steps=steps, **akw))
+        bound = roofline(steps, n, 100, d, nbytes(X, y) + 3 * nbytes(th, Z), nbytes(*out),
+                         want_z=True)
+        e = max(rel(a, b) for a, b in zip(out, ref))
+        head = (f"parity sgpr_adam_chunk {tag} at the sghmc-exp warm start (n={n}, M=100, "
+                f"D={d}), {steps} steps: max rel err {e:.3e}")
+        tail = (f"kernel {ms:.3f} ms, plain {pms:.3f} ms per {steps}-step chunk "
+                f"({ms / steps:.4f} ms per step), bound {bound[0]:.5f} ms")
+        ok, txt = e <= ADAM_TOL[dt], ""
+        if f32:
+            ek = max(rel(a, b) for a, b in zip(out, ref64))
+            ep = max(rel(a, b) for a, b in zip(ref, ref64))
+            txt = f"; against float64 from the same inputs: kernel {ek:.3e}, plain {ep:.3e}"
+            if not ok and ep > F32_RESOLVES:
+                ok = ek <= F32_AS_ACCURATE * ep
+                txt += (f" (float32 does not resolve this chunk: kernel held to "
+                        f"{F32_AS_ACCURATE:g}x the plain version's error)")
+            r["extra"].update(n4096_ms=ms, n4096_plain_ms=pms, n4096_bound_ms=bound[0],
+                              n4096_steps=steps, n4096_f32_vs_f64=ek,
+                              n4096_f32_plain_vs_f64=ep)
+        else:
+            ref64 = ref
+        print(f"{head}{txt}; {tail}")
+        assert ok, f"sgpr_adam_chunk {tag} n={n} rel err {e}"
+        r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
+
+
+def hyper_means(samples):
+    """The kept draws' mean of each log-hyper, pooled over chains:
+    [log_ls (d), log_os, log_noise]."""
+    k = samples["kernel"]
+    return torch.cat([k["base"]["log_lengthscale"].mean((0, 1)),
+                      k["log_outputscale"].mean((0, 1))[None],
+                      samples["log_noise"].mean((0, 1))[None]])
+
+
+def sghmc_bench(X, y, cfg, seed):
+    """bench.py ``cell_sghmc_1m``'s SGHMC run (bench.py:287-350) on the rows
+    (X, y), on their device: M=100 Z rows by RandomState(45), hypers from
+    ``init_params`` with log-noise log 0.05, ``prior_tree_rbf``, 2 chains,
+    minibatch statistics scaled by N/B, the SVRG anchor on all N rows.
+    Returns ``run_sghmc``'s (samples, stats)."""
+    N, D = X.shape
+    dev = X.device
+    Z = X[torch.as_tensor(np.random.RandomState(45).randint(0, N, 100), device=dev)]
+    kern = default_rbf(ard=True)
+    hypers = {"kernel": kern.init_params(D, dtype=X.dtype, device=dev),
+              "log_noise": torch.tensor(math.log(0.05), dtype=X.dtype, device=dev)}
+    prior = prior_tree_rbf()
+
+    def logpost(state, idx):
+        st = vfe_stats(kern, state["kernel"], Z, X, y, idx)
+        st = {k: v * (N / idx.shape[1]) for k, v in st.items()}
+        ll = sgpr_elbo_from_stats(kern, {**state, "Z": Z}, st, N, 1e-5)
+        return ll.sum() + log_prior(prior, state)
+
+    def logpost_full(state):
+        st = vfe_stats(kern, state["kernel"], Z, X, y)
+        ll = sgpr_elbo_from_stats(kern, {**state, "Z": Z}, st, N, 1e-5)
+        return ll.sum() + log_prior(prior, state)
+
+    return run_sghmc(logpost, hypers, torch.Generator(device=dev).manual_seed(seed), N, cfg,
+                     num_chains=2, full_logpost_fn=logpost_full)
+
+
+def bench_cfg(steps=2000):
+    """bench.py's SGHMC-1M settings: step size 2e-5 -> 1e-5, batch 2048,
+    warmup steps // 3, thin 10, the SVRG anchor."""
+    return SGHMCConfig(step_size=2e-5, final_step_size=1e-5, friction=0.05, num_steps=steps,
+                       batch_size=2048, num_warmup=steps // 3, thin=10, control_variate=True)
+
+
+def hold_to_reference(label, got, ref):
+    """Hold what an SGHMC protocol moves against the JAX package's CPU run of
+    it at the same rows (SGHMC_REF): the kept draws' mean log-hypers within
+    DRAW_MEAN_TOL plus 3x the JAX run's own difference between its two
+    chains, dimension by dimension (the port draws other minibatches and
+    noise); the warm start's final loss and log-noise where given."""
+    jm = torch.tensor(ref["draws_mean_log_hypers"], dtype=torch.float64)
+    spread = (torch.tensor(ref["chain_mean_log_hypers"][0], dtype=torch.float64)
+              - torch.tensor(ref["chain_mean_log_hypers"][1], dtype=torch.float64)).abs()
+    tol = DRAW_MEAN_TOL + 3.0 * spread
+    gm = got["draws_mean_log_hypers"].double().cpu()
+    dev = (gm - jm).abs()
+    worst = int(torch.argmax(dev / tol))
+    print(f"{label} against the JAX package's CPU run at N={ref['n_rows']}: kept draws' mean "
+          f"log-hypers [log_ls (18), log_os, log_noise] "
+          + ", ".join(f"{v:.4f}" for v in gm.tolist())
+          + f"; JAX log_os {jm[-2]:.4f}, log_noise {jm[-1]:.4f}; largest |port - JAX| / "
+          f"tolerance {float(dev[worst] / tol[worst]):.3f} (dim {worst}: {float(dev[worst]):.4f} "
+          f"against {float(tol[worst]):.4f})")
+    assert bool((dev <= tol).all()), f"{label}: draws' mean log-hypers {dev.tolist()}"
+    if "warm_loss" in ref:
+        wl = got["warm_loss"]
+        rel_loss = abs(wl - ref["warm_loss"]) / abs(ref["warm_loss"])
+        wn = float(got["warm_log_hypers"][-1])
+        dn = abs(wn - ref["warm_log_hypers"][-1])
+        print(f"{label} warm start: final loss {wl:.4f} (JAX {ref['warm_loss']:.4f}, rel "
+              f"{rel_loss:.3e}; gate {WARM_LOSS_TOL:g}), log-noise {wn:.5f} (JAX "
+              f"{ref['warm_log_hypers'][-1]:.5f}; gate {WARM_NOISE_TOL:g}), log-outputscale "
+              f"{float(got['warm_log_hypers'][-2]):.4f} (JAX {ref['warm_log_hypers'][-2]:.4f})")
+        assert rel_loss <= WARM_LOSS_TOL, f"{label}: warm-start loss {wl}"
+        assert dn <= WARM_NOISE_TOL, f"{label}: warm-start log-noise {wn}"
+
+
+def phase_sghmc_1m(big):
+    """bench.py ``cell_sghmc_1m`` (bench.py:287-350) through the port,
+    float32: synthetic-large tiled to N=1e6 (``sghmc_bench``); an untimed
+    20-step run (seed 99), then 2000 timed steps x 2 chains of SGHMC with
+    the SVRG anchor (step size 2e-5 -> 1e-5, batch 2048, warmup 666, thin
+    10). Then the same protocol on the first 100,000 rows, held against the
+    JAX package's CPU run of it (``sghmc_reference.py``)."""
+    X, y = big[0], big[1]
+    N, D = X.shape
+    steps, B = 2000, 2048
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    _, t_first = once_ms(lambda: sghmc_bench(
+        X, y, SGHMCConfig(step_size=2e-5, num_steps=20, batch_size=B, num_warmup=5, thin=5,
+                          control_variate=True), 99))
+    (samples, st), ms = once_ms(lambda: sghmc_bench(X, y, bench_cfg(steps), 0))
+    secs = ms / 1e3
+    finite = bool(torch.isfinite(ravel_tree(samples)[0]).all())
+    means = hyper_means(samples)
+    print(f"sghmc-1m on {CARD} (N={N}, D={D}, M=100, 2 chains x {steps} steps, batch {B}, "
+          f"SVRG anchor every 200): {secs:.3f} s, {2 * steps / secs:.1f} steps/s "
+          f"({secs * 1e3 / steps:.3f} ms per step of both chains; first untimed 20-step run "
+          f"{t_first / 1e3:.3f} s); kept {st['num_kept']} x 2 draws, all finite {finite}; "
+          f"kept draws' mean log-hypers [log_ls (18), log_os, log_noise] "
+          + ", ".join(f"{v:.4f}" for v in means.tolist()))
+    assert finite, "sghmc-1m: non-finite samples"
+    ref = SGHMC_REF["sghmc-1m"]
+    n = ref["n_rows"]
+    (samples, st), ms = once_ms(lambda: sghmc_bench(X[:n], y[:n], bench_cfg(steps), 0))
+    print(f"sghmc-1m at N={n}: {ms / 1e3:.3f} s, all finite "
+          f"{bool(torch.isfinite(ravel_tree(samples)[0]).all())}")
+    hold_to_reference("sghmc-1m", {"draws_mean_log_hypers": hyper_means(samples)}, ref)
+    launches = dict(_build.LAUNCHES)
+    check_launches("sghmc-1m", launches, ["vfe_stats_fwd", "vfe_stats_bwd"])
+    return launches
+
+
+def warm_log_hypers(params):
+    """[log_ls (d), log_os, log_noise] of SparseGPR params."""
+    k = params["kernel"]
+    return torch.cat([k["base"]["log_lengthscale"], k["log_outputscale"][None],
+                      params["log_noise"][None]])
+
+
+def phase_sghmc_exp():
+    """The port's ``experiments/large_scale_regression_sghmc.py`` ``main()``
+    at n_rows=1e6 with the SVRG anchor, bench.py's step sizes (2e-5 ->
+    1e-5), 2000 steps, 2 chains: the SparseGPR warm start (1000 Adam steps
+    on 4096 rows), SGHMC, and the 30-component mixture predictive's RMSE
+    and NLPD on the held-out split, gated a margin beyond the JAX package's
+    CPU run (SGHMC_EXP_GATES). Then the same at n_rows=100,000, where the
+    warm start's loss and log-noise and the kept draws' mean log-hypers are
+    held against the JAX package's CPU run at those rows (SGHMC_REF)."""
+    kw = dict(control_variate=True, step_size=2e-5, final_step_size=1e-5, num_steps=2000,
+              num_chains=2, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = sghmc_main(n_rows=1_000_000, **kw)
+    launches = dict(_build.LAUNCHES)
+    print(f"sghmc-exp on {CARD}: warm start {out['warm_seconds']:.3f} s "
+          f"({launches['sgpr_adam_chunk']} sgpr_adam_chunk launches); SGHMC "
+          f"{out['sghmc_seconds']:.3f} s ({out['steps_per_s']:.1f} steps/s), all finite "
+          f"{out['finite']}; {out['components']} components: test RMSE {out['rmse']:.4f}, "
+          f"mixture NLPD {out['nlpd']:.4f} (gates: RMSE <= {SGHMC_EXP_GATES['rmse']}, NLPD <= "
+          f"{SGHMC_EXP_GATES['nlpd']}); mean log-hypers "
+          + ", ".join(f"{v:.4f}" for v in hyper_means(out["samples"]).tolist()))
+    check_launches("sghmc-exp", launches, ["sgpr_adam_chunk", "vfe_stats_fwd", "vfe_stats_bwd"])
+    assert out["finite"], "sghmc-exp: non-finite samples"
+    assert out["rmse"] <= SGHMC_EXP_GATES["rmse"], out["rmse"]
+    assert out["nlpd"] <= SGHMC_EXP_GATES["nlpd"], out["nlpd"]
+    ref = SGHMC_REF["sghmc-exp"]
+    out = sghmc_main(n_rows=ref["n_rows"], **kw)
+    print(f"sghmc-exp at N={ref['n_rows']}: warm start {out['warm_seconds']:.3f} s, SGHMC "
+          f"{out['sghmc_seconds']:.3f} s, all finite {out['finite']}; test RMSE "
+          f"{out['rmse']:.4f}, mixture NLPD {out['nlpd']:.4f} (JAX {ref['rmse']:.4f}, "
+          f"{ref['nlpd']:.4f})")
+    assert out["finite"], "sghmc-exp at 100k rows: non-finite samples"
+    assert out["rmse"] <= SGHMC_EXP_GATES["rmse"], out["rmse"]
+    assert out["nlpd"] <= SGHMC_EXP_GATES["nlpd"], out["nlpd"]
+    hold_to_reference("sghmc-exp", {"draws_mean_log_hypers": hyper_means(out["samples"]),
+                                    "warm_loss": out["warm_loss"],
+                                    "warm_log_hypers": warm_log_hypers(out["warm_params"])},
+                      ref)
+    return dict(_build.LAUNCHES)
+
+
+def sghmc_paths(big):
+    """The big-N SGHMC main paths by name."""
+    return {"sghmc-1m": lambda: phase_sghmc_1m(big), "sghmc-exp": phase_sghmc_exp}
 
 
 def main(argv):
@@ -1494,6 +1962,8 @@ def main(argv):
     phase_parity_sgpmc(X, y, Zd, res)
     phase_parity_gpr(X, y, res)
     phase_parity_svi(X, y, Zd, res)
+    big = big_data()
+    phase_parity_stats(big[0], big[1], res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
     launches = {k: 0 for k in KERNELS}
     for run in (lambda: phase_rounds(X, y, Z, 1, "slice"),
@@ -1501,7 +1971,8 @@ def main(argv):
                 lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
                 *joint_paths(X, y, Z, Xte, yte).values(),
                 *gpr_paths(X, y, Xte, yte).values(),
-                *svi_paths(X, y, Xte, yte).values()):
+                *svi_paths(X, y, Xte, yte).values(),
+                *sghmc_paths(big).values()):
         for k, v in run().items():
             if k in launches:
                 launches[k] += v
@@ -1516,8 +1987,9 @@ def main(argv):
         item = {"name": name, "route": "cuda", "source": src, "replaces": site,
                 "launches": launches[name], "max_abs_err": r["abs32"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
-                "max_rel_err_f64": r["rel"]["f64"], "max_rel_err_f32": r["rel"]["f32"]}
+                "bound_by": bound_by, "library_ms": r["library_ms"],
+                "max_rel_err_f64": r["rel"]["f64"], "max_rel_err_f32": r["rel"]["f32"],
+                **r["extra"]}
         if also:
             item["also_replaces"] = also
         out.append(item)

@@ -10,7 +10,12 @@ GPR_HMC: NUTS (one chain or C) over the hyperparameters of the exact GP
 under its dense marginal likelihood, and the full mixture predictive.
 StochasticVariationalGP (Gaussian, Bernoulli-probit, Poisson or softmax
 likelihood) and BayesianStochasticVariationalGP: minibatch SVI, whole
-epochs of Adam steps per kernel launch, and their predictives. The
+epochs of Adam steps per kernel launch, and their predictives. SparseGPR:
+ML-II Adam on (hypers, Z) under the collapsed bound, chunks of steps per
+launch, and its predictive. ``inference.sghmc.run_sghmc``: SGHMC with C
+chains over the collapsed bound from minibatch statistics
+(``models.sgpr.vfe_stats``), as the 1M-row experiment
+``experiments.large_scale_regression_sghmc`` runs it. The
 hand-written CUDA kernels (``csrc/``) are built at first use on a machine
 with ``nvcc``; CPU tensors run each kernel's plain PyTorch version.
 """
@@ -18,8 +23,8 @@ with ``nvcc``; CPU tensors run each kernel's plain PyTorch version.
 from . import config  # noqa: F401  (sets the TF32 policy)
 from .config import BASE_SEED, default_jitter
 from .models import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC, BayesianStochasticVariationalGP,
-                     StochasticVariationalGP, gp_marginal_loglik, gp_predict)
+                     SparseGPR, StochasticVariationalGP, gp_marginal_loglik, gp_predict)
 
 __all__ = ["BayesianSparseGPR_HMC", "BayesianStochasticVariationalGP", "GPR_HMC", "SGPMC",
-           "StochasticVariationalGP", "gp_marginal_loglik", "gp_predict", "BASE_SEED",
+           "SparseGPR", "StochasticVariationalGP", "gp_marginal_loglik", "gp_predict", "BASE_SEED",
            "default_jitter"]

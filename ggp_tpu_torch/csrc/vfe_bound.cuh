@@ -26,6 +26,12 @@
 // where cond(B) ~ 1/sigma^2). Faster layouts (shared-memory tiles, wgmma,
 // several blocks per factorisation) are later work.
 //
+// Sums over the n rows (B = An^T An, An^T y, and the gradient's row sums)
+// accumulate in double for both types: a float32 running sum over
+// thousands of rows loses digits the plain version's blocked reductions
+// keep, and Adam's normalised steps carry them into every coordinate.
+// They are not what bounds the core.
+//
 // Pivot policy: `floor <= 0` gives NaN on a non-positive pivot (sampler
 // divergence semantics); `floor > 0` is the trainers' modified Cholesky: a
 // pivot below the floor becomes a sqrt(floor) e_i row and its elimination
@@ -152,14 +158,14 @@ template <typename T>
 struct Work {
   T *Knm, *An, *Pnm;                                   // n x m
   T *Kmm, *W, *U, *V, *B, *UB, *VB, *Binv, *Y1, *VT0, *Pmm;  // m x m
-  T *xn, *alpha, *rs_nm;                               // n
-  T *zn, *u, *c, *v, *w, *acc, *rs_mm, *cs_mm, *cs_nm, *dkdiag;  // m
-  T *PmmZs, *PnmTXs;                                   // m x d
-  T *PnmZs;                                            // n x d
+  T *xn, *alpha;                                       // n
+  T *zn, *u, *c, *v, *w, *acc, *dkdiag;                // m
+  T *GmmZ, *QmmZ, *GnmZ;                               // m x d
+  T *QnmX;                                             // n x d
 };
 
 __host__ __device__ inline long work_elems(int n, int m, int d) {
-  return 3L * n * m + 11L * m * m + 3L * n + 10L * m + 2L * m * d + 1L * n * d;
+  return 3L * n * m + 11L * m * m + 2L * n + 7L * m + 3L * m * d + 1L * n * d;
 }
 
 template <typename T>
@@ -170,12 +176,12 @@ __device__ Work<T> make_work(T* s, int n, int m, int d) {
   w.Kmm = s; s += mm; w.W = s; s += mm; w.U = s; s += mm; w.V = s; s += mm;
   w.B = s; s += mm; w.UB = s; s += mm; w.VB = s; s += mm; w.Binv = s; s += mm;
   w.Y1 = s; s += mm; w.VT0 = s; s += mm; w.Pmm = s; s += mm;
-  w.xn = s; s += n; w.alpha = s; s += n; w.rs_nm = s; s += n;
+  w.xn = s; s += n; w.alpha = s; s += n;
   w.zn = s; s += m; w.u = s; s += m; w.c = s; s += m; w.v = s; s += m;
-  w.w = s; s += m; w.acc = s; s += m; w.rs_mm = s; s += m; w.cs_mm = s; s += m;
-  w.cs_nm = s; s += m; w.dkdiag = s; s += m;
-  w.PmmZs = s; s += (long)m * d; w.PnmTXs = s; s += (long)m * d;
-  w.PnmZs = s;
+  w.w = s; s += m; w.acc = s; s += m; w.dkdiag = s; s += m;
+  w.GmmZ = s; s += (long)m * d; w.QmmZ = s; s += (long)m * d;
+  w.GnmZ = s; s += (long)m * d;
+  w.QnmX = s;
   return w;
 }
 
@@ -368,14 +374,26 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
     w.An[idx] = s / sigma;
   }
   __syncthreads();
-  // B = An^T An + I
+  // B = An^T An + I: the upper triangle, mirrored; four independent
+  // chains of double adds hide the latency one chain would expose
   for (int idx = tid; idx < m * m; idx += nt) {
     const int a = idx / m, b = idx % m;
-    T s = T(0);
-    for (int i = 0; i < n; ++i) s += w.An[i * m + a] * w.An[i * m + b];
-    s += (a == b ? T(1) : T(0));
+    if (a > b) continue;
+    double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+    int i = 0;
+    for (; i + 3 < n; i += 4) {
+      const T* r = w.An + (long)i * m;
+      s0 += double(r[a]) * double(r[b]);
+      s1 += double(r[m + a]) * double(r[m + b]);
+      s2 += double(r[2 * m + a]) * double(r[2 * m + b]);
+      s3 += double(r[3 * m + a]) * double(r[3 * m + b]);
+    }
+    for (; i < n; ++i) s0 += double(w.An[i * m + a]) * double(w.An[i * m + b]);
+    const T s = T((s0 + s1) + (s2 + s3)) + (a == b ? T(1) : T(0));
     w.B[idx] = s;
     w.W[idx] = s;
+    w.B[b * m + a] = s;
+    w.W[b * m + a] = s;
   }
   __syncthreads();
   chol_upper(w.W, w.UB, m, fl, floored);
@@ -389,9 +407,9 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
     w.Binv[idx] = s;
   }
   for (int a = tid; a < m; a += nt) {
-    T s = T(0);
-    for (int i = 0; i < n; ++i) s += w.An[i * m + a] * y[i];
-    w.u[a] = s;
+    double acc = 0.0;
+    for (int i = 0; i < n; ++i) acc += double(w.An[i * m + a]) * double(y[i]);
+    w.u[a] = T(acc);
   }
   __syncthreads();
 
@@ -462,62 +480,58 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
   }
   __syncthreads();
 
-  T p_mm = T(0), p_nm = T(0), p_dk = T(0);
+  T p_mm = T(0), p_dk = T(0);
+  double p_nm = 0.0;
   for (int idx = tid; idx < m * m; idx += nt) p_mm += w.Pmm[idx];
-  for (int idx = tid; idx < n * m; idx += nt) p_nm += w.Pnm[idx];
+  for (int idx = tid; idx < n * m; idx += nt) p_nm += double(w.Pnm[idx]);
   for (int a = tid; a < m; a += nt) p_dk += w.dkdiag[a];
   const T S_mm = block_sum(p_mm, sh.red);
-  const T S_nm = block_sum(p_nm, sh.red);
+  const T S_nm = block_sum(T(p_nm), sh.red);
   const T tr_dK = block_sum(p_dk, sh.red);
 
-  for (int a = tid; a < m; a += nt) {
-    T rs = T(0), cs = T(0), cn = T(0);
-    for (int b = 0; b < m; ++b) { rs += w.Pmm[a * m + b]; cs += w.Pmm[b * m + a]; }
-    for (int i = 0; i < n; ++i) cn += w.Pnm[i * m + a];
-    w.rs_mm[a] = rs;
-    w.cs_mm[a] = cs;
-    w.cs_nm[a] = cn;
-  }
-  for (int i = tid; i < n; i += nt) {
-    T rs = T(0);
-    for (int b = 0; b < m; ++b) rs += w.Pnm[i * m + b];
-    w.rs_nm[i] = rs;
-  }
+  // The gradient's sums over pairs, in difference form (the expanded form,
+  // zs_a sum_i P - sum_i P xs_i, cancels, and in float32 loses more digits
+  // of the Z gradient the more rows it sums). Per dimension k, with
+  // xs = x il, zs = z il,
+  //   GmmZ[a] = sum_b Pmm[a,b] (zs_a - zs_b),  QmmZ[a] = sum_b Pmm[a,b] (zs_a - zs_b)^2,
+  //   GnmZ[a] = sum_i Pnm[i,a] (zs_a - xs_i),  QnmX[i] = sum_a Pnm[i,a] (xs_i - zs_a)^2.
   for (int idx = tid; idx < m * d; idx += nt) {
     const int a = idx / d, k = idx % d;
-    T s = T(0);
-    for (int b = 0; b < m; ++b) s += w.Pmm[a * m + b] * (Z[b * d + k] * il[k]);
-    w.PmmZs[idx] = s;
+    const T za = Z[idx] * il[k];
+    T g = T(0), q = T(0);
+    for (int b = 0; b < m; ++b) {
+      const T df = za - Z[b * d + k] * il[k], p = w.Pmm[a * m + b];
+      g += p * df;
+      q += p * df * df;
+    }
+    w.GmmZ[idx] = g;
+    w.QmmZ[idx] = q;
     if (cf.want_z) {
-      T t = T(0);
-      for (int i = 0; i < n; ++i) t += w.Pnm[i * m + a] * (X[i * d + k] * il[k]);
-      w.PnmTXs[idx] = t;
+      double acc = 0.0;
+      for (int i = 0; i < n; ++i)
+        acc += double(w.Pnm[i * m + a]) * double(za - X[i * d + k] * il[k]);
+      w.GnmZ[idx] = T(acc);
     }
   }
   for (int idx = tid; idx < n * d; idx += nt) {
     const int i = idx / d, k = idx % d;
-    T s = T(0);
-    for (int b = 0; b < m; ++b) s += w.Pnm[i * m + b] * (Z[b * d + k] * il[k]);
-    w.PnmZs[idx] = s;
+    const T xs = X[idx] * il[k];
+    T q = T(0);
+    for (int b = 0; b < m; ++b) {
+      const T df = xs - Z[b * d + k] * il[k];
+      q += w.Pnm[i * m + b] * df * df;
+    }
+    w.QnmX[idx] = q;
   }
   __syncthreads();
 
-  // RBF-ARD chain rule to the log-lengthscales, plus the prior
+  // RBF-ARD chain rule to the log-lengthscales, plus the prior:
+  // dF/dlog_ls_k = sum over pairs of P (xs_k - zs_k)^2
   for (int k = tid; k < d; k += nt) {
-    T t1 = T(0), t2 = T(0), t3 = T(0), t4 = T(0), t5 = T(0), t6 = T(0);
-    for (int a = 0; a < m; ++a) {
-      const T zs = Z[a * d + k] * il[k], zs2 = zs * zs;
-      t1 += w.rs_mm[a] * zs2;
-      t2 += w.cs_mm[a] * zs2;
-      t3 += zs * w.PmmZs[a * d + k];
-      t5 += w.cs_nm[a] * zs2;
-    }
-    for (int i = 0; i < n; ++i) {
-      const T xs = X[i * d + k] * il[k];
-      t4 += w.rs_nm[i] * xs * xs;
-      t6 += xs * w.PnmZs[i * d + k];
-    }
-    T gk = t1 + t2 - T(2) * t3 + t4 + t5 - T(2) * t6;
+    double acc = 0.0;
+    for (int i = 0; i < n; ++i) acc += double(w.QnmX[i * d + k]);
+    T gk = T(acc);
+    for (int a = 0; a < m; ++a) gk += w.QmmZ[a * d + k];
     if (cf.want_prior) {
       T lp, gp;
       prior_leaf(cf.leaf[0], theta[k], &lp, &gp);
@@ -547,11 +561,7 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
   }
   if (cf.want_z && dZ_out != nullptr) {
     for (int idx = tid; idx < m * d; idx += nt) {
-      const int a = idx / d, k = idx % d;
-      const T zs = Z[idx] * il[k];
-      const T dzs = T(-2) * (w.rs_mm[a] * zs - w.PmmZs[idx])
-                    - (w.cs_nm[a] * zs - w.PnmTXs[idx]);
-      dZ_out[idx] = -(dzs * il[k]);
+      dZ_out[idx] = (T(2) * w.GmmZ[idx] + w.GnmZ[idx]) * il[idx % d];
     }
   }
   __syncthreads();

@@ -10,12 +10,12 @@ log_noise]``. ``sgpmc_state_from_jax`` and
 ``sgpmc_state_to_numpy`` do the same for the SGPMC state (``{"kernel",
 "lik": {"log_noise"}, "mean": {}, "v"}``) and its flat row ``[log_ls (d),
 log_os, log_noise, v (m)]`` (``ravel_pytree`` order). All accept a leading
-sample axis, so a trace converts the same way. ``svgp_params_from_jax`` and
-``bsvgp_params_from_jax`` map the params dict of the JAX
-``StochasticVariationalGP`` / ``BayesianStochasticVariationalGP`` (numpy
-leaves) onto the port model's ``params``, which has the same tree;
-``svgp_params_to_numpy`` and ``bsvgp_params_to_numpy`` go back. The tests use
-them so that both packages compute from identical state.
+sample axis, so a trace converts the same way. Where the port keeps the JAX
+package's own tree (the params of ``StochasticVariationalGP``,
+``BayesianStochasticVariationalGP`` and ``SparseGPR``; SGHMC samples, the
+state tree with leading (chains, kept) axes), ``tree_from_numpy`` converts
+it leaf by leaf and ``tree_to_numpy`` goes back. The tests use them so that
+both packages compute from identical state.
 """
 
 from __future__ import annotations
@@ -23,9 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.tree import tree_map
+
 __all__ = ["params_from_jax", "params_to_numpy", "sgpmc_state_from_jax",
-           "sgpmc_state_to_numpy", "svgp_params_from_jax", "svgp_params_to_numpy",
-           "bsvgp_params_from_jax", "bsvgp_params_to_numpy"]
+           "sgpmc_state_to_numpy", "tree_from_numpy", "tree_to_numpy"]
 
 
 def params_from_jax(hypers: dict, Z=None, *, dtype=torch.float64,
@@ -76,25 +77,11 @@ def sgpmc_state_to_numpy(flat: torch.Tensor, d: int, Z: torch.Tensor | None = No
     return state, Z.detach().cpu().numpy()
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def tree_from_numpy(tree: dict, *, dtype=torch.float64, device="cpu") -> dict:
+    """The port's tree of tensors from the JAX package's (numpy leaves)."""
+    return tree_map(lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device), tree)
 
 
-def svgp_params_from_jax(params: dict, *, dtype=torch.float64, device="cpu") -> dict:
-    """The port's SVGP ``params`` ({"kernel", "lik", "Z", "q_mu",
-    "q_sqrt_raw"}) from the JAX model's (numpy leaves)."""
-    return _tree_map(lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device),
-                     params)
-
-
-def svgp_params_to_numpy(params: dict) -> dict:
-    """The JAX SVGP params dict (numpy leaves) from the port's."""
-    return _tree_map(lambda t: t.detach().cpu().numpy(), params)
-
-
-# The BayesianSVGP params tree (the SVGP tree without "lik", plus
-# "hyper_mu" (h,) and the packed "hyper_L_vec") converts leaf by leaf alike.
-bsvgp_params_from_jax = svgp_params_from_jax
-bsvgp_params_to_numpy = svgp_params_to_numpy
+def tree_to_numpy(tree: dict) -> dict:
+    """The JAX package's tree (numpy leaves) from the port's."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

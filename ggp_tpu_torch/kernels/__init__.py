@@ -1,4 +1,4 @@
-from .base import RBF, Kernel, Scale, sq_dist
+from .base import RBF, Kernel, Scale, is_scale_rbf, sq_dist
 from .composite import default_rbf
 
-__all__ = ["Kernel", "RBF", "Scale", "sq_dist", "default_rbf"]
+__all__ = ["Kernel", "RBF", "Scale", "is_scale_rbf", "sq_dist", "default_rbf"]

@@ -2,7 +2,10 @@
 
 A kernel is an immutable description; its parameters live in a nested
 dict of unconstrained (log-space) tensors, the layout the JAX package uses
-(``{"log_outputscale": (), "base": {"log_lengthscale": (d,)}}``).
+(``{"log_outputscale": (), "base": {"log_lengthscale": (d,)}}``). ``gram``
+broadcasts over leading dimensions of the parameters (C chains:
+``log_outputscale`` (C,), ``log_lengthscale`` (C, d) or (C,)) and of the
+inputs.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["sq_dist", "Kernel", "RBF", "Scale"]
+__all__ = ["sq_dist", "Kernel", "RBF", "Scale", "is_scale_rbf"]
 
 
 def sq_dist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -46,6 +49,7 @@ class RBF(Kernel):
 
     def gram(self, params, x1, x2):
         ls = torch.exp(params["log_lengthscale"])
+        ls = ls[..., None, :] if self.ard else ls[..., None, None]
         return torch.exp(-0.5 * sq_dist(x1 / ls, x2 / ls))
 
     def diag(self, params, x):
@@ -65,7 +69,13 @@ class Scale(Kernel):
                 "base": self.base.init_params(input_dim, dtype=dtype, device=device)}
 
     def gram(self, params, x1, x2):
-        return torch.exp(params["log_outputscale"]) * self.base.gram(params["base"], x1, x2)
+        os_ = torch.exp(params["log_outputscale"])[..., None, None]
+        return os_ * self.base.gram(params["base"], x1, x2)
 
     def diag(self, params, x):
         return torch.exp(params["log_outputscale"]) * self.base.diag(params["base"], x)
+
+
+def is_scale_rbf(kernel) -> bool:
+    """Scale(RBF), with ARD or a scalar lengthscale."""
+    return isinstance(kernel, Scale) and type(kernel.base) is RBF

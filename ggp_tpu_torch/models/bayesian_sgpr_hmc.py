@@ -30,11 +30,13 @@ import torch
 from ..config import default_jitter, resolve_device
 from ..inference.hmc import NUTSConfig, multichain_fused, single_chain_fused
 from ..kernels import default_rbf
+from ..likelihoods import GaussianLikelihood
 from ..ops.multichain import make_multichain
 from ..ops.sgpr_adam import sgpr_adam_chunk, z_adam_chunk
 from ..ops.vfe_bound import prior_spec_of_tree, vfe_potential
 from ..priors import prior_tree_rbf
 from .sgpr import sgpr_predict
+from .svgp import check_rbf_ard
 
 __all__ = ["BayesianSparseGPR_HMC", "theta_to_hypers"]
 
@@ -48,26 +50,44 @@ def theta_to_hypers(theta: torch.Tensor) -> dict:
 
 
 class BayesianSparseGPR_HMC:
-    """``(train_x, train_y, Z_init)`` constructor, ``warm_start``,
+    """``(train_x, train_y, likelihood, Z_init, kernel, prior_tree, jitter,
+    mesh)`` constructor (the JAX package's order), ``warm_start``,
     ``sample_hypers``, ``optimize_Z``, ``train_model``,
     ``mixture_posterior_predictive``, ``posterior_predictive``."""
 
-    def __init__(self, train_x, train_y, Z_init=None, *, prior_tree=None,
-                 jitter: float | None = None, dtype=None, device=None):
+    def __init__(self, train_x, train_y, likelihood=None, Z_init=None, kernel=None,
+                 prior_tree=None, jitter: float | None = None, mesh=None, *,
+                 dtype=None, device=None):
+        unsupported = []
+        if likelihood is not None and type(likelihood) is not GaussianLikelihood:
+            unsupported.append("non-Gaussian likelihoods (ROADMAP queue 1 item 4)")
+        if not check_rbf_ard(kernel):
+            unsupported.append("kernels other than Scale(RBF-ARD) (queue 1 items 4, 12)")
+        prior_tree = prior_tree if prior_tree is not None else prior_tree_rbf()
+        prior_spec = prior_spec_of_tree(prior_tree)
+        if prior_spec is None:
+            unsupported.append("prior trees without closed-form leaves of the "
+                               "Scale(RBF) x Gaussian structure (queue 1 item 4)")
+        if mesh is not None:
+            unsupported.append("a device mesh (queue 1 item 13)")
+        if unsupported:
+            raise NotImplementedError(
+                "BayesianSparseGPR_HMC in the port takes Scale(RBF-ARD) x Gaussian with a "
+                "closed-form prior tree and no mesh; still to port: " + ", ".join(unsupported))
         dtype = dtype or torch.as_tensor(train_x).dtype
         device = resolve_device("BayesianSparseGPR_HMC", device)
         self.train_x = torch.as_tensor(train_x, dtype=dtype, device=device).contiguous()
         self.train_y = torch.as_tensor(train_y, dtype=dtype, device=device).contiguous()
         n, d = self.train_x.shape
-        self.kernel = default_rbf(ard=True)
+        self.kernel = default_rbf(ard=True) if kernel is None else kernel
+        self.likelihood = GaussianLikelihood()
         self.jitter = default_jitter(dtype) if jitter is None else float(jitter)
-        self.prior_tree = prior_tree if prior_tree is not None else prior_tree_rbf()
-        self.prior_spec = prior_spec_of_tree(self.prior_tree)
-        if self.prior_spec is None:
-            raise ValueError("prior tree has no closed form for the kernels")
+        self.prior_tree = prior_tree
+        self.prior_spec = prior_spec
         Z = self.train_x[:128] if Z_init is None else Z_init
         self.Z = torch.as_tensor(Z, dtype=dtype, device=device).clone().contiguous()
         self.theta = torch.zeros(d + 2, dtype=dtype, device=device)
+        self.theta[d] = self.kernel.init_log_outputscale
         self.trace = None           # (S, d+2) draws, C chains pooled chain-major
         self.stats = None
 

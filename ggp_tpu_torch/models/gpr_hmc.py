@@ -105,12 +105,13 @@ class GPR_HMC:
         device = resolve_device("GPR_HMC", device)
         self.train_x = torch.as_tensor(train_x, dtype=dtype, device=device).contiguous()
         self.train_y = torch.as_tensor(train_y, dtype=dtype, device=device).contiguous()
-        self.kernel = default_rbf(ard=True)
+        self.kernel = default_rbf(ard=True) if kernel is None else kernel
         self.likelihood = GaussianLikelihood()
         self.prior_tree = prior_tree
         self.prior_spec = prior_spec
         self.jitter = default_jitter(dtype) if jitter is None else float(jitter)
         self.params = torch.zeros(d + 2, dtype=dtype, device=device)
+        self.params[d] = self.kernel.init_log_outputscale
         self._Z = self.train_x.new_empty((0, d))   # the gpr core reads no Z
         self.trace = None           # (S, d+2) draws, C chains pooled chain-major
         self.stats = None

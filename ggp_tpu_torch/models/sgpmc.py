@@ -66,12 +66,15 @@ def _gamma21_only(tree) -> bool:
 
 
 class SGPMC:
-    """``(train_x, train_y, Z_init=...)`` constructor, ``warm_start``,
-    ``train_model``, ``mixture_posterior_predictive`` and ``_y``."""
+    """``(train_x, train_y, likelihood, Z_init, kernel, hyper_prior_tree,
+    jitter, mesh, mean_fn, mean_prior_tree)`` constructor (the JAX package's
+    order), ``warm_start``, ``train_model``, ``mixture_posterior_predictive``
+    and ``_y``."""
 
     def __init__(self, train_x, train_y, likelihood=None, Z_init=None,
                  kernel=None, hyper_prior_tree=None, jitter: float | None = None,
-                 mean_fn=None, *, dtype=None, device=None):
+                 mesh=None, mean_fn=None, mean_prior_tree=None, *, dtype=None,
+                 device=None):
         unsupported = []
         if likelihood is not None and type(likelihood) is not GaussianLikelihood:
             unsupported.append("non-Gaussian likelihoods")
@@ -82,6 +85,10 @@ class SGPMC:
             unsupported.append("Constant/Linear means")
         if hyper_prior_tree is not None and not _gamma21_only(hyper_prior_tree):
             unsupported.append("hyperpriors other than Gamma(2, 1)")
+        if mean_prior_tree is not None:
+            unsupported.append("mean-function priors (ROADMAP queue 1 item 12)")
+        if mesh is not None:
+            unsupported.append("a device mesh (ROADMAP queue 1 item 13)")
         if unsupported:
             raise NotImplementedError(
                 "SGPMC in the port takes Scale(RBF-ARD) x Gaussian x Zero mean "
@@ -99,11 +106,12 @@ class SGPMC:
             raise NotImplementedError(
                 f"SGPMC in the port takes a state row d + 2 + m <= {_DIM_MAX} "
                 f"(got {d + 2 + m}); larger m is still to port (ROADMAP queue 1)")
-        self.kernel = default_rbf(ard=True)
+        self.kernel = default_rbf(ard=True) if kernel is None else kernel
         self.likelihood = GaussianLikelihood()
         self.mean_fn = Zero()
         self.jitter = default_jitter(dtype) if jitter is None else float(jitter)
         self.flat = torch.zeros(d + 2 + m, dtype=dtype, device=device)
+        self.flat[d] = self.kernel.init_log_outputscale
         self.trace = None           # (S, d+2+m) draws, C chains pooled chain-major
         self.stats = None
 
@@ -204,8 +212,8 @@ def train_sgp_hmc(data, Z_init, num_warmup=500, num_samples=500,
     Constructor options (``device``, ``dtype``, ``jitter``, ...) and
     ``train_model`` options (``algorithm``, ``num_chains``, ...) pass
     through ``kw``. Returns the trained model."""
-    ctor = {k: kw.pop(k) for k in ("likelihood", "kernel", "mean_fn",
-                                   "hyper_prior_tree", "jitter", "dtype",
+    ctor = {k: kw.pop(k) for k in ("likelihood", "kernel", "mean_fn", "mesh",
+                                   "mean_prior_tree", "hyper_prior_tree", "jitter", "dtype",
                                    "device") if k in kw}
     X, y = data
     model = SGPMC(X, y, Z_init=Z_init, **ctor)

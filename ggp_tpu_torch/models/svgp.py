@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..config import default_jitter, resolve_device
-from ..kernels import RBF, Scale, default_rbf
+from ..kernels import default_rbf, is_scale_rbf
 from ..likelihoods import BernoulliProbit, GaussianLikelihood, PoissonLogCox, Softmax
 from ..ops.linalg import safe_cholesky, tri_solve
 from ..ops.svi import svi_chunk, svi_softmax_chunk
@@ -122,8 +122,7 @@ def unpack_svgp(flat: dict, params: dict, tag: str) -> dict:
 
 
 def check_rbf_ard(kernel) -> bool:
-    return kernel is None or (isinstance(kernel, Scale) and type(kernel.base) is RBF
-                              and kernel.base.ard)
+    return kernel is None or (is_scale_rbf(kernel) and kernel.base.ard)
 
 
 def epoch_chunks(N, batch_size, num_epochs, generator, device):
@@ -169,7 +168,7 @@ class StochasticVariationalGP:
                 "StochasticVariationalGP in the port takes Scale(RBF-ARD) x {Gaussian, "
                 "BernoulliProbit, PoissonLogCox, Softmax}; still to port (ROADMAP queue 1 "
                 "item 10): " + ", ".join(unsupported))
-        self.kernel = default_rbf(ard=True)
+        self.kernel = default_rbf(ard=True) if kernel is None else kernel
         self.likelihood = likelihood
         self.tag = tag
         self.jitter = default_jitter(dtype) if jitter is None else float(jitter)

@@ -50,7 +50,8 @@ def launch_key(core: str, kind: str) -> str:
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
             "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "sgpmc_warm_chunk": 0,
-            "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0}
+            "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0,
+            "vfe_stats_fwd": 0, "vfe_stats_bwd": 0}
 
 
 def require_kind(core: str, kind: str) -> None:
@@ -90,6 +91,8 @@ _SIGS = {
     "ggp_svi_chunk": [_P] * 19,
     "ggp_svi_softmax_chunk": [_P] * 20,
     "ggp_bsvgp_chunk": [_P] * 23,
+    "ggp_vfe_stats_fwd": [_P] * 11,
+    "ggp_vfe_stats_bwd": [_P] * 14,
 }
 
 

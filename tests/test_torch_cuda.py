@@ -30,6 +30,9 @@ from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
 from ggp_tpu_torch.ops import svi
 from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, vfe_potential
+from ggp_tpu_torch.ops.vfe_stats import (vfe_stats_bwd, vfe_stats_bwd_plain, vfe_stats_fwd,
+                                         vfe_stats_fwd_plain)
+from ggp_tpu_torch.experiments.large_scale_regression_sghmc import main as sghmc_main
 
 pytestmark = pytest.mark.cuda
 
@@ -581,3 +584,65 @@ def test_svi_models_run_on_the_card(dev, lik):
     out = (m.mixture_posterior_predictive(X[:10], 20) if lik == "bsvgp"
            else m.posterior_predictive(X[:10]))
     assert all(torch.isfinite(a).all() for a in out)
+
+
+# -- the big-N statistics (csrc/vfe_stats.cu) ---------------------------------------------
+
+STATS_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+
+
+def _stats_problem(dev, dt, n, C, m=20, d=5, B=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=g, dtype=dt, device=dev)
+    X, y = torch.randn((n, d), **kw), torch.randn(n, **kw)
+    il = torch.exp(0.2 * torch.randn((C, d), **kw))
+    Zs = (X[torch.randint(0, n, (C, m), generator=g, device=dev)] * il[:, None, :]).contiguous()
+    os = torch.exp(0.1 * torch.randn(C, **kw))
+    idx = None if B is None else torch.randint(0, n, (C, B), generator=g, device=dev)
+    gk = torch.randn((C, m, m), **kw)
+    return X, y, Zs, il, os, idx, (gk + gk.transpose(-1, -2)).contiguous(), torch.randn((C, m), **kw)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("fam", ["rbf", "matern12", "matern32", "matern52"])
+@pytest.mark.parametrize("C,B", [(1, None), (4, None), (1, 77), (4, 77)])
+def test_vfe_stats_kernels_match_plain(dev, dt, fam, C, B):
+    """Forward and backward against the plain versions; n = 1000 and B = 77
+    are not multiples of the row tiles (32 forward, 16 backward), so the
+    tail tile is masked; Z rows are taken from X (coincident points)."""
+    X, y, Zs, il, os, idx, gsym, dsky = _stats_problem(dev, dt, 1000, C, B=B)
+    before = dict(_build.LAUNCHES)
+    out = vfe_stats_fwd(X, y, Zs, il, os, idx, fam)
+    ref = vfe_stats_fwd_plain(X, y, Zs, il, os, idx, fam)
+    for a, b in zip(out, ref):
+        assert _rel(a, b) <= STATS_TOL[dt]
+    outb = vfe_stats_bwd(X, y, Zs, il, os, idx, gsym, dsky, fam)
+    refb = vfe_stats_bwd_plain(X, y, Zs, il, os, idx, gsym, dsky, fam)
+    for a, b in zip(outb, refb):
+        assert _rel(a, b) <= STATS_TOL[dt]
+    assert _build.LAUNCHES["vfe_stats_fwd"] == before["vfe_stats_fwd"] + 1
+    assert _build.LAUNCHES["vfe_stats_bwd"] == before["vfe_stats_bwd"] + 1
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_vfe_stats_kernels_beyond_one_tile_and_bf16(dev, dt):
+    """M = 150 spans two 128-wide S_kk tiles; bf16 rounds the forward's
+    product inputs as the plain version does."""
+    X, y, Zs, il, os, idx, gsym, dsky = _stats_problem(dev, dt, 700, 3, m=150, d=7, B=300)
+    for bf16 in (False, True):
+        for a, b in zip(vfe_stats_fwd(X, y, Zs, il, os, idx, "rbf", bf16),
+                        vfe_stats_fwd_plain(X, y, Zs, il, os, idx, "rbf", bf16)):
+            assert _rel(a, b) <= STATS_TOL[dt]
+    for a, b in zip(vfe_stats_bwd(X, y, Zs, il, os, idx, gsym, dsky),
+                    vfe_stats_bwd_plain(X, y, Zs, il, os, idx, gsym, dsky)):
+        assert _rel(a, b) <= STATS_TOL[dt]
+
+
+def test_sghmc_experiment_runs_on_the_card(dev):
+    """The SGHMC experiment at a small size on the card: warm start on
+    sgpr_adam_chunk, SGHMC with the anchor on the statistics kernels."""
+    before = dict(_build.LAUNCHES)
+    out = sghmc_main(n_rows=None, M=16, warm_iters=20, num_steps=40, control_variate=True)
+    assert out["finite"] and np.isfinite(out["rmse"]) and np.isfinite(out["nlpd"])
+    for k in ("sgpr_adam_chunk", "vfe_stats_fwd", "vfe_stats_bwd"):
+        assert _build.LAUNCHES[k] > before[k], k

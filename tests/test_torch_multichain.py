@@ -480,7 +480,7 @@ def test_model_multichain_hmc_marginals_match_jax():
     jm.hypers = h0
     jtr = jm.sample_hypers(100, 100, num_chains=4, key=jax.random.PRNGKey(0),
                            algorithm="hmc")
-    tm = BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), torch.tensor(Z),
+    tm = BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), Z_init=torch.tensor(Z),
                                device="cpu")
     tm.theta = params_from_jax(jax.device_get(h0))
     ttr = tm.sample_hypers(100, 100, torch.Generator().manual_seed(0), num_chains=4,
@@ -498,7 +498,7 @@ def test_model_multichain_nuts_train_model_runs_plain_on_cpu():
     """train_model passes num_chains through; C-chain NUTS rounds pool the
     chains chain-major, and the CPU run launches no kernel."""
     X, y, Z = _model_data(seed=8)
-    tm = BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), torch.tensor(Z),
+    tm = BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), Z_init=torch.tensor(Z),
                                device="cpu")
     before = dict(_build.LAUNCHES)
     losses = tm.train_model(max_steps=24, hmc_scheduler=[20, 22], num_chains=2,
@@ -526,11 +526,11 @@ def test_model_default_device_is_the_card():
     plain versions."""
     X, y, Z = _model_data()
     if torch.cuda.is_available():
-        assert BayesianSparseGPR_HMC(X, y, Z).train_x.device.type == "cuda"
+        assert BayesianSparseGPR_HMC(X, y, Z_init=Z).train_x.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            BayesianSparseGPR_HMC(X, y, Z)
-    assert BayesianSparseGPR_HMC(X, y, Z, device="cpu").train_x.device.type == "cpu"
+            BayesianSparseGPR_HMC(X, y, Z_init=Z)
+    assert BayesianSparseGPR_HMC(X, y, Z_init=Z, device="cpu").train_x.device.type == "cpu"
 
 
 @pytest.mark.parametrize("dtype", [F32, F64])

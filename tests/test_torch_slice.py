@@ -44,7 +44,7 @@ def _jax_tree(tr):
 def _models(seed=0):
     X, y, Z = _data(seed)
     return (JaxModel(jnp.asarray(X), jnp.asarray(y), Z_init=jnp.asarray(Z)),
-            BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), torch.tensor(Z),
+            BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), Z_init=torch.tensor(Z),
                                   device="cpu"),
             X, y, Z)
 
@@ -89,7 +89,7 @@ def test_mixture_predictive_matches_jax_at_shared_trace_and_z():
 
 def test_short_train_model_stays_finite_and_counts_no_launch():
     X, y, Z = _data(seed=5)
-    tm = BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), torch.tensor(Z),
+    tm = BayesianSparseGPR_HMC(torch.tensor(X), torch.tensor(y), Z_init=torch.tensor(Z),
                                device="cpu")
     before = dict(_build.LAUNCHES)
     losses = tm.train_model(max_steps=30, hmc_scheduler=[20, 25],

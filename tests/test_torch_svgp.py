@@ -31,8 +31,7 @@ from ggp_tpu.models.bayesian_svgp import bsvgp_elbo as j_bsvgp_elbo
 from ggp_tpu.models.svgp import svgp_elbo as j_svgp_elbo
 from ggp_tpu_torch import BayesianStochasticVariationalGP, StochasticVariationalGP
 from ggp_tpu_torch import likelihoods as tlik
-from ggp_tpu_torch.interop import (bsvgp_params_from_jax, bsvgp_params_to_numpy,
-                                   svgp_params_from_jax, svgp_params_to_numpy)
+from ggp_tpu_torch.interop import tree_from_numpy, tree_to_numpy
 from ggp_tpu_torch.kernels import RBF, Scale, default_rbf
 from ggp_tpu_torch.models.bayesian_svgp import bsvgp_elbo
 from ggp_tpu_torch.models.svgp import pack_svgp, svgp_elbo
@@ -371,20 +370,20 @@ def test_svgp_trajectory_matches_jax_train_model(lik):
     jl = jlik.Softmax(3, 8) if lik == "softmax" else _JLIK[lik]()
     jm = JaxSVGP(jnp.asarray(X), jnp.asarray(y.astype(np.int32) if lik == "softmax" else y),
                  likelihood=jl, Z_init=jnp.asarray(Z))
-    p0 = svgp_params_to_numpy(svgp_params_from_jax(jax.device_get(jm.params)))
+    p0 = tree_to_numpy(tree_from_numpy(jax.device_get(jm.params)))
     losses_j = jm.train_model(num_epochs=EPOCHS, batch_size=BS, lr=LR, key=key)
     draw = ((lambda k: jax.random.normal(k, (4, BS, 3), jnp.float64)) if lik == "softmax"
             else None)
     idx, eps = _schedule(key, draw=draw)
     tag = "softmax" if lik == "softmax" else lik
-    p = pack_svgp(svgp_params_from_jax(p0), tag)
+    p = pack_svgp(tree_from_numpy(p0), tag)
     zeros = {k: torch.zeros_like(v) for k, v in p.items()}
     args = (p, zeros, dict(zeros), _t(X), _t(y), torch.tensor(idx))
     if lik == "softmax":
         out, _, _, losses = svi.svi_softmax_chunk(*args, _t(eps), 1e-8, t0=0, lr=LR)
     else:
         out, _, _, losses = svi.svi_chunk(*args, 1e-8, likelihood=lik, t0=0, lr=LR)
-    ref = pack_svgp(svgp_params_from_jax(jax.device_get(jm.params)), tag)
+    ref = pack_svgp(tree_from_numpy(jax.device_get(jm.params)), tag)
     for k in svi.SVI_NAMES:
         assert _rel(out[k], ref[k]) <= TRAJ_TOL, k
     assert _rel(losses.reshape(EPOCHS, -1).mean(1), losses_j) <= TRAJ_TOL
@@ -399,7 +398,7 @@ def test_bsvgp_trajectory_matches_jax_train_model():
     S, h = 3, D_TR + 2
     jm = JaxBSVGP(jnp.asarray(X), jnp.asarray(y), Z_init=jnp.asarray(Z), prior_var=1.0,
                   num_hyper_samples=S)
-    p0 = bsvgp_params_from_jax(jax.device_get(jm.params))
+    p0 = tree_from_numpy(jax.device_get(jm.params))
     losses_j = jm.train_model(num_epochs=EPOCHS, batch_size=BS, lr=LR, key=key)
     idx, eps = _schedule(key, bayes=True,
                          draw=lambda k: jax.random.normal(k, (S, h), jnp.float64))
@@ -410,7 +409,7 @@ def test_bsvgp_trajectory_matches_jax_train_model():
     zeros = {k: torch.zeros_like(v) for k, v in p.items()}
     out, _, _, losses = svi.bsvgp_chunk(p, zeros, dict(zeros), _t(X), _t(y), torch.tensor(idx),
                                         _t(eps), 1e-8, prior_var=1.0, t0=0, lr=LR)
-    ref = bsvgp_params_from_jax(jax.device_get(jm.params))
+    ref = tree_from_numpy(jax.device_get(jm.params))
     assert _rel(out["hmu"], ref["hyper_mu"]) <= TRAJ_TOL
     assert _rel(out["Lraw"][il[0], il[1]], ref["hyper_L_vec"]) <= TRAJ_TOL
     assert _rel(out["Z"], ref["Z"]) <= TRAJ_TOL
@@ -438,7 +437,7 @@ def test_posterior_predictive_matches_jax(lik):
     jm.params = jax.tree_util.tree_map(jnp.asarray, _perturbed(jm.params, 3))
     tl = tlik.Softmax(3, 8) if lik == "softmax" else _TLIK[lik]()
     tm = StochasticVariationalGP(X, y, likelihood=tl, Z_init=Z, device="cpu")
-    tm.params = svgp_params_from_jax(jax.device_get(jm.params))
+    tm.params = tree_from_numpy(jax.device_get(jm.params))
     eps = (_t(jax.random.normal(jax.random.PRNGKey(0), (8, 10, 3), jnp.float64))
            if lik == "softmax" else None)
     for a, b in zip(tm.posterior_predictive(Xt, eps=eps),
@@ -462,7 +461,7 @@ def test_mixture_posterior_predictive_matches_jax(transform):
     jm = JaxBSVGP(jnp.asarray(X), jnp.asarray(y), Z_init=jnp.asarray(Z))
     jm.params = jax.tree_util.tree_map(jnp.asarray, _perturbed(jm.params, 5))
     tm = BayesianStochasticVariationalGP(X, y, Z_init=Z, device="cpu")
-    tm.params = bsvgp_params_from_jax(jax.device_get(jm.params))
+    tm.params = tree_from_numpy(jax.device_get(jm.params))
     eps = _t(jax.random.normal(jax.random.PRNGKey(1), (20, D_TR + 2), jnp.float64))
     mt, vt = tm.mixture_posterior_predictive(Xt, 20, eps=eps, transform=transform)
     mj, vj = jm.mixture_posterior_predictive(jnp.asarray(Xt), 20, transform=transform)
@@ -473,7 +472,7 @@ def test_mixture_posterior_predictive_matches_jax(transform):
     jp.params = jax.tree_util.tree_map(jnp.asarray, _perturbed(jp.params, 6))
     tp = BayesianStochasticVariationalGP(X, yb, likelihood=tlik.BernoulliProbit(), Z_init=Z,
                                          device="cpu")
-    tp.params = bsvgp_params_from_jax(jax.device_get(jp.params))
+    tp.params = tree_from_numpy(jax.device_get(jp.params))
     eps = _t(jax.random.normal(jax.random.PRNGKey(1), (20, D_TR + 1), jnp.float64))
     assert _rel(tp.mixture_predictive_proba(Xt, 20, eps=eps),
                 jp.mixture_predictive_proba(jnp.asarray(Xt), 20)) <= TOL
@@ -486,9 +485,7 @@ def test_interop_round_trip():
     for jm in (JaxSVGP(jnp.asarray(X), jnp.asarray(y), Z_init=jnp.asarray(Z)),
                JaxBSVGP(jnp.asarray(X), jnp.asarray(y), Z_init=jnp.asarray(Z))):
         p = _perturbed(jm.params, 7)
-        conv = (bsvgp_params_from_jax, bsvgp_params_to_numpy) if isinstance(jm, JaxBSVGP) \
-            else (svgp_params_from_jax, svgp_params_to_numpy)
-        back = conv[1](conv[0](p))
+        back = tree_to_numpy(tree_from_numpy(p))
         flat_a, tree_a = jax.tree_util.tree_flatten(p)
         flat_b, tree_b = jax.tree_util.tree_flatten(back)
         assert tree_a == tree_b
