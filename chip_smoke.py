@@ -27,7 +27,10 @@ non-zero exit:
    D=18), the anchor's (N=1e6, C=2), each stationary family (N=3000, Z
    rows from X) and bf16 once, with the peak memory of a full-N call and
    cuBLAS's product on a materialised K; sgpr_adam_chunk at the SGHMC
-   experiment's warm-start shape (n=4096, 200 steps);
+   experiment's warm-start shape (n=4096, 200 steps); the co2 cores
+   (co2_potential, co2_nuts_chunk) and the one-transition kernel
+   (nuts_transition, vfe and co2) at the Mauna Loa experiment's shape
+   (N=541, D=1, M=480), in float64 and float32;
 4. the main paths through the models' entry points, in float32, each with
    the launch counters set to 0 just before it and read just after:
    a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
@@ -67,6 +70,12 @@ non-zero exit:
       30-component mixture predictive), held-out RMSE and NLPD; then at
       100,000 rows, its warm start's loss and log-noise and the kept
       draws' mean log-hypers held against the JAX package's CPU run;
+   q. co2: the port's experiments/co2_bayesian_sgpr_hmc.py ``main()`` at full
+      width in float64 (warm start 1500 steps, the fixed-Z chunked sampler
+      cut to CO2_PROTOCOL's transitions, the mixture predictive), held to
+      health gates and to the JAX package's CPU run of the same cut
+      (co2_reference.py, CO2_REF); co2-f32: the same in float32 (finite
+      outputs); co2-alt: the alternating trainer on a short schedule;
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?); where one gpr evaluation's time goes (its six parts, timed as
    prefixes), beside cholesky_ex + cholesky_inverse of the same K; the gpr
@@ -75,16 +84,22 @@ non-zero exit:
 
 Every kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its operations over the float32 peak
-and its bytes (inputs read once, outputs written once) over the memory
-rate. The operations are the least the call's evaluations of its core need
-(:func:`bound_ops`, :func:`sgpmc_ops`, :func:`gpr_ops`, :func:`svi_ops`,
-:func:`bsvgp_ops`, ``ops.vfe_stats.stats_ops``),
-not those the kernel happens to do.
+(the float64 one for the ``*_f64`` extras) and its bytes (inputs read once,
+outputs written once) over the memory rate. The operations are the least
+the call's evaluations of its core need (:func:`bound_ops`,
+:func:`sgpmc_ops`, :func:`gpr_ops`, :func:`co2_ops`, :func:`svi_ops`,
+:func:`bsvgp_ops`, ``ops.vfe_stats.stats_ops``), not those the kernel
+happens to do.
+
+    python3 chip_smoke.py co2
+
+runs only the build, the co2 parity and the three co2 paths.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
                                     [gpr-hmc] [gpr-c4] [svgp] [svgp-probit]
                                     [svgp-poisson] [svgp-softmax] [bsvgp]
-                                    [sghmc-1m] [sghmc-exp]
+                                    [sghmc-1m] [sghmc-exp] [co2] [co2-f32]
+                                    [co2-alt]
 
 runs the named main paths instead (default: all) once each under
 ``torch.profiler`` after a short warm-up, and prints where the device time
@@ -108,6 +123,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from ggp_tpu_torch import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC,
                            BayesianStochasticVariationalGP, StochasticVariationalGP)
+from ggp_tpu_torch.experiments.co2_bayesian_sgpr_hmc import init_co2_params
+from ggp_tpu_torch.experiments.co2_bayesian_sgpr_hmc import main as co2_main
+from ggp_tpu_torch.experiments.co2_data import load_co2_dataset
 from ggp_tpu_torch.experiments.large_scale_regression_sghmc import main as sghmc_main
 from ggp_tpu_torch.experiments.large_scale_regression_sghmc import tiled_data
 from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
@@ -122,8 +140,10 @@ from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk
                                           mc_hmc_chunk_plain, mc_nuts_chunk,
                                           mc_nuts_chunk_plain, mc_potential,
                                           mc_potential_plain)
+from ggp_tpu_torch.ops.co2_bound import co2_potential, co2_vfe_neg_logpost_vg
 from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
-                                          first_chain, nuts_chunk, nuts_chunk_plain)
+                                          first_chain, nuts_chunk, nuts_chunk_plain,
+                                          nuts_transition, nuts_transition_plain)
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
@@ -131,14 +151,15 @@ from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
 from ggp_tpu_torch.ops.svi import (bsvgp_chunk, bsvgp_chunk_plain, svi_chunk, svi_chunk_plain,
                                    svi_softmax_chunk, svi_softmax_chunk_plain)
 from ggp_tpu_torch.models.sgpr import sgpr_elbo_from_stats, vfe_stats
-from ggp_tpu_torch.ops.vfe_bound import (call_potential, rbf_vfe_neg_logpost_vg, state_dim,
-                                         vfe_potential)
+from ggp_tpu_torch.ops.vfe_bound import (call_potential, neg_logpost_vg,
+                                         rbf_vfe_neg_logpost_vg, state_dim, vfe_potential)
 from ggp_tpu_torch.ops.vfe_stats import (FAMILIES, stats_ops, vfe_stats_bwd,
                                          vfe_stats_bwd_plain, vfe_stats_fwd,
                                          vfe_stats_fwd_plain)
 from ggp_tpu_torch.priors import log_prior, prior_tree_rbf
 from ggp_tpu_torch.utils.datasets import normalize
 from ggp_tpu_torch.utils.metrics import nlpd, nlpd_mixture, rmse
+from ggp_tpu_torch.utils.tree import ravel
 
 # name: (source, the pallas_call it replaces, the other one it replaces)
 KERNELS = {
@@ -193,7 +214,18 @@ KERNELS = {
     # the big-N statistics (csrc/vfe_stats.cu), C chains, rows gathered in the kernel
     "vfe_stats_fwd": ("ggp_tpu_torch/csrc/vfe_stats.cu", "ggp_tpu/ops/pallas_vfe.py:152", None),
     "vfe_stats_bwd": ("ggp_tpu_torch/csrc/vfe_stats.cu", "ggp_tpu/ops/pallas_vfe.py:238", None),
+    # the co2 cores (csrc/co2_bound.cuh) of the potential and NUTS chunk kernels
+    # (ggp_tpu/ops/fused_bound.py:815), and the one-transition kernel (cores vfe, co2)
+    "co2_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
+                      "ggp_tpu/ops/fused_nuts.py:807", None),
+    "co2_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                       "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
+    "nuts_transition": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                        "ggp_tpu/ops/fused_nuts.py:770", None),
 }
+# a KERNELS entry whose launches are the sum of several counters (one per core)
+LAUNCH_SUMS = {"nuts_transition": ("nuts_transition_vfe", "nuts_transition_co2")}
+CO2_KERNELS = ("co2_potential", "co2_nuts_chunk", "nuts_transition")
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
 # ~1e-6 in float32.
@@ -294,9 +326,52 @@ SGHMC_REF = {
 DRAW_MEAN_TOL = 0.05
 WARM_LOSS_TOL = 1e-4
 WARM_NOISE_TOL = 1e-3
-# NVIDIA H100 SXM data sheet (at 700 W): float32 outside the tensor cores,
-# and HBM3 bandwidth.
+# The co2 paths run the Mauna Loa experiment's driver at its full width
+# (N=541, M=480, 11 hypers) with the transitions cut: the experiment's
+# fixed-Z protocol (tune=500, n=100, chunks of 100) takes ~600 transitions
+# of 30-130 leapfrogs at ~37 ms each, far beyond this script's time (its
+# uncut run is in PERF.md section 4). co2 keeps the 1500-step warm start and
+# cuts NUTS to 50 + 10 in chunks of 10 (at 30 warmup transitions the last
+# dual-averaging run is 3 steps long, and the JAX package's own run of that
+# cut sampled at accept 0.26 with one of two keys). co2-f32 (the experiment's dtype)
+# cuts it to 2 + 1: float32 noise in a potential of |U| ~ 1e3 drives the
+# step size to ~1e-7, and every transition runs the full 255 leapfrogs of
+# depth 8. co2-alt runs the alternating trainer's schedule on 40 steps
+# (warm start 20, two rounds of 2 + 1 transitions, 20 Z steps between).
+CO2_PROTOCOL = {"co2": dict(tune=50, n_samples=10, chunk_size=10),
+                "co2-f32": dict(tune=2, n_samples=1, chunk_size=1),
+                "co2-alt": dict(max_iters=40, warm_steps=20, round_sizes=((2, 1), (2, 1)))}
+# The JAX package's CPU run (float64) of the co2 path's protocol above
+# (co2_reference.py, two seeds of its NUTS key): the extrapolation RMSE
+# (ppm), mixture NLPD and per-lane posterior means, with their seed-to-seed
+# differences (*_spread). The port's co2 path is held within a fixed slack
+# plus 3x that difference: CO2_METRIC_TOL for RMSE and NLPD, CO2_LANE_TOL
+# per lane mean (log units). Its warm start (a deterministic float64 Adam
+# run) is held to the JAX run's final loss within WARM_LOSS_TOL.
+CO2_REF = {
+    "warm_loss": -1668.889642365729, "rmse": 1.259029, "rmse_spread": 0.465255,
+    "nlpd": 1.415833, "nlpd_spread": 0.375935,
+    "lane_means": [1.19704, 8.054753, -2.448706, 3.281708, -2.172816, 1.797032, 4.131757,
+                   -2.678877, 6.40848, -2.722718, -9.251608],
+    "lane_spread": [0.104171, 4.103492, 0.072117, 0.170142, 4.384002, 7.572352, 1.931256,
+                    4.639224, 0.981157, 0.508964, 0.108971]}
+# 10 draws after 50 warmup transitions: a well-identified lane's mean moves
+# by ~0.1 between NUTS keys (the JAX run's lanes 0, 2, 3, 10 differ by
+# 0.07-0.17); the weakly identified ones (the seasonal decay, alpha, the
+# medium and short-scale variances) by several units, which the 3x spread
+# covers.
+CO2_METRIC_TOL = 0.1
+CO2_LANE_TOL = 0.25
+# At M=480 float32 resolves the co2 potential (|U| ~ 1e3, gradients ~1e3)
+# to ~1e-4 of itself, and a draw NUTS_TOL apart sits tens of units of U
+# away: the co2 core's float32 NUTS comparisons hold the tree decisions and
+# the draws (the leading-transition rule), and print the difference of the
+# potential, accept probability and energy (float64 holds all of them).
+CO2_COLS32 = ()
+# NVIDIA H100 SXM data sheet (at 700 W): float32 and float64 outside the
+# tensor cores, and HBM3 bandwidth.
 PEAK_F32_OPS = 67e12
+PEAK_F64_OPS = 34e12
 PEAK_BYTES = 3.35e12
 T_START = time.perf_counter()
 CARD = ""            # nvidia-smi's name and power limit, printed beside the paths' times
@@ -479,6 +554,29 @@ def gpr_ops(n, d):
     return float(ops)
 
 
+def co2_ops(n, m):
+    """The least floating-point operations one evaluation of the CO2
+    composite bound with its 11-lane gradient needs at (n, m), counted as
+    :func:`bound_ops` counts the collapsed bound: its factorisations,
+    substitutions and adjoints, plus per pair (n m, and m (m+1)/2 of the
+    symmetric Kmm) the four component grams (~36: one sin, four exp, one
+    log1p, the Matern32 form) and the ten hyper contractions (~40)."""
+    pairs = n * m + m * (m + 1) / 2
+    ops = (36 * pairs                          # grams of the four components
+           + 4 * m ** 3 / 3                    # potrf + trtri of Kmm and of B
+           + n * m * m + n * m                 # An = Knm L^-T / sigma (trmm)
+           + n * m * m + n * m                 # B = An^T An + I (syrk)
+           + m ** 3 / 3                        # B^-1 = VB VB^T (lauum)
+           + 4 * n * m + 3 * m * m + 3 * n     # u, alpha; three substitutions
+           + m ** 3 + m * m                    # Y1 = (I - B^-1) L^-1 (trmm)
+           + 2 * m * m + m ** 3                # T0; L^-T T0 L^-1 (sygst)
+           + m * m                             # dKmm (symmetric)
+           + 2 * n * m * m + 4 * n * m         # dKnm = (An Y1 + alpha w^T) / sigma
+           + 40 * pairs                        # ten contractions sum(Kbar o dK/dtheta_i)
+           + 12 * 11)                          # variance lanes, noise lane, priors
+    return float(ops)
+
+
 def svi_ops(m, nb, d, C=1, lik="gauss", n_half=32, adam=True):
     """The least floating-point operations one SVGP minibatch step (loss,
     hand adjoint and, with ``adam``, the Adam update) needs at (m, nb, d)
@@ -557,12 +655,18 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def roofline(evals, n, m, d, in_bytes, out_bytes, want_z=False, core="vfe"):
+def roofline(evals, n, m, d, in_bytes, out_bytes, want_z=False, core="vfe",
+             peak=PEAK_F32_OPS):
     """(bound_ms, bound_by) of a call that makes ``evals`` evaluations of
-    ``core`` and reads ``in_bytes``, writes ``out_bytes`` (float32 peak)."""
-    ops = (gpr_ops(n, d) if core == "gpr"
-           else (sgpmc_ops if core == "sgpmc" else bound_ops)(n, m, d, want_z))
-    t_ops = evals * ops / PEAK_F32_OPS
+    ``core`` and reads ``in_bytes``, writes ``out_bytes`` (float32 peak
+    unless ``peak`` says otherwise)."""
+    if core == "gpr":
+        ops = gpr_ops(n, d)
+    elif core.startswith("co2"):
+        ops = co2_ops(n, m)
+    else:
+        ops = (sgpmc_ops if core == "sgpmc" else bound_ops)(n, m, d, want_z)
+    t_ops = evals * ops / peak
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -711,15 +815,15 @@ def phase_parity(Xd, yd, Zd, res):
                                nbytes(*out), want_z=True))
 
 
-def mc_start(X, y, Z, jit, C, seed, core="vfe"):
-    """C chains at state 0 + 0.1 N(0, 1) with per-chain step sizes from the
+def mc_start(X, y, Z, jit, C, seed, core="vfe", z0=0.0):
+    """C chains at state z0 + 0.1 N(0, 1) with per-chain step sizes from the
     batched search (plain potential of ``core``), as the C-chain sampler
     starts them."""
     dt = X.dtype
     dim = state_dim(core, X.shape[1], Z.shape[0])
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(generator=gen, dtype=dt, device="cuda")
-    z = 0.1 * torch.randn((C, dim), **kw)
+    z = z0 + 0.1 * torch.randn((C, dim), **kw)
     U, g = mc_potential_plain(z, X, y, Z, jit, core=core)
     im = torch.ones_like(z)
     eps = find_reasonable_step_size_batched(
@@ -732,14 +836,17 @@ def mc_start(X, y, Z, jit, C, seed, core="vfe"):
     return st, gen
 
 
-def chunk_parity(X, y, Z, jit, st0, gen, res, *, core, algo, grid, K, L=10, md=8):
+def chunk_parity(X, y, Z, jit, st0, gen, res, *, core, algo, grid, K, L=10, md=8,
+                 f64_times=False, cols32=(0, 1, 5)):
     """A warm and a sample chunk of K transitions, HMC (L leapfrogs) or
     NUTS (max depth md), of ``core`` from the ``grid`` chains of ``st0``:
     the kernel (through the one-chain wrapper at grid 1, the C-chain one
     otherwise) against the plain C-chain version on shared slabs from
     ``gen``. HMC chunks must take identical accept decisions; NUTS chunks
     must keep every f64 chain on one path and agree on the first
-    transition in f32. Records the kernel's row of ``res``."""
+    transition in f32, where the stats held are ``cols32`` of (potential,
+    accept, ..., energy). Records the kernel's row of ``res`` (and with
+    ``f64_times`` its float64 times and bound)."""
     dt = X.dtype
     tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
     n, d = X.shape
@@ -795,10 +902,12 @@ def chunk_parity(X, y, Z, jit, st0, gen, res, *, core, algo, grid, K, L=10, md=8
         else:
             prefixes = [agreeing_prefix(d_k[:, c], d_p[:, c], x_k[:, c], x_p[:, c],
                                         NUTS_TOL[dt]) for c in range(grid)]
+            cols = list(cols32) if f32 else [0, 1, 5]
             for c, p in enumerate(prefixes):
                 if p:
-                    errs += [rel(d_k[:p, c], d_p[:p, c]),
-                             rel(x_k[:p, c][:, [0, 1, 5]], x_p[:p, c][:, [0, 1, 5]])]
+                    errs.append(rel(d_k[:p, c], d_p[:p, c]))
+                    if cols:
+                        errs.append(rel(x_k[:p, c][:, cols], x_p[:p, c][:, cols]))
                     aerr += [abs_err(d_k[:p, c], d_p[:p, c]),
                              abs_err(x_k[:p, c][:, [0, 5]], x_p[:p, c][:, [0, 5]])]
             print(f"parity {name} {tag} {mode} (grid {grid}, K={K}): transitions on one "
@@ -811,6 +920,10 @@ def chunk_parity(X, y, Z, jit, st0, gen, res, *, core, algo, grid, K, L=10, md=8
             assert max(errs) <= NUTS_TOL[dt], f"{name} {tag} rel err {max(errs)}"
         if adapt and f32:
             res[name].update(ms=t_k, plain_ms=t_p, bound=bound)
+        if adapt and f64_times and not f32:
+            b64 = roofline(leaves, n, m, d, xyz + st_b + nbytes(*sl.values()) + 2 * K * 4,
+                           st_b + nbytes(d_k, x_k), core=core, peak=PEAK_F64_OPS)
+            res[name]["extra"].update(ms_f64=t_k, plain_ms_f64=t_p, bound_ms_f64=b64[0])
         st = s_p
     res[name]["rel"][tag] = max(errs)
     if f32:
@@ -976,6 +1089,170 @@ def phase_parity_gpr(Xd, yd, res, C=8, md=8):
             st = as_batch(first_chain(st0)) if grid == 1 else st0
             chunk_parity(X, y, Z, jit, st, gen, res, core="gpr", algo="nuts", grid=grid,
                          K=8, md=md)
+
+
+def co2_data(dt):
+    """The Mauna Loa CO2 experiment's data on the card: N=541 training rows
+    before 2003 and 143 test rows, D=1; Z = X[:480] (every max(1, 541 //
+    480)-th row, as the experiment takes it); y_std in ppm."""
+    Xtr, ytr, Xte, yte, _, y_std, _ = load_co2_dataset(2003)
+    X, y, Xt, yt = (torch.tensor(a, dtype=dt, device="cuda") for a in (Xtr, ytr, Xte, yte))
+    return X, y, X[:480].contiguous(), Xt, yt, y_std
+
+
+def transition_chain(step, z0, U0, g0, eps, slabs):
+    """K chained transitions of ``step`` (nuts_transition or its plain
+    version) from (z0, U0, g0) on the slabs' rows: draws (K, dim) and
+    stats (K, 6) in chunk order (U, accept, diverging, depth, leapfrogs,
+    energy)."""
+    z, U, g = z0, U0, g0
+    im = torch.ones_like(z0)
+    draws, stats = [], []
+    for mom, treeu, leafu in zip(*slabs):
+        z, U, g, acc, div, depth, nl, H0 = step(z, U, g, eps, im, mom=mom, treeu=treeu,
+                                                leafu=leafu)
+        draws.append(z)
+        stats.append(torch.stack([U, acc, div.to(z.dtype), depth.to(z.dtype),
+                                  nl.to(z.dtype), H0]))
+    return torch.stack(draws), torch.stack(stats)
+
+
+def transition_parity(label, core, z0, X, y, Z, jit, gen, res, K, md, record,
+                      cols32=(0, 1, 5)):
+    """K chained one-transition kernel launches (``nuts_transition``, site
+    4) against the plain transition on shared slabs, each version its own
+    chain from z0 at the plain step-size search's eps: every f64 transition
+    on one path, the first f32 one agreeing (NUTS_TOL; of the stats,
+    ``cols32``). ``record``: this call's times go to the kernel's row (f32;
+    f64 as extras)."""
+    dt = X.dtype
+    tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+    n, d = X.shape
+    m, dim = Z.shape[0], z0.shape[0]
+
+    def pot(z):
+        return neg_logpost_vg(core, z, X, y, Z, jit)
+
+    U0, g0 = pot(z0)
+    im = torch.ones_like(z0)
+    eps = find_reasonable_step_size(pot, z0, U0, g0, torch.randn(dim, generator=gen, dtype=dt,
+                                                                 device="cuda"), im, 0.1)
+    slabs = draw_slabs(K, dim, md, gen, dtype=dt, device="cuda")
+    kw = dict(max_depth=md, core=core)
+    args = (X, y, Z, jit)
+    (d_k, x_k), t_k = once_ms(lambda: transition_chain(
+        lambda *a, **k: nuts_transition(*a[:5], *args, **k, **kw), z0, U0, g0, eps, slabs))
+    (d_p, x_p), t_p = once_ms(lambda: transition_chain(
+        lambda *a, **k: nuts_transition_plain(*a[:5], *args, **k, **kw), z0, U0, g0, eps,
+        slabs))
+    p = agreeing_prefix(d_k, d_p, x_k, x_p, NUTS_TOL[dt])
+    cols = list(cols32) if f32 else [0, 1, 5]
+    errs = [rel(d_k[:p], d_p[:p])] if p else []
+    if p and cols:
+        errs.append(rel(x_k[:p][:, cols], x_p[:p][:, cols]))
+    stat_err = rel(x_k[:p][:, [0, 1, 5]], x_p[:p][:, [0, 1, 5]]) if p else float("nan")
+    leaves = int(x_k[:, 4].sum())
+    in_b = nbytes(X, y, Z, z0, U0, g0, im, *slabs)
+    bound = roofline(leaves, n, m, d, in_b, nbytes(d_k, x_k), core=core,
+                     peak=PEAK_F32_OPS if f32 else PEAK_F64_OPS)
+    print(f"parity nuts_transition {label} {tag} (K={K} launches, max depth {md}): "
+          f"transitions on one path {p}/{K}, leapfrogs {leaves}, max rel err over them "
+          f"{max(errs, default=float('nan')):.3e} (potential, accept, energy "
+          f"{stat_err:.3e}); kernel "
+          f"{t_k / K:.2f} ms, plain "
+          f"{t_p / K:.2f} ms per transition ({t_k / max(leaves, 1):.3f} ms per leapfrog), "
+          f"bound {bound[0]:.4f} ms")
+    if f32:
+        assert p >= 1, f"nuts_transition {label} f32: the first transition differs"
+    else:
+        assert p == K, f"nuts_transition {label} f64: paths part at {p}"
+    assert max(errs) <= NUTS_TOL[dt], f"nuts_transition {label} {tag} rel err {max(errs)}"
+    row = res["nuts_transition"]
+    row["rel"][tag] = max(row["rel"].get(tag, 0.0), max(errs))
+    row["extra"][f"max_rel_err_{label}_{tag}"] = max(errs)
+    # per launch: the K transitions' times and bound over K
+    if record and f32:
+        row.update(abs32=max(abs_err(d_k[:p], d_p[:p]), abs_err(x_k[:p][:, [0, 5]],
+                                                                  x_p[:p][:, [0, 5]])),
+                   ms=t_k / K, plain_ms=t_p / K, bound=(bound[0] / K, bound[1]))
+        row["extra"]["leapfrogs_per_launch"] = leaves / K
+    elif record:
+        row["extra"].update(ms_f64=t_k / K, plain_ms_f64=t_p / K, bound_ms_f64=bound[0] / K)
+    else:
+        row["extra"][f"ms_{label}_{tag}"] = t_k / K
+
+
+def phase_parity_co2(Xd, yd, Zd, res, K=3, md=6):
+    """The co2 cores at the Mauna Loa experiment's shape (N=541, D=1, M=480,
+    jitter 1e-4, LogNormal(0, 3) priors): the potential kernel of both noise
+    components against the plain version at init_co2_params and three
+    states dispersed from it by 0.5 N(0, 1) (f64 <= 1e-9; f32 <= 1e-3, or
+    where float32 does not resolve the difference, the kernel's error
+    against float64 within F32_AS_ACCURATE times the plain version's); the
+    one-transition kernel (vfe at the slice's shape, co2 at the
+    experiment's) and a warm and a sample co2 NUTS chunk of K transitions
+    (max depth md) against their plain versions on shared slabs."""
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, y, Z, *_ = co2_data(dt)
+        n, m = X.shape[0], Z.shape[0]
+        jit = 1e-4
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        base = ravel(init_co2_params(dtype=dt, device="cuda"))
+        states = [base] + [base + 0.5 * torch.randn(11, generator=gen, dtype=dt, device="cuda")
+                           for _ in range(3)]
+        for nc in ("m32", "rbf"):
+            errs, aerr, worst = [], [], []
+            for th in states:
+                out = co2_potential(th, X, y, Z, jit, noise_comp=nc)
+                ref = co2_vfe_neg_logpost_vg(th, X, y, Z, jit, noise_comp=nc)
+                for a, b in zip(out, ref):
+                    errs.append(rel(a, b))
+                    aerr.append(abs_err(a, b))
+                if f32:
+                    r64 = co2_vfe_neg_logpost_vg(*(t.double() for t in (th, X, y, Z)), jit,
+                                                 noise_comp=nc)
+                    for what, a, b, c in zip(("U", "g"), out, ref, r64):
+                        if rel(a, b) > TOL[dt]:
+                            lane = int((a.double() - b.double()).abs().argmax())
+                            worst.append((rel(a, c), rel(b, c), f"{what}[{lane}]"))
+            e = max(errs)
+            txt = ""
+            if worst:
+                txt = (f"; not resolved in float32 at {[w[2] for w in worst]}, against float64 "
+                       f"kernel {max(w[0] for w in worst):.3e}, plain "
+                       f"{max(w[1] for w in worst):.3e}")
+            th = states[0]
+            ms = cuda_ms(lambda: co2_potential(th, X, y, Z, jit, noise_comp=nc), 5)
+            pms = cuda_ms(lambda: co2_vfe_neg_logpost_vg(th, X, y, Z, jit, noise_comp=nc), 5)
+            b = roofline(1, n, m, 1, nbytes(X, y, Z, th), 12 * X.element_size(), core="co2",
+                         peak=PEAK_F32_OPS if f32 else PEAK_F64_OPS)
+            print(f"parity co2_potential {nc} {tag} (N={n}, M={m}, {len(states)} states): max "
+                  f"rel err {e:.3e}{txt}; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                  f"{b[0]:.4f} ms ({b[1]})")
+            if f32:
+                assert all(k <= F32_AS_ACCURATE * max(p, 1e-300) for k, p, _ in worst), \
+                    f"co2_potential {nc} f32: kernel less accurate than plain {worst}"
+            else:
+                assert e <= TOL[dt], f"co2_potential {nc} {tag} rel err {e}"
+            row = res["co2_potential"]
+            row["rel"][tag] = max(row["rel"].get(tag, 0.0), e)
+            row["extra"][f"max_rel_err_{nc}_{tag}"] = e
+            if nc == "m32" and f32:
+                row.update(abs32=max(aerr), ms=ms, plain_ms=pms, bound=b)
+            elif nc == "m32":
+                row["extra"].update(ms_f64=ms, plain_ms_f64=pms, bound_ms_f64=b[0])
+
+        # site 4: chained one-transition launches, vfe at the slice's shape, then co2
+        Xv, yv, Zv = Xd.to(dt), yd.to(dt), Zd.to(dt)
+        transition_parity("vfe", "vfe", torch.zeros(Xv.shape[1] + 2, dtype=dt, device="cuda"),
+                          Xv, yv, Zv, 1e-5, gen, res, K=2 * K, md=8, record=False)
+        transition_parity("co2_m32", "co2_m32", base, X, y, Z, jit, gen, res, K=K, md=md,
+                          record=True, cols32=CO2_COLS32)
+        # sites 2, 3: the co2 NUTS chunk at grid 1
+        st0, cgen = mc_start(X, y, Z, jit, 1, seed=23, core="co2_m32", z0=base)
+        chunk_parity(X, y, Z, jit, st0, cgen, res, core="co2_m32", algo="nuts", grid=1, K=K,
+                     md=md, f64_times=True, cols32=CO2_COLS32)
 
 
 def svi_errs(out, ref):
@@ -1499,6 +1776,71 @@ def joint_paths(X, y, Z, Xte, yte):
     }
 
 
+def unique_rows(trace):
+    return int(torch.unique(trace, dim=0).shape[0])
+
+
+def phase_co2(label, dtype, fixed_z):
+    """The port's Mauna Loa CO2 driver (``experiments.co2_bayesian_sgpr_hmc
+    .main``) at full width (N=541, M=480, 11 hypers), its transitions cut
+    to CO2_PROTOCOL[label]: the fixed-Z protocol (warm start, the chunked
+    sampler, one transition kernel launch per transition) or, for co2-alt,
+    the alternating trainer's schedule. Prints the phases' seconds, ms per
+    potential evaluation, launches, sampler health, per-lane posterior
+    means, the extrapolation RMSE (ppm) and mixture NLPD; holds what
+    ``gates`` names. Returns the launch counts of the run."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    proto = CO2_PROTOCOL[label]
+    out = co2_main(dtype=dtype, device="cuda", fixed_z=fixed_z, **proto)
+    launches = dict(_build.LAUNCHES)
+    model, st = out["model"], out["model"].stats
+    leaps = int(st["n_leapfrog"].sum()) + int(st["warmup_n_leapfrog"].sum())
+    acc = float(st["accept_prob"].float().mean())
+    div = float(st["diverging"].float().mean())
+    means = model.trace.double().mean(0)
+    print(f"{label} on {CARD} ({str(dtype)[6:]}, {proto}): warm start "
+          f"{out['warm_seconds']:.3f} s (loss {float(out['warm_losses'][0]):.3f} -> "
+          f"{float(out['warm_losses'][-1]):.3f}), sampling {out['sample_seconds']:.3f} s, "
+          f"{leaps} leapfrogs in the last run ({out['sample_seconds'] * 1e3 / max(leaps, 1):.3f} "
+          f"ms per evaluation), mean accept {acc:.3f}, divergence fraction {div:.3f}, step "
+          f"size {float(st['step_size']):.4g}, unique draws {unique_rows(model.trace)}/"
+          f"{model.trace.shape[0]}")
+    print(f"{label} posterior means (11 lanes): {json.dumps([round(float(v), 6) for v in means])}")
+    print(f"{label} extrapolation RMSE {out['rmse']:.4f} ppm, mixture NLPD {out['nlpd']:.4f} "
+          f"({out['means'].shape[0]} components, {out['n_test']} test rows)")
+    expected = (["co2_potential", "nuts_transition_co2"] if fixed_z
+                else ["co2_potential", "co2_nuts_chunk"])
+    check_launches(label, launches, expected)
+    assert torch.isfinite(out["warm_losses"]).all() and torch.isfinite(model.trace).all()
+    assert torch.isfinite(out["means"]).all() and torch.isfinite(out["vars"]).all()
+    assert math.isfinite(out["rmse"]) and math.isfinite(out["nlpd"])
+    if label == "co2":
+        assert div <= 0.1, f"co2 divergence fraction {div}"
+        assert acc >= 0.5, f"co2 mean accept {acc}"
+        ref = CO2_REF
+        warm = float(out["warm_losses"][-1])
+        print(f"co2 warm start's final loss {warm:.6f} (the JAX run {ref['warm_loss']:.6f}, "
+              f"{abs(warm / ref['warm_loss'] - 1):.3e} apart)")
+        assert abs(warm / ref["warm_loss"] - 1) <= WARM_LOSS_TOL, "co2 warm start"
+        for key in ("rmse", "nlpd"):
+            tol = CO2_METRIC_TOL + 3 * ref[f"{key}_spread"]
+            assert abs(out[key] - ref[key]) <= tol, \
+                f"co2 {key} {out[key]} against the JAX run's {ref[key]} (tolerance {tol})"
+        worst = max(abs(float(a) - b) / (CO2_LANE_TOL + 3 * s) for a, b, s in
+                    zip(means, ref["lane_means"], ref["lane_spread"]))
+        print(f"co2 against the JAX package's CPU run: RMSE {ref['rmse']:.4f}, NLPD "
+              f"{ref['nlpd']:.4f}; worst lane mean at {worst:.3f} of its tolerance")
+        assert worst <= 1.0, f"co2 lane means beyond tolerance ({worst})"
+    return launches
+
+
+def co2_paths():
+    return {"co2": lambda: phase_co2("co2", torch.float64, True),
+            "co2-f32": lambda: phase_co2("co2-f32", torch.float32, True),
+            "co2-alt": lambda: phase_co2("co2-alt", torch.float32, False)}
+
+
 def phase_scaling(Xd, yd, Zd):
     """mc_potential (float32) at C = 1, 8, 32: equal times mean the blocks
     do not slow one another."""
@@ -1552,7 +1894,9 @@ def profile_paths(X, y, Z, Xte, yte, names):
              "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
              "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
              **joint_paths(X, y, Z, Xte, yte), **gpr_paths(X, y, Xte, yte),
-             **svi_paths(X, y, Xte, yte), **sghmc_paths(big_data())}
+             **svi_paths(X, y, Xte, yte), **co2_paths()}
+    if not names or any(k.startswith("sghmc") for k in names):
+        paths.update(sghmc_paths(big_data()))
     Xf, yf, Zf = (a.float() for a in (X, y, Z))
     mc_potential(torch.zeros((2, X.shape[1] + 2), device="cuda"), Xf, yf, Zf, 1e-5)
     torch.linalg.cholesky(torch.eye(8, device="cuda"))
@@ -1956,32 +2300,40 @@ def main(argv):
         return
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
+    only_co2 = argv[:1] == ["co2"]
     res = new_res()
-    phase_parity(X, y, Zd, res)
-    phase_parity_mc(X, y, Zd, res)
-    phase_parity_sgpmc(X, y, Zd, res)
-    phase_parity_gpr(X, y, res)
-    phase_parity_svi(X, y, Zd, res)
-    big = big_data()
-    phase_parity_stats(big[0], big[1], res)
+    if not only_co2:
+        phase_parity(X, y, Zd, res)
+        phase_parity_mc(X, y, Zd, res)
+        phase_parity_sgpmc(X, y, Zd, res)
+        phase_parity_gpr(X, y, res)
+        phase_parity_svi(X, y, Zd, res)
+        big = big_data()
+        phase_parity_stats(big[0], big[1], res)
+    phase_parity_co2(X, y, Zd, res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
-    launches = {k: 0 for k in KERNELS}
-    for run in (lambda: phase_rounds(X, y, Z, 1, "slice"),
-                lambda: phase_hmc_c8(X, y, Z),
-                lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
-                *joint_paths(X, y, Z, Xte, yte).values(),
-                *gpr_paths(X, y, Xte, yte).values(),
-                *svi_paths(X, y, Xte, yte).values(),
-                *sghmc_paths(big).values()):
-        for k, v in run().items():
-            if k in launches:
-                launches[k] += v
+    names = [k for k in KERNELS if not only_co2 or k in CO2_KERNELS]
+    launches = {k: 0 for k in names}
+    paths = [] if only_co2 else [
+        lambda: phase_rounds(X, y, Z, 1, "slice"),
+        lambda: phase_hmc_c8(X, y, Z),
+        lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
+        *joint_paths(X, y, Z, Xte, yte).values(),
+        *gpr_paths(X, y, Xte, yte).values(),
+        *svi_paths(X, y, Xte, yte).values(),
+        *sghmc_paths(big).values()]
+    for run in paths + list(co2_paths().values()):
+        got = run()
+        for k in launches:
+            launches[k] += sum(got[c] for c in LAUNCH_SUMS.get(k, (k,)) if c in got)
         print(f"main paths at {time.perf_counter() - T_START:.1f} s")
-    phase_scaling(X, y, Z)
-    phase_gpr_parts(X, y)
+    if not only_co2:
+        phase_scaling(X, y, Z)
+        phase_gpr_parts(X, y)
     assert all(v > 0 for v in launches.values()), launches
     out = []
-    for name, (src, site, also) in KERNELS.items():
+    for name in names:
+        src, site, also = KERNELS[name]
         r = res[name]
         bound_ms, bound_by = r["bound"]
         item = {"name": name, "route": "cuda", "source": src, "replaces": site,

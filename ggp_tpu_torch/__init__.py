@@ -15,7 +15,10 @@ ML-II Adam on (hypers, Z) under the collapsed bound, chunks of steps per
 launch, and its predictive. ``inference.sghmc.run_sghmc``: SGHMC with C
 chains over the collapsed bound from minibatch statistics
 (``models.sgpr.vfe_stats``), as the 1M-row experiment
-``experiments.large_scale_regression_sghmc`` runs it. The
+``experiments.large_scale_regression_sghmc`` runs it.
+BayesianSparseGPR_HMC also takes the Mauna Loa CO2 composite
+(``kernels.co2_kernel``), sampled by one launch per NUTS transition as
+``experiments.co2_bayesian_sgpr_hmc`` runs it. The
 hand-written CUDA kernels (``csrc/``) are built at first use on a machine
 with ``nvcc``; CPU tensors run each kernel's plain PyTorch version.
 """

@@ -15,14 +15,12 @@
 // scratch area that stays in L2 (3 N^2 values: 1.96 MB in f32 at N=404):
 // an N-step Cholesky with a barrier per pivot (chol_upper of vfe_bound.cuh,
 // floor 0, so a non-positive pivot gives NaN, the samplers' divergence),
-// the triangular inverse V = U^-1 with one thread per column (ut_inv; its
-// serial work grows as the square of the column index), two N-step
-// substitutions, and K^-1 = V V^T (N^3/6 multiply-adds over 256 threads
-// reading L2). The least work of one evaluation is ~N^3 operations (7e7 at
-// N=404), ~1 us at the float32 peak; this simple core is bound by latency
-// and instruction throughput far above that. Measured on an H100 80GB HBM3
-// at 700 W (chip_smoke.py's parts line): 20.8 ms per float32 evaluation at
-// N=404, D=13, of which the Cholesky takes 11.7 ms and the inverse 5.5 ms.
+// the triangular inverse V = U^-1 (ut_inv, an N-step right-looking
+// update), two N-step substitutions, and K^-1 = V V^T (N^3/6
+// multiply-adds over 256 threads reading L2). The least work of one
+// evaluation is ~N^3 operations (7e7 at N=404), ~1 us at the float32 peak;
+// this simple core is bound by latency and instruction throughput far
+// above that (chip_smoke.py's parts line times its parts).
 //
 // What the design does about it: the routines of vfe_bound.cuh, unchanged;
 // the strict lower triangle of the factorised matrix W (which chol_upper

@@ -15,7 +15,17 @@
 // C); each for targets "vfe" and "sgpmc" (entries
 // ggp_nuts_chunk_{vfe,sgpmc}_{f32,f64}); and the grid-1 chunks with
 // target="gpr" (ggp_nuts_chunk_gpr_{f32,f64}), which the port also runs at
-// grid C for C chains of GPR_HMC.
+// grid C for C chains of GPR_HMC; and the grid-1 chunks with targets
+// "co2_m32" / "co2_rbf" (Co2M32Core / Co2RbfCore, co2_bound.cuh; entries
+// ggp_nuts_chunk_co2_{m32,rbf}_{f32,f64}).
+//
+// Kernel 2b, nuts_transition_kernel, replaces ggp_tpu/ops/fused_nuts.py
+// `_nuts_kernel_body` (the `trans_call` pallas_call, site 4): one
+// transition from (z, U, g) at a given step size and inverse mass, for the
+// cores "vfe" and "co2_*" (entries ggp_nuts_transition_{vfe,co2_m32,
+// co2_rbf}_{f32,f64}). It runs the chunk kernel's own device function
+// `nuts_transition` once and does nothing else: no adaptation, no state
+// row.
 //
 // What bounds it on the card: each chain is sequential. Every leapfrog is
 // one evaluation of the core (a latency chain of barriers and L2 reads in
@@ -39,6 +49,7 @@
 // per-step indexing (momentum row t*C+c; tree uniforms at (t*C+c, depth);
 // leaf uniforms at (t*C+c, global leaf index)), which makes the kernel
 // deterministic and comparable draw for draw with its plain version.
+#include "co2_bound.cuh"
 #include "gpr_bound.cuh"
 #include "stan_adapt.cuh"
 
@@ -49,15 +60,17 @@ struct NutsCfg {
   double target;
 };
 
-template <typename T>
+// The tree state of one chain, for state rows of up to D entries
+// (CoreDim<Core>::value: kMaxDim, or the core's own bound).
+template <typename T, int D>
 struct NutsShared {
-  T z[kMaxDim], r[kMaxDim], g[kMaxDim], v[kMaxDim];      // current leaf
-  T lz[kMaxDim], lr[kMaxDim], lg[kMaxDim];                // left end
-  T rz[kMaxDim], rr[kMaxDim], rg[kMaxDim];                // right end
-  T pz[kMaxDim], pg[kMaxDim];                             // chain state / proposal
-  T qz[kMaxDim], qg[kMaxDim];                             // subtree proposal
-  T im[kMaxDim], wm[kMaxDim], wm2[kMaxDim];               // mass, Welford
-  T zc[(kMaxDepth + 1) * kMaxDim], vc[(kMaxDepth + 1) * kMaxDim];
+  T z[D], r[D], g[D], v[D];                               // current leaf
+  T lz[D], lr[D], lg[D];                                  // left end
+  T rz[D], rr[D], rg[D];                                  // right end
+  T pz[D], pg[D];                                         // chain state / proposal
+  T qz[D], qg[D];                                         // subtree proposal
+  T im[D], wm[D], wm2[D];                                 // mass, Welford
+  T zc[(kMaxDepth + 1) * D], vc[(kMaxDepth + 1) * D];
   T U;
 };
 
@@ -76,18 +89,177 @@ __device__ __forceinline__ int trailing_ones(int x) {
   return __popc(low - 1u);
 }
 
+// What one transition reports besides the new state (s.pz, s.pg, Up).
+template <typename T>
+struct TransOut {
+  T accept, H0;
+  bool diverging;
+  int depth, nl;
+};
+
+// One NUTS transition at step size eps from the state (s.pz, Up, s.pg)
+// under the inverse mass s.im, with the random slabs' row `row`; every
+// thread of the block calls it and returns with the same values, the new
+// state in s.pz, s.pg and Up.
+template <template <typename> class Core, typename T, int D>
+__device__ __forceinline__ TransOut<T> nuts_transition(
+    const BoundCfg& cf, int dim, int max_depth, T eps, long row, const T* mom,
+    const T* treeu, const T* leafu, const T* X, const T* y, const T* Z,
+    const typename Core<T>::WorkT& w, BoundShared<T>& sh, NutsShared<T, D>& s, T& Up) {
+  const int tid = threadIdx.x;
+  const int leaf_cols = 1 << max_depth;
+  if (int k = tid; k < dim) {
+    const T r0 = mom[row * dim + k] / gsqrt(s.im[k]);
+    s.lr[k] = r0;
+    s.rr[k] = r0;
+    s.lz[k] = s.pz[k];
+    s.rz[k] = s.pz[k];
+    s.lg[k] = s.pg[k];
+    s.rg[k] = s.pg[k];
+  }
+  __syncthreads();
+  const T H0 = Up + kinetic(s.im, s.lr, dim);
+  T lU = Up, rU = Up, logw = T(0), acc = T(0);
+  int depth = 0, nl = 0;
+  bool turning = false, diverging = false;
+
+  while (!turning && !diverging && depth < max_depth) {
+    const T u_dir = treeu[(row * max_depth + depth) * 2];
+    const T u_swap = treeu[(row * max_depth + depth) * 2 + 1];
+    const T dirf = u_dir < T(0.5) ? T(1) : T(-1);
+    const bool fwd = dirf > T(0);
+    if (int k = tid; k < dim) {
+      s.z[k] = fwd ? s.rz[k] : s.lz[k];
+      s.r[k] = fwd ? s.rr[k] : s.lr[k];
+      s.g[k] = fwd ? s.rg[k] : s.lg[k];
+      s.qz[k] = s.z[k];
+      s.qg[k] = s.g[k];
+    }
+    T cU = fwd ? rU : lU, qU = cU;
+    __syncthreads();
+
+    // ---- subtree of 2^depth leaves in direction dirf ----
+    const int num_leaves = 1 << depth;
+    const T eps_s = dirf * eps;
+    int i = 0;
+    T slogw = -ginf<T>(), sacc = T(0);
+    bool sturn = false, sdiv = false;
+    while (i < num_leaves && !sturn && !sdiv) {
+      if (int k = tid; k < dim) {
+        const T rh = s.r[k] - T(0.5) * eps_s * s.g[k];
+        s.r[k] = rh;
+        s.z[k] = s.z[k] + eps_s * s.im[k] * rh;
+      }
+      __syncthreads();
+      Core<T>::eval(cf, s.z, X, y, Z, w, sh, &s.U, s.g, (T*)nullptr);
+      cU = s.U;
+      if (int k = tid; k < dim) {
+        s.r[k] = s.r[k] - T(0.5) * eps_s * s.g[k];
+        s.v[k] = s.im[k] * s.r[k];
+      }
+      __syncthreads();
+      T delta = cU + kinetic(s.im, s.r, dim) - H0;
+      if (gisnan(delta)) delta = ginf<T>();
+      sdiv = delta > T(1000);
+      const T lwl = -delta;
+      sacc += jmin(T(1), gexp(-delta));
+      const T lwn = lae(slogw, lwl);
+      const bool take = log_unif(leafu[row * leaf_cols + nl + i]) < (lwl - lwn);
+      if (take) {
+        vcopy(s.qz, s.z, dim);
+        vcopy(s.qg, s.g, dim);
+        qU = cU;
+      }
+      if ((i & 1) == 0) {
+        const int slot = __popc(i);
+        if (int k = tid; k < dim) {
+          s.zc[slot * D + k] = s.z[k];
+          s.vc[slot * D + k] = s.v[k];
+        }
+      } else {
+        const int hi = min(trailing_ones(i), max_depth) + 1;
+        for (int mm = 1; mm < hi; ++mm) {
+          const int sj = __popc(i - (1 << mm) + 1);
+          const T* zcj = s.zc + sj * D;
+          const T* vcj = s.vc + sj * D;
+          T d1 = T(0), d2 = T(0);
+          for (int k = 0; k < dim; ++k) {
+            const T dz = dirf * (s.z[k] - zcj[k]);
+            d1 += dz * vcj[k];
+            d2 += dz * s.v[k];
+          }
+          if (d1 < T(0) || d2 < T(0)) sturn = true;
+        }
+      }
+      __syncthreads();
+      slogw = lwn;
+      ++i;
+    }
+
+    // ---- merge the subtree into the tree ----
+    const bool ok = !sturn && !sdiv;
+    const bool take = (log_unif(u_swap) < (slogw - logw)) && ok;
+    if (take) {
+      vcopy(s.pz, s.qz, dim);
+      vcopy(s.pg, s.qg, dim);
+      Up = qU;
+    }
+    if (ok) logw = lae(logw, slogw);
+    if (ok && !fwd) {
+      vcopy(s.lz, s.z, dim);
+      vcopy(s.lr, s.r, dim);
+      vcopy(s.lg, s.g, dim);
+      lU = cU;
+    }
+    if (ok && fwd) {
+      vcopy(s.rz, s.z, dim);
+      vcopy(s.rr, s.r, dim);
+      vcopy(s.rg, s.g, dim);
+      rU = cU;
+    }
+    __syncthreads();
+    T f1 = T(0), f2 = T(0);
+    for (int k = 0; k < dim; ++k) {
+      const T dz = s.rz[k] - s.lz[k];
+      f1 += dz * s.im[k] * s.lr[k];
+      f2 += dz * s.im[k] * s.rr[k];
+    }
+    turning = sturn || (ok && (f1 < T(0) || f2 < T(0)));
+    diverging = sdiv;
+    acc += sacc;
+    nl += i;
+    ++depth;
+  }
+  TransOut<T> out;
+  out.accept = acc / jmax(T(nl), T(1));
+  out.H0 = H0;
+  out.diverging = diverging;
+  out.depth = depth;
+  out.nl = nl;
+  return out;
+}
+
+template <typename T>
+__device__ __forceinline__ void write_stats(T* st, T U, const TransOut<T>& tr) {
+  st[0] = U;
+  st[1] = tr.accept;
+  st[2] = tr.diverging ? T(1) : T(0);
+  st[3] = T(tr.depth);
+  st[4] = T(tr.nl);
+  st[5] = tr.H0;
+}
+
 template <template <typename> class Core, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(CoreThreads<Core>::value)
 nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
                   T* wmio, T* wm2io, const int* flags, const T* mom,
                   const T* treeu, const T* leafu, const T* X, const T* y,
                   const T* Z, T* draws, T* stats, T* scratch) {
   __shared__ BoundShared<T> sh;
-  __shared__ NutsShared<T> s;
+  __shared__ NutsShared<T, CoreDim<Core>::value> s;
   const int tid = threadIdx.x;
   const int c = blockIdx.x, C = gridDim.x;            // this block's chain
   const int dim = nc.dim, max_depth = nc.max_depth, K = nc.K;
-  const int leaf_cols = 1 << max_depth;
   const typename Core<T>::WorkT w =
       Core<T>::work(scratch + (long)c * Core<T>::elems(cf), cf);
   state += c * S_LEN;
@@ -118,146 +290,16 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
     }
     const T eps = nc.adapt ? gexp(a.le) : eps_fixed;
 
-    // ---- one NUTS transition from (pz, Up, pg) ----
-    if (int k = tid; k < dim) {
-      const T r0 = mom[row * dim + k] / gsqrt(s.im[k]);
-      s.lr[k] = r0;
-      s.rr[k] = r0;
-      s.lz[k] = s.pz[k];
-      s.rz[k] = s.pz[k];
-      s.lg[k] = s.pg[k];
-      s.rg[k] = s.pg[k];
-    }
-    __syncthreads();
-    const T H0 = Up + kinetic(s.im, s.lr, dim);
-    T lU = Up, rU = Up, logw = T(0), acc = T(0);
-    int depth = 0, nl = 0;
-    bool turning = false, diverging = false;
-
-    while (!turning && !diverging && depth < max_depth) {
-      const T u_dir = treeu[(row * max_depth + depth) * 2];
-      const T u_swap = treeu[(row * max_depth + depth) * 2 + 1];
-      const T dirf = u_dir < T(0.5) ? T(1) : T(-1);
-      const bool fwd = dirf > T(0);
-      if (int k = tid; k < dim) {
-        s.z[k] = fwd ? s.rz[k] : s.lz[k];
-        s.r[k] = fwd ? s.rr[k] : s.lr[k];
-        s.g[k] = fwd ? s.rg[k] : s.lg[k];
-        s.qz[k] = s.z[k];
-        s.qg[k] = s.g[k];
-      }
-      T cU = fwd ? rU : lU, qU = cU;
-      __syncthreads();
-
-      // ---- subtree of 2^depth leaves in direction dirf ----
-      const int num_leaves = 1 << depth;
-      const T eps_s = dirf * eps;
-      int i = 0;
-      T slogw = -ginf<T>(), sacc = T(0);
-      bool sturn = false, sdiv = false;
-      while (i < num_leaves && !sturn && !sdiv) {
-        if (int k = tid; k < dim) {
-          const T rh = s.r[k] - T(0.5) * eps_s * s.g[k];
-          s.r[k] = rh;
-          s.z[k] = s.z[k] + eps_s * s.im[k] * rh;
-        }
-        __syncthreads();
-        Core<T>::eval(cf, s.z, X, y, Z, w, sh, &s.U, s.g, (T*)nullptr);
-        cU = s.U;
-        if (int k = tid; k < dim) {
-          s.r[k] = s.r[k] - T(0.5) * eps_s * s.g[k];
-          s.v[k] = s.im[k] * s.r[k];
-        }
-        __syncthreads();
-        T delta = cU + kinetic(s.im, s.r, dim) - H0;
-        if (gisnan(delta)) delta = ginf<T>();
-        sdiv = delta > T(1000);
-        const T lwl = -delta;
-        sacc += jmin(T(1), gexp(-delta));
-        const T lwn = lae(slogw, lwl);
-        const bool take = log_unif(leafu[row * leaf_cols + nl + i]) < (lwl - lwn);
-        if (take) {
-          vcopy(s.qz, s.z, dim);
-          vcopy(s.qg, s.g, dim);
-          qU = cU;
-        }
-        if ((i & 1) == 0) {
-          const int slot = __popc(i);
-          if (int k = tid; k < dim) {
-            s.zc[slot * kMaxDim + k] = s.z[k];
-            s.vc[slot * kMaxDim + k] = s.v[k];
-          }
-        } else {
-          const int hi = min(trailing_ones(i), max_depth) + 1;
-          for (int mm = 1; mm < hi; ++mm) {
-            const int sj = __popc(i - (1 << mm) + 1);
-            const T* zcj = s.zc + sj * kMaxDim;
-            const T* vcj = s.vc + sj * kMaxDim;
-            T d1 = T(0), d2 = T(0);
-            for (int k = 0; k < dim; ++k) {
-              const T dz = dirf * (s.z[k] - zcj[k]);
-              d1 += dz * vcj[k];
-              d2 += dz * s.v[k];
-            }
-            if (d1 < T(0) || d2 < T(0)) sturn = true;
-          }
-        }
-        __syncthreads();
-        slogw = lwn;
-        ++i;
-      }
-
-      // ---- merge the subtree into the tree ----
-      const bool ok = !sturn && !sdiv;
-      const bool take = (log_unif(u_swap) < (slogw - logw)) && ok;
-      if (take) {
-        vcopy(s.pz, s.qz, dim);
-        vcopy(s.pg, s.qg, dim);
-        Up = qU;
-      }
-      if (ok) logw = lae(logw, slogw);
-      if (ok && !fwd) {
-        vcopy(s.lz, s.z, dim);
-        vcopy(s.lr, s.r, dim);
-        vcopy(s.lg, s.g, dim);
-        lU = cU;
-      }
-      if (ok && fwd) {
-        vcopy(s.rz, s.z, dim);
-        vcopy(s.rr, s.r, dim);
-        vcopy(s.rg, s.g, dim);
-        rU = cU;
-      }
-      __syncthreads();
-      T f1 = T(0), f2 = T(0);
-      for (int k = 0; k < dim; ++k) {
-        const T dz = s.rz[k] - s.lz[k];
-        f1 += dz * s.im[k] * s.lr[k];
-        f2 += dz * s.im[k] * s.rr[k];
-      }
-      turning = sturn || (ok && (f1 < T(0) || f2 < T(0)));
-      diverging = sdiv;
-      acc += sacc;
-      nl += i;
-      ++depth;
-    }
-    const T accept = acc / jmax(T(nl), T(1));
+    const TransOut<T> tr = nuts_transition<Core, T, CoreDim<Core>::value>(cf, dim, max_depth, eps, row, mom, treeu,
+                                                    leafu, X, y, Z, w, sh, s, Up);
 
     if (nc.adapt)
-      stan_adapt(a, accept, T(nc.target), nc.adapt_mass != 0, flags[t] > 0,
+      stan_adapt(a, tr.accept, T(nc.target), nc.adapt_mass != 0, flags[t] > 0,
                  flags[K + t] > 0, s.pz, s.im, s.wm, s.wm2, dim);
-    acc_sum += accept;
-    div_sum += diverging ? T(1) : T(0);
+    acc_sum += tr.accept;
+    div_sum += tr.diverging ? T(1) : T(0);
     if (int k = tid; k < dim) draws[row * dim + k] = s.pz[k];
-    if (tid == 0) {
-      T* st = stats + row * 6;
-      st[0] = Up;
-      st[1] = accept;
-      st[2] = diverging ? T(1) : T(0);
-      st[3] = T(depth);
-      st[4] = T(nl);
-      st[5] = H0;
-    }
+    if (tid == 0) write_stats(stats + row * 6, Up, tr);
     __syncthreads();
   }
 
@@ -283,10 +325,58 @@ int launch_nuts(const double* cfg, void* state, void* z, void* g,
   nc.adapt = (int)cfg[C_ADAPT];
   nc.adapt_mass = (int)cfg[C_ADAPT_MASS];
   nc.target = cfg[C_TARGET];
-  nuts_chunk_kernel<Core, T><<<(int)cfg[C_CHAINS], kThreads, 0, (cudaStream_t)stream>>>(
+  nuts_chunk_kernel<Core, T><<<(int)cfg[C_CHAINS], CoreThreads<Core>::value, 0,
+                                 (cudaStream_t)stream>>>(
       cf, nc, (T*)state, (T*)z, (T*)g, (T*)im, (T*)wm, (T*)wm2,
       (const int*)flags, (const T*)mom, (const T*)treeu, (const T*)leafu,
       (const T*)X, (const T*)y, (const T*)Z, (T*)draws, (T*)stats, (T*)scratch);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 2b: one NUTS transition at a given step size and inverse mass
+// (site 4), grid 1. The chunked sampler driver (inference/hmc.py
+// build_sampler_chunked) launches it once per transition and adapts
+// between launches. scal = (eps, U at z); stats as a chunk row.
+template <template <typename> class Core, typename T>
+__global__ void __launch_bounds__(CoreThreads<Core>::value)
+nuts_transition_kernel(BoundCfg cf, NutsCfg nc, const T* scal, const T* zin,
+                       const T* gin, const T* imin, const T* mom, const T* treeu,
+                       const T* leafu, const T* X, const T* y, const T* Z, T* zout,
+                       T* gout, T* stats, T* scratch) {
+  __shared__ BoundShared<T> sh;
+  __shared__ NutsShared<T, CoreDim<Core>::value> s;
+  const int dim = nc.dim;
+  const typename Core<T>::WorkT w = Core<T>::work(scratch, cf);
+  vcopy(s.pz, zin, dim);
+  vcopy(s.pg, gin, dim);
+  vcopy(s.im, imin, dim);
+  T Up = scal[1];
+  __syncthreads();
+  const TransOut<T> tr = nuts_transition<Core, T, CoreDim<Core>::value>(cf, dim, nc.max_depth, scal[0], 0, mom,
+                                                  treeu, leafu, X, y, Z, w, sh, s, Up);
+  vcopy(zout, s.pz, dim);
+  vcopy(gout, s.pg, dim);
+  if (threadIdx.x == 0) write_stats(stats, Up, tr);
+}
+
+template <template <typename> class Core, typename T>
+int launch_transition(const double* cfg, const void* scal, const void* z, const void* g,
+                      const void* im, const void* mom, const void* treeu, const void* leafu,
+                      const void* X, const void* y, const void* Z, void* zout, void* gout,
+                      void* stats, void* scratch, void* stream) {
+  const BoundCfg cf = bound_cfg(cfg);
+  NutsCfg nc;
+  nc.dim = (int)cfg[C_DIM];
+  nc.max_depth = (int)cfg[C_MAX_DEPTH];
+  nc.K = 1;
+  nc.adapt = 0;
+  nc.adapt_mass = 0;
+  nc.target = 0.0;
+  nuts_transition_kernel<Core, T><<<1, CoreThreads<Core>::value, 0,
+                                      (cudaStream_t)stream>>>(
+      cf, nc, (const T*)scal, (const T*)z, (const T*)g, (const T*)im, (const T*)mom,
+      (const T*)treeu, (const T*)leafu, (const T*)X, (const T*)y, (const T*)Z, (T*)zout,
+      (T*)gout, (T*)stats, (T*)scratch);
   return (int)cudaGetLastError();
 }
 
@@ -300,6 +390,14 @@ int launch_nuts(const double* cfg, void* state, void* z, void* g,
 #define GGP_NUTS_PASS                                                        \
   cfg, state, z, g, im, wm, wm2, flags, mom, treeu, leafu, X, y, Z, draws,   \
       stats, scratch, stream
+#define GGP_TRANS_ARGS                                                       \
+  const double *cfg, const void *scal, const void *z, const void *g,         \
+      const void *im, const void *mom, const void *treeu, const void *leafu, \
+      const void *X, const void *y, const void *Z, void *zout, void *gout,   \
+      void *stats, void *scratch, void *stream
+#define GGP_TRANS_PASS                                                       \
+  cfg, scal, z, g, im, mom, treeu, leafu, X, y, Z, zout, gout, stats,        \
+      scratch, stream
 
 extern "C" {
 // cfg[C_CHAINS] chains, one block each
@@ -320,5 +418,37 @@ int ggp_nuts_chunk_gpr_f32(GGP_NUTS_ARGS) {
 }
 int ggp_nuts_chunk_gpr_f64(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::GprCore, double>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_co2_m32_f32(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::Co2M32Core, float>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_co2_m32_f64(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::Co2M32Core, double>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_co2_rbf_f32(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::Co2RbfCore, float>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_co2_rbf_f64(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::Co2RbfCore, double>(GGP_NUTS_PASS);
+}
+
+// one transition, grid 1
+int ggp_nuts_transition_vfe_f32(GGP_TRANS_ARGS) {
+  return ggp::launch_transition<ggp::VfeCore, float>(GGP_TRANS_PASS);
+}
+int ggp_nuts_transition_vfe_f64(GGP_TRANS_ARGS) {
+  return ggp::launch_transition<ggp::VfeCore, double>(GGP_TRANS_PASS);
+}
+int ggp_nuts_transition_co2_m32_f32(GGP_TRANS_ARGS) {
+  return ggp::launch_transition<ggp::Co2M32Core, float>(GGP_TRANS_PASS);
+}
+int ggp_nuts_transition_co2_m32_f64(GGP_TRANS_ARGS) {
+  return ggp::launch_transition<ggp::Co2M32Core, double>(GGP_TRANS_PASS);
+}
+int ggp_nuts_transition_co2_rbf_f32(GGP_TRANS_ARGS) {
+  return ggp::launch_transition<ggp::Co2RbfCore, float>(GGP_TRANS_PASS);
+}
+int ggp_nuts_transition_co2_rbf_f64(GGP_TRANS_ARGS) {
+  return ggp::launch_transition<ggp::Co2RbfCore, double>(GGP_TRANS_PASS);
 }
 }

@@ -23,14 +23,21 @@
 // flow is uniform and each __syncthreads is reached by the whole block.
 // Triangular solves are column-oriented (one barrier per row) and run
 // against the factors, not the formed inverses (better at small noise,
-// where cond(B) ~ 1/sigma^2). Faster layouts (shared-memory tiles, wgmma,
-// several blocks per factorisation) are later work.
+// where cond(B) ~ 1/sigma^2). The Cholesky's trailing update and the
+// triangular inverse are right-looking, a warp per row, one barrier per
+// step; the bound's seven O(N M^2) and O(M^3) products run through
+// shared-memory tiles (block_gemm), each output keeping the serial sum
+// order. wgmma and several blocks per factorisation are later work.
 //
 // Sums over the n rows (B = An^T An, An^T y, and the gradient's row sums)
 // accumulate in double for both types: a float32 running sum over
 // thousands of rows loses digits the plain version's blocked reductions
 // keep, and Adam's normalised steps carry them into every coordinate.
 // They are not what bounds the core.
+//
+// The factorisations, solves, value and adjoints dF/dKnm, dF/dKmm do not
+// depend on the kernel: they are `collapsed_bound`, which the co2 cores
+// (co2_bound.cuh) share; `vfe_bound` adds the RBF grams and chain rule.
 //
 // Pivot policy: `floor <= 0` gives NaN on a non-positive pivot (sampler
 // divergence semantics); `floor > 0` is the trainers' modified Cholesky: a
@@ -49,6 +56,21 @@ constexpr int kMaxDepth = 10;   // NUTS tree depth bound (checkpoint slots)
 static_assert(kThreads >= kMaxDim, "the sampler kernels give each entry of a "
               "state row its own thread");
 
+// Threads of the block a sampler kernel runs the potential core `Core` on:
+// kThreads, unless the core sets its own (co2_bound.cuh). Every device
+// function of the cores strides over blockDim.x.
+template <template <typename> class Core>
+struct CoreThreads {
+  static constexpr int value = kThreads;
+};
+
+// Bound on the length of a state row of `Core`, which sizes the sampler
+// kernels' per-entry shared arrays: kMaxDim, unless the core sets its own.
+template <template <typename> class Core>
+struct CoreDim {
+  static constexpr int value = kMaxDim;
+};
+
 // Layout of the `cfg` double array every launcher takes (mirrored by
 // ggp_tpu_torch/ops/_build.py).
 enum CfgIndex {
@@ -58,7 +80,8 @@ enum CfgIndex {
   C_LR, C_CLIP, C_MIN_NOISE, C_T0, C_S_ACT, C_EPS, C_CHAINS, C_LEAPFROG,
   C_STAGES, C_NB, C_NUM_DATA, C_LIK, C_LATENTS, C_NHALF, C_PRIOR_VAR,
   C_QUAD = 40,                       // 20 Gauss-Hermite nodes, then 20 weights
-  C_LEN = 80
+  C_LANE_PRIOR = 80,                 // co2 core: 11 lanes x (kind, p1, p2, const)
+  C_LEN = 124
 };
 
 enum PriorKind { P_GAMMA = 0, P_HC_STD, P_HC, P_HALF_NORMAL, P_LOGNORMAL, P_FLAT };
@@ -70,6 +93,7 @@ struct BoundCfg {
   int stages;                        // gpr core: stop after this part (0: all)
   double jitter, floor;
   PriorLeaf leaf[3];                 // lengthscales, outputscale, noise
+  PriorLeaf lane[11];                // co2 core (co2_bound.cuh): one per hyper
 };
 
 inline BoundCfg bound_cfg(const double* cfg) {
@@ -82,12 +106,13 @@ inline BoundCfg bound_cfg(const double* cfg) {
   b.want_prior = (int)cfg[C_WANT_PRIOR];
   b.want_z = (int)cfg[C_WANT_ZGRAD];
   b.stages = (int)cfg[C_STAGES];
-  for (int l = 0; l < 3; ++l) {
-    const double* p = cfg + C_PRIOR + 4 * l;
-    b.leaf[l].kind = (int)p[0];
-    b.leaf[l].p1 = p[1];
-    b.leaf[l].p2 = p[2];
-    b.leaf[l].c = p[3];
+  for (int l = 0; l < 14; ++l) {
+    const double* p = l < 3 ? cfg + C_PRIOR + 4 * l : cfg + C_LANE_PRIOR + 4 * (l - 3);
+    PriorLeaf& q = l < 3 ? b.leaf[l] : b.lane[l - 3];
+    q.kind = (int)p[0];
+    q.p1 = p[1];
+    q.p2 = p[2];
+    q.c = p[3];
   }
   return b;
 }
@@ -189,6 +214,7 @@ __device__ Work<T> make_work(T* s, int n, int m, int d) {
 template <typename T>
 __device__ void chol_upper(T* W, T* U, int m, T floor, bool floored) {
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nt >> 5;
   const T sf = floored ? gsqrt(floor) : T(0);
   for (int i = 0; i < m; ++i) {
     const T dp = W[i * m + i];
@@ -208,30 +234,39 @@ __device__ void chol_upper(T* W, T* U, int m, T floor, bool floored) {
       U[i * m + c] = val;
     }
     __syncthreads();
-    if (good) {
-      const int r0 = i + 1, len = m - r0;
-      for (int idx = tid; idx < len * len; idx += nt) {
-        const int r = r0 + idx / len, c = r0 + idx % len;
-        if (c >= r) W[r * m + c] -= U[i * m + r] * U[i * m + c];
+    if (good) {                     // trailing update of the upper triangle: a warp per row
+      for (int r = i + 1 + warp; r < m; r += nwarps) {
+        const T ur = U[i * m + r];
+        for (int c = r + lane; c < m; c += 32) W[r * m + c] -= ur * U[i * m + c];
       }
     }
     __syncthreads();
   }
 }
 
-// V = U^-1 for upper-triangular U: one thread per column, back substitution.
+// V = U^-1 for upper-triangular U, right-looking: the rows of V from the
+// bottom up, each final once the rows below it have added U[k][l] V[l][c]
+// into the partial sums S[k][c] that V's entries above them hold (a warp
+// per row of the update, one barrier per row). Each step's work spreads
+// over the block; a thread per column would run column c as c^2/2
+// dependent steps of one thread, most of an evaluation at m=480.
 template <typename T>
 __device__ void ut_inv(const T* U, T* V, int m) {
-  for (int c = threadIdx.x; c < m; c += blockDim.x) {
-    for (int k = m - 1; k > c; --k) V[k * m + c] = T(0);
-    V[c * m + c] = T(1) / U[c * m + c];
-    for (int k = c - 1; k >= 0; --k) {
-      T s = T(0);
-      for (int l = k + 1; l <= c; ++l) s += U[k * m + l] * V[l * m + c];
-      V[k * m + c] = -s / U[k * m + k];
-    }
-  }
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nt >> 5;
+  for (int idx = tid; idx < m * m; idx += nt) V[idx] = T(0);
   __syncthreads();
+  for (int l = m - 1; l >= 0; --l) {
+    const T inv = T(1) / U[l * m + l];
+    for (int c = l + tid; c < m; c += nt)
+      V[l * m + c] = ((c == l ? T(1) : T(0)) - V[l * m + c]) * inv;
+    __syncthreads();
+    for (int k = warp; k < l; k += nwarps) {
+      const T ukl = U[k * m + l];
+      for (int c = l + lane; c < m; c += 32) V[k * m + c] += ukl * V[l * m + c];
+    }
+    __syncthreads();
+  }
 }
 
 // Solve U^T x = b (forward substitution, column-oriented).
@@ -303,6 +338,233 @@ __device__ void prior_leaf(const PriorLeaf& p, T u, T* lp, T* g) {
   }
 }
 
+// sum_{k0 <= k < k1} a[k sa] b[k sb] in Acc, in four independent chains, so
+// that the loads of four terms are in flight at once
+template <typename Acc, typename T>
+__device__ __forceinline__ Acc dot_acc(const T* a, int sa, const T* b, int sb, int k0,
+                                       int k1) {
+  Acc s0 = Acc(0), s1 = Acc(0), s2 = Acc(0), s3 = Acc(0);
+  int k = k0;
+  for (; k + 3 < k1; k += 4) {
+    s0 += Acc(a[k * sa]) * Acc(b[k * sb]);
+    s1 += Acc(a[(k + 1) * sa]) * Acc(b[(k + 1) * sb]);
+    s2 += Acc(a[(k + 2) * sa]) * Acc(b[(k + 2) * sb]);
+    s3 += Acc(a[(k + 3) * sa]) * Acc(b[(k + 3) * sb]);
+  }
+  for (; k < k1; ++k) s0 += Acc(a[k * sa]) * Acc(b[k * sb]);
+  return (s0 + s1) + (s2 + s3);
+}
+
+// Zero structure a tiled product may skip: A(r, k) = 0 for k < r
+// (K_FROM_R), B(k, c) = 0 for k < c (K_FROM_C) or for k > c (K_TO_C); and
+// SYM_UPPER: only the tiles on and above the diagonal are formed (the
+// epilogue mirrors them).
+enum GemmSkip { K_FULL = 0, K_FROM_R = 1, K_FROM_C = 2, K_TO_C = 4, SYM_UPPER = 8 };
+
+// The block-wide product C(r, c) = sum_k A(r, k) B(k, c) for r < R, c < Cn,
+// k < K, with A(r, k) = A[r ar + k ak] and B(k, c) = B[k bk + c bc] (one of
+// each pair of strides 1), through shared memory, by a block of NT threads:
+// the block forms TR x TC output tiles, each thread 2 TR TC / NT of them in
+// registers (two columns, TC / 2 apart, and rows strided), from chunks of
+// KC terms that all threads load together and every output of the tile
+// then reads. Each output sums its terms in ascending k in one Acc
+// accumulator (the order of a serial loop), and goes to epi(r, c, sum) from
+// the thread that formed it. The chunks live in the caller's shared tiles
+// sA[KC][TR + 1] and sB[KC][TC + 1] (declared once per kernel: a static
+// array here would be one per epilogue). Ends with a barrier.
+template <typename Acc, int TR, int TC, int KC, int NT, typename T, typename Epi>
+__device__ void block_gemm(int R, int Cn, int K, const T* A, int ar, int ak, const T* B,
+                           int bk, int bc, int skip, T (*sA)[TR + 1], T (*sB)[TC + 1],
+                           Epi epi) {
+  constexpr int kHalf = TC / 2, kStep = NT / kHalf, kPer = TR / kStep;
+  static_assert(TC % 2 == 0 && NT % kHalf == 0 && TR % kStep == 0,
+                "tile does not fit the block");
+  const int tid = threadIdx.x;
+  const int col = tid % kHalf, row0 = tid / kHalf;
+  for (int tr = 0; tr < R; tr += TR) {
+    for (int tc = 0; tc < Cn; tc += TC) {
+      if ((skip & SYM_UPPER) && tc + TC <= tr) continue;
+      int k_lo = 0, k_hi = K;
+      if (skip & K_FROM_R) k_lo = tr;
+      if ((skip & K_FROM_C) && tc > k_lo) k_lo = tc;
+      if ((skip & K_TO_C) && tc + TC < k_hi) k_hi = tc + TC;
+      Acc acc[kPer][2];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) acc[j][0] = acc[j][1] = Acc(0);
+      for (int k0 = k_lo; k0 < k_hi; k0 += KC) {
+        for (int e = tid; e < KC * TR; e += NT) {
+          int r, kk;
+          if (ak == 1) { r = e / KC; kk = e % KC; } else { kk = e / TR; r = e % TR; }
+          const int rg = tr + r, kg = k0 + kk;
+          sA[kk][r] = (rg < R && kg < k_hi) ? A[rg * ar + kg * ak] : T(0);
+        }
+        for (int e = tid; e < KC * TC; e += NT) {
+          int c, kk;
+          if (bc == 1) { kk = e / TC; c = e % TC; } else { c = e / KC; kk = e % KC; }
+          const int cg = tc + c, kg = k0 + kk;
+          sB[kk][c] = (cg < Cn && kg < k_hi) ? B[kg * bk + cg * bc] : T(0);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const Acc b0 = Acc(sB[kk][col]), b1 = Acc(sB[kk][col + kHalf]);
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            const Acc a = Acc(sA[kk][row0 + j * kStep]);
+            acc[j][0] += a * b0;
+            acc[j][1] += a * b1;
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int r = tr + row0 + j * kStep;
+        if (r < R && tc + col < Cn) epi(r, tc + col, acc[j][0]);
+        if (r < R && tc + col + kHalf < Cn) epi(r, tc + col + kHalf, acc[j][1]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// What collapsed_bound returns to every thread: the bound F, the scalars
+// its noise gradient reads, tr(dF/dKmm); and, when the adjoints were
+// multiplied by the grams, this thread's partial sums of Pmm and Pnm.
+template <typename T>
+struct Collapsed {
+  T F, t_term, trBinv, aa, tr_dK, p_mm, p_nm;
+};
+
+// The kernel-agnostic part of the collapsed bound, shared by the cores over
+// inducing points (VfeCore below, the co2 cores of co2_bound.cuh). On entry
+// w.Knm (n x m), w.Kmm and w.W = Kmm + jitter * jit_scale * I hold the
+// grams, and kdiag_sum = sum_i k(x_i, x_i). It factorises Kmm and B = I +
+// A A^T, solves against the factors, and leaves the adjoints dF/dKmm and
+// dF/dKnm in w.Pmm and w.Pnm (multiplied elementwise by Kmm and Knm with
+// `times_k`, all the RBF chain rule reads), and diag(dF/dKmm) in w.dkdiag.
+//
+// The seven O(n m^2) and O(m^3) products go through block_gemm in TR x TC
+// tiles and chunks of KC terms, on a block of NT threads. Every product runs over the full range of
+// k, or over whole tiles of it: the triangular factors V = L^-T and VB =
+// UB^-1 hold explicit zeros, so the extra terms are exact zeros and each
+// output keeps the serial sum of the triangular loop. The sums accumulate
+// in Acc (B's and An^T y's always in double): the vfe core keeps T, the co2
+// cores take double, since at M=480 a float32 sum of 480 terms loses the
+// digits the plain version's blocked products keep.
+template <typename Acc, int TR, int TC, int KC, int NT, typename T>
+__device__ Collapsed<T> collapsed_bound(const BoundCfg& cf, const T* y, const Work<T>& w,
+                                        BoundShared<T>& sh, T s2, T kdiag_sum,
+                                        T jit_scale, bool times_k) {
+  __shared__ T sA[KC][TR + 1];
+  __shared__ T sB[KC][TC + 1];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int n = cf.n, m = cf.m;
+  const bool floored = cf.floor > 0.0;
+  const T fl = T(cf.floor);
+  const T sigma = gsqrt(s2);
+
+  chol_upper(w.W, w.U, m, fl * jit_scale, floored);   // U = L^T
+  ut_inv(w.U, w.V, m);                            // V = L^-T
+
+  // An = Knm L^-T / sigma  (A^T of the reference derivation); V(k, j) = 0
+  // for k > j
+  block_gemm<Acc, TR, TC, KC, NT>(n, m, m, w.Knm, m, 1, w.V, m, 1, K_TO_C, sA, sB,
+                              [&](int i, int j, Acc s) { w.An[i * m + j] = T(s) / sigma; });
+  // B = An^T An + I: the upper tiles, mirrored, summed in double
+  block_gemm<double, TR, TC, KC, NT>(
+      m, m, n, w.An, 1, m, w.An, m, 1, SYM_UPPER, sA, sB, [&](int a, int b, double s) {
+        if (a > b) return;
+        const T v = T(s) + (a == b ? T(1) : T(0));
+        w.B[a * m + b] = v;
+        w.W[a * m + b] = v;
+        w.B[b * m + a] = v;
+        w.W[b * m + a] = v;
+      });
+  chol_upper(w.W, w.UB, m, fl, floored);
+  ut_inv(w.UB, w.VB, m);
+
+  // u = An^T y ; this thread's part of log det B
+  for (int a = tid; a < m; a += nt) w.u[a] = T(dot_acc<double>(w.An + a, m, y, 1, 0, n));
+  T p_ld = T(0);
+  for (int a = tid; a < m; a += nt) p_ld += glog(w.UB[a * m + a]);
+  __syncthreads();
+
+  // c = UB^-T u, v = UB^-1 c, w = U^-1 v (substitution against the factors)
+  ut_t_solve(w.UB, w.u, w.c, w.acc, m);
+  ut_solve(w.UB, w.c, w.v, w.acc, m);
+  ut_solve(w.U, w.v, w.w, w.acc, m);
+
+  for (int i = tid; i < n; i += nt)
+    w.alpha[i] = (y[i] - T(dot_acc<Acc>(w.An + i * m, 1, w.v, 1, 0, m))) / s2;
+
+  // B^-1 = VB VB^T: VB(a, k) = 0 for k < a, VB^T(k, b) = 0 for k < b
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.VB, m, 1, w.VB, 1, m, K_FROM_R | K_FROM_C, sA, sB,
+                              [&](int a, int b, Acc s) { w.Binv[a * m + b] = T(s); });
+  // W = T0 = 2I - B - B^-1 (W is free again)
+  for (int idx = tid; idx < m * m; idx += nt) {
+    const int a = idx / m, b = idx % m;
+    w.W[idx] = (a == b ? T(2) : T(0)) - w.B[idx] - w.Binv[idx];
+  }
+
+  T p_uv = T(0), p_yy = T(0), p_trB = T(0), p_trBi = T(0), p_aa = T(0);
+  for (int a = tid; a < m; a += nt) {
+    p_uv += w.c[a] * w.c[a];
+    p_trB += w.B[a * m + a];
+    p_trBi += w.Binv[a * m + a];
+  }
+  for (int i = tid; i < n; i += nt) {
+    p_yy += y[i] * y[i];
+    p_aa += w.alpha[i] * w.alpha[i];
+  }
+  Collapsed<T> out;
+  const T logdetB = T(2) * block_sum(p_ld, sh.red);
+  const T uv = block_sum(p_uv, sh.red);
+  const T yy = block_sum(p_yy, sh.red);
+  const T trB = block_sum(p_trB, sh.red);
+  out.trBinv = block_sum(p_trBi, sh.red);
+  out.aa = block_sum(p_aa, sh.red);
+  const T nT = T(n), mT = T(m);
+  out.t_term = kdiag_sum - s2 * (trB - mT);
+  const T two_pi = T(6.283185307179586);
+  out.F = T(-0.5) * nT * glog(two_pi * s2) - T(0.5) * logdetB
+          - T(0.5) * (yy - uv) / s2 - T(0.5) * out.t_term / s2;
+
+  // adjoints: Y1 = (I - B^-1) L^-1 = V^T - B^-1 V^T (V^T(k, b) = 0 for
+  // k < b), VT0 = L^-T (2I - B - B^-1) (V(a, k) = 0 for k < a)
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.Binv, m, 1, w.V, 1, m, K_FROM_C, sA, sB,
+                              [&](int a, int b, Acc s) {
+                                w.Y1[a * m + b] = w.V[b * m + a] - T(s);
+                              });
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.V, m, 1, w.W, m, 1, K_FROM_R, sA, sB,
+                              [&](int a, int b, Acc s) { w.VT0[a * m + b] = T(s); });
+  // dKmm = -w w^T / (2 s2) + L^-T T0 L^-1 / 2 ; Pmm = dKmm (o Kmm)
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.VT0, m, 1, w.V, 1, m, K_FROM_C, sA, sB,
+                              [&](int a, int b, Acc s) {
+                                const T dk = -(w.w[a] * w.w[b]) / (T(2) * s2) + T(0.5) * T(s);
+                                w.Pmm[a * m + b] = times_k ? dk * w.Kmm[a * m + b] : dk;
+                                if (a == b) w.dkdiag[a] = dk;
+                              });
+  // dKnm = (An Y1 + alpha w^T) / sigma ; Pnm = dKnm (o Knm)
+  block_gemm<Acc, TR, TC, KC, NT>(n, m, m, w.An, m, 1, w.Y1, m, 1, K_FULL, sA, sB,
+                              [&](int i, int b, Acc s) {
+                                const T dk = (T(s) + w.alpha[i] * w.w[b]) / sigma;
+                                w.Pnm[i * m + b] = times_k ? dk * w.Knm[i * m + b] : dk;
+                              });
+
+  T p_mm = T(0), p_dk = T(0);
+  double p_nm = 0.0;
+  if (times_k) {
+    for (int idx = tid; idx < m * m; idx += nt) p_mm += w.Pmm[idx];
+    for (int idx = tid; idx < n * m; idx += nt) p_nm += double(w.Pnm[idx]);
+  }
+  for (int a = tid; a < m; a += nt) p_dk += w.dkdiag[a];
+  out.p_mm = p_mm;
+  out.p_nm = T(p_nm);
+  out.tr_dK = block_sum(p_dk, sh.red);
+  return out;
+}
+
 // U_out = -(ELBO [+ log prior]), g_out = dU/dtheta (d+2 entries, ravel order
 // [log_lengthscale (d), log_outputscale, log_noise]), dZ_out = dU/dZ (m x d)
 // when cf.want_z. theta must be visible to all threads on entry; the outputs
@@ -314,8 +576,6 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
   const int tid = threadIdx.x, nt = blockDim.x;
   const int n = cf.n, m = cf.m, d = cf.d;
   const T jitter = T(cf.jitter);
-  const bool floored = cf.floor > 0.0;
-  const T fl = T(cf.floor);
   T* il = sh.inv_ls;
 
   // capped inverse lengthscale: min(exp(-theta), 1024 / max(1e-3, |X|, |Z|))
@@ -327,7 +587,6 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
   for (int k = tid; k < d; k += nt) il[k] = jmin(gexp(-theta[k]), cap);
   const T sf2 = gexp(theta[d]);
   const T s2 = gexp(theta[d + 1]);
-  const T sigma = gsqrt(s2);
   const T jit_scale = jmax(sf2, T(1));
   __syncthreads();
 
@@ -363,131 +622,12 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
   }
   __syncthreads();
 
-  chol_upper(w.W, w.U, m, fl * jit_scale, floored);   // U = L^T
-  ut_inv(w.U, w.V, m);                                 // V = L^-T
-
-  // An = Knm L^-T / sigma  (A^T of the reference derivation)
-  for (int idx = tid; idx < n * m; idx += nt) {
-    const int i = idx / m, j = idx % m;
-    T s = T(0);
-    for (int k = 0; k <= j; ++k) s += w.Knm[i * m + k] * w.V[k * m + j];
-    w.An[idx] = s / sigma;
-  }
-  __syncthreads();
-  // B = An^T An + I: the upper triangle, mirrored; four independent
-  // chains of double adds hide the latency one chain would expose
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int a = idx / m, b = idx % m;
-    if (a > b) continue;
-    double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
-    int i = 0;
-    for (; i + 3 < n; i += 4) {
-      const T* r = w.An + (long)i * m;
-      s0 += double(r[a]) * double(r[b]);
-      s1 += double(r[m + a]) * double(r[m + b]);
-      s2 += double(r[2 * m + a]) * double(r[2 * m + b]);
-      s3 += double(r[3 * m + a]) * double(r[3 * m + b]);
-    }
-    for (; i < n; ++i) s0 += double(w.An[i * m + a]) * double(w.An[i * m + b]);
-    const T s = T((s0 + s1) + (s2 + s3)) + (a == b ? T(1) : T(0));
-    w.B[idx] = s;
-    w.W[idx] = s;
-    w.B[b * m + a] = s;
-    w.W[b * m + a] = s;
-  }
-  __syncthreads();
-  chol_upper(w.W, w.UB, m, fl, floored);
-  ut_inv(w.UB, w.VB, m);
-
-  // B^-1 = VB VB^T ; u = An^T y
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int a = idx / m, b = idx % m;
-    T s = T(0);
-    for (int k = (a > b ? a : b); k < m; ++k) s += w.VB[a * m + k] * w.VB[b * m + k];
-    w.Binv[idx] = s;
-  }
-  for (int a = tid; a < m; a += nt) {
-    double acc = 0.0;
-    for (int i = 0; i < n; ++i) acc += double(w.An[i * m + a]) * double(y[i]);
-    w.u[a] = T(acc);
-  }
-  __syncthreads();
-
-  // c = UB^-T u, v = UB^-1 c, w = U^-1 v (substitution against the factors)
-  ut_t_solve(w.UB, w.u, w.c, w.acc, m);
-  ut_solve(w.UB, w.c, w.v, w.acc, m);
-  ut_solve(w.U, w.v, w.w, w.acc, m);
-
-  for (int i = tid; i < n; i += nt) {
-    T s = T(0);
-    for (int a = 0; a < m; ++a) s += w.An[i * m + a] * w.v[a];
-    w.alpha[i] = (y[i] - s) / s2;
-  }
-  __syncthreads();
-
-  T p_ld = T(0), p_uv = T(0), p_yy = T(0), p_trB = T(0), p_trBi = T(0), p_aa = T(0);
-  for (int a = tid; a < m; a += nt) {
-    p_ld += glog(w.UB[a * m + a]);
-    p_uv += w.c[a] * w.c[a];
-    p_trB += w.B[a * m + a];
-    p_trBi += w.Binv[a * m + a];
-  }
-  for (int i = tid; i < n; i += nt) {
-    p_yy += y[i] * y[i];
-    p_aa += w.alpha[i] * w.alpha[i];
-  }
-  const T logdetB = T(2) * block_sum(p_ld, sh.red);
-  const T uv = block_sum(p_uv, sh.red);
-  const T yy = block_sum(p_yy, sh.red);
-  const T trB = block_sum(p_trB, sh.red);
-  const T trBinv = block_sum(p_trBi, sh.red);
-  const T aa = block_sum(p_aa, sh.red);
+  const Collapsed<T> cb =
+      collapsed_bound<T, 32, 32, 8, kThreads>(cf, y, w, sh, s2, T(n) * sf2, jit_scale,
+                                             true);
+  const T S_mm = block_sum(cb.p_mm, sh.red);
+  const T S_nm = block_sum(cb.p_nm, sh.red);
   const T nT = T(n), mT = T(m);
-  const T t_term = nT * sf2 - s2 * (trB - mT);
-  const T two_pi = T(6.283185307179586);
-  const T F = T(-0.5) * nT * glog(two_pi * s2) - T(0.5) * logdetB
-              - T(0.5) * (yy - uv) / s2 - T(0.5) * t_term / s2;
-
-  // adjoints: Y1 = (I - B^-1) L^-1, VT0 = L^-T (2I - B - B^-1)
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int a = idx / m, b = idx % m;
-    T s = T(0);
-    for (int k = b; k < m; ++k) s += w.Binv[a * m + k] * w.V[b * m + k];
-    w.Y1[idx] = w.V[b * m + a] - s;
-    T t = T(0);
-    for (int k = a; k < m; ++k) {
-      const T t0 = (k == b ? T(2) : T(0)) - w.B[k * m + b] - w.Binv[k * m + b];
-      t += w.V[a * m + k] * t0;
-    }
-    w.VT0[idx] = t;
-  }
-  __syncthreads();
-  // dKmm = -w w^T / (2 s2) + L^-T T0 L^-1 / 2 ; Pmm = dKmm o Kmm
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int a = idx / m, b = idx % m;
-    T s = T(0);
-    for (int k = b; k < m; ++k) s += w.VT0[a * m + k] * w.V[b * m + k];
-    const T dk = -(w.w[a] * w.w[b]) / (T(2) * s2) + T(0.5) * s;
-    w.Pmm[idx] = dk * w.Kmm[idx];
-    if (a == b) w.dkdiag[a] = dk;
-  }
-  // dKnm = (An Y1 + alpha w^T) / sigma ; Pnm = dKnm o Knm
-  for (int idx = tid; idx < n * m; idx += nt) {
-    const int i = idx / m, b = idx % m;
-    T s = T(0);
-    for (int a = 0; a < m; ++a) s += w.An[i * m + a] * w.Y1[a * m + b];
-    w.Pnm[idx] = (s + w.alpha[i] * w.w[b]) / sigma * w.Knm[idx];
-  }
-  __syncthreads();
-
-  T p_mm = T(0), p_dk = T(0);
-  double p_nm = 0.0;
-  for (int idx = tid; idx < m * m; idx += nt) p_mm += w.Pmm[idx];
-  for (int idx = tid; idx < n * m; idx += nt) p_nm += double(w.Pnm[idx]);
-  for (int a = tid; a < m; a += nt) p_dk += w.dkdiag[a];
-  const T S_mm = block_sum(p_mm, sh.red);
-  const T S_nm = block_sum(T(p_nm), sh.red);
-  const T tr_dK = block_sum(p_dk, sh.red);
 
   // The gradient's sums over pairs, in difference form (the expanded form,
   // zs_a sum_i P - sum_i P xs_i, cancels, and in float32 loses more digits
@@ -540,18 +680,18 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
     g_out[k] = -gk;
   }
   if (tid == 0) {
-    const T dlog_os = S_mm + S_nm + jitter * sf2 * (sf2 > T(1) ? T(1) : T(0)) * tr_dK
+    const T dlog_os = S_mm + S_nm + jitter * sf2 * (sf2 > T(1) ? T(1) : T(0)) * cb.tr_dK
                       - nT * sf2 / (T(2) * s2);
-    const T trW = (nT - mT + trBinv) / s2;
-    const T dF_ds2 = T(0.5) * aa - T(0.5) * trW + t_term / (T(2) * s2 * s2);
-    T g_os = dlog_os, g_noise = dF_ds2 * s2, Ftot = F;
+    const T trW = (nT - mT + cb.trBinv) / s2;
+    const T dF_ds2 = T(0.5) * cb.aa - T(0.5) * trW + cb.t_term / (T(2) * s2 * s2);
+    T g_os = dlog_os, g_noise = dF_ds2 * s2, Ftot = cb.F;
     if (cf.want_prior) {
       T lp, gp, lp_ls = T(0);
       for (int k = 0; k < d; ++k) { prior_leaf(cf.leaf[0], theta[k], &lp, &gp); lp_ls += lp; }
       T lp_os, gp_os, lp_n, gp_n;
       prior_leaf(cf.leaf[1], theta[d], &lp_os, &gp_os);
       prior_leaf(cf.leaf[2], theta[d + 1], &lp_n, &gp_n);
-      Ftot = F + (lp_ls + lp_os + lp_n);
+      Ftot = cb.F + (lp_ls + lp_os + lp_n);
       g_os += gp_os;
       g_noise += gp_n;
     }

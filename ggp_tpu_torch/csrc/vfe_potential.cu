@@ -14,21 +14,24 @@
 // "sgpmc" (entries ggp_potential_{vfe,sgpmc}_{f32,f64}); and the same
 // single-row call with target="gpr" (ggp_potential_gpr_{f32,f64}), which
 // the port also runs at grid C for C chains of GPR_HMC (the JAX package
-// samples those with its XLA sampler).
+// samples those with its XLA sampler); and the single-row call with
+// target="co2_m32" / "co2_rbf" (ggp_potential_co2_{m32,rbf}_{f32,f64}), the
+// Mauna Loa CO2 composite (co2_bound.cuh).
 //
 // What bounds it on the card and what the design does about it: see
-// vfe_bound.cuh, sgpmc_bound.cuh and gpr_bound.cuh; each block runs the
+// vfe_bound.cuh, sgpmc_bound.cuh, gpr_bound.cuh and co2_bound.cuh; each block runs the
 // core's device function once on its own row and its own scratch area, so
 // a call's time is one evaluation's latency chain (barriers and L2 reads),
 // not bandwidth or FLOPs, as long as the C blocks fit on the 132 SMs and
 // their scratch areas in L2.
+#include "co2_bound.cuh"
 #include "gpr_bound.cuh"
 #include "sgpmc_bound.cuh"
 
 namespace ggp {
 
 template <template <typename> class Core, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(CoreThreads<Core>::value)
 potential_kernel(BoundCfg cf, const T* theta, const T* X, const T* y,
                  const T* Z, T* out, T* dZ, T* scratch) {
   __shared__ BoundShared<T> sh;
@@ -54,7 +57,8 @@ int launch_potential(const double* cfg, const void* theta, const void* X,
                      const void* y, const void* Z, void* out, void* dZ,
                      void* scratch, void* stream) {
   const BoundCfg cf = bound_cfg(cfg);
-  potential_kernel<Core, T><<<(int)cfg[C_CHAINS], kThreads, 0, (cudaStream_t)stream>>>(
+  potential_kernel<Core, T><<<(int)cfg[C_CHAINS], CoreThreads<Core>::value, 0,
+                                 (cudaStream_t)stream>>>(
       cf, (const T*)theta, (const T*)X, (const T*)y, (const T*)Z, (T*)out,
       (T*)dZ, (T*)scratch);
   return (int)cudaGetLastError();
@@ -70,9 +74,10 @@ int launch_potential(const double* cfg, const void* theta, const void* X,
 extern "C" {
 
 // elements of one evaluation's scratch area; core 0 = vfe, 1 = sgpmc,
-// 2 = gpr (ggp_tpu_torch/ops/_build.py _CORE_ID)
+// 2 = gpr, 3 = co2_m32, 4 = co2_rbf (ggp_tpu_torch/ops/_build.py _CORE_ID)
 long ggp_scratch_elems(int core, int n, int m, int d) {
   if (core == 2) return ggp::gpr_work_elems(n, d);
+  if (core >= 3) return ggp::work_elems(n, m, 1);
   return core == 1 ? ggp::sgpmc_work_elems(n, m, d) : ggp::work_elems(n, m, d);
 }
 
@@ -94,6 +99,18 @@ int ggp_potential_gpr_f32(GGP_POT_ARGS) {
 }
 int ggp_potential_gpr_f64(GGP_POT_ARGS) {
   return ggp::launch_potential<ggp::GprCore, double>(GGP_POT_PASS);
+}
+int ggp_potential_co2_m32_f32(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::Co2M32Core, float>(GGP_POT_PASS);
+}
+int ggp_potential_co2_m32_f64(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::Co2M32Core, double>(GGP_POT_PASS);
+}
+int ggp_potential_co2_rbf_f32(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::Co2RbfCore, float>(GGP_POT_PASS);
+}
+int ggp_potential_co2_rbf_f64(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::Co2RbfCore, double>(GGP_POT_PASS);
 }
 
 }  // extern "C"

@@ -1,14 +1,16 @@
 """NUTS and HMC samplers with Stan warmup, run in chunks of K transitions:
 one chain through :func:`ggp_tpu_torch.ops.nuts_chunk.nuts_chunk` or
 :func:`ggp_tpu_torch.ops.multichain.hmc_chunk`, C chains through the chunk
-of :func:`ggp_tpu_torch.ops.multichain.make_multichain`.
+of :func:`ggp_tpu_torch.ops.multichain.make_multichain`; or one launch per
+transition (:func:`ggp_tpu_torch.ops.nuts_chunk.nuts_transition`) with the
+adaptation between launches, :func:`build_sampler_chunked`.
 
 Counterpart of ``ggp_tpu/inference/hmc.py``: ``NUTSConfig``,
 ``warmup_schedule``, ``da_init``/``da_update``, the Welford helpers,
 ``find_reasonable_step_size`` and ``_single_chain_fused``;
 ``_find_reasonable_step_size_batched``, ``_validate_multichain_cfg`` and
-``_multichain_fused_hmc``. Randomness comes from an explicit
-``torch.Generator``.
+``_multichain_fused_hmc``; ``build_sampler_chunked`` (one chain) with
+``_make_warm_step``. Randomness comes from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ __all__ = ["NUTSConfig", "warmup_schedule", "DAState", "da_init", "da_update",
            "WelfordState", "welford_init", "welford_update",
            "welford_variance", "find_reasonable_step_size",
            "single_chain_fused", "find_reasonable_step_size_batched",
-           "validate_multichain_cfg", "multichain_fused"]
+           "validate_multichain_cfg", "multichain_fused", "GeneratorDraws",
+           "build_sampler_chunked"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -344,3 +347,111 @@ def multichain_fused(mk: MultichainKernels, z0s, generator: torch.Generator,
     out["inv_mass"] = state.inv_mass
     out["warmup_n_leapfrog"] = torch.cat(wstats)[:cfg.num_warmup, :, 4].transpose(0, 1)
     return zs, out
+
+
+class GeneratorDraws:
+    """The randomness of :func:`build_sampler_chunked` from a
+    ``torch.Generator``, in the order the sampler asks for it: the initial
+    jitter (dim,), the step-size search's momentum (dim,), then each
+    transition's slabs (:func:`~ggp_tpu_torch.ops.nuts_chunk.draw_slabs` of
+    one step). Any object with these three methods can stand in for it (the
+    tests replay the JAX package's key schedule)."""
+
+    def __init__(self, generator: torch.Generator, dim: int, max_depth: int, *,
+                 dtype, device):
+        self.gen, self.dim, self.max_depth = generator, dim, max_depth
+        self.kw = dict(dtype=dtype, device=device)
+
+    def init_jitter(self):
+        return torch.randn(self.dim, generator=self.gen, **self.kw)
+
+    def search_momentum(self):
+        return torch.randn(self.dim, generator=self.gen, **self.kw)
+
+    def slabs(self):
+        mom, treeu, leafu = draw_slabs(1, self.dim, self.max_depth, self.gen, **self.kw)
+        return mom[0], treeu[0], leafu[0]
+
+
+def build_sampler_chunked(potential_vg: Callable, transition: Callable, cfg: NUTSConfig, *,
+                          num_chains: int = 1, jitter_init: float = 0.1,
+                          chunk_size: int = 100):
+    """Warmup and sampling of one chain of NUTS in chunks of ``chunk_size``
+    transitions, each transition one call of ``transition(z, U, g, eps,
+    inv_mass, mom, treeu, leafu)`` (one kernel launch on the card,
+    :func:`~ggp_tpu_torch.ops.nuts_chunk.nuts_transition`), with dual
+    averaging and the Welford windows done in torch on the device between
+    calls; ``potential_vg(z) -> (U, grad)`` serves the initial state and
+    the step-size search.
+
+    Counterpart of the JAX package's ``build_sampler_chunked`` given a
+    ``fused_builder`` (its ``_init``, ``_warm_chunk``, ``_sample_chunk``): warmup
+    rounds up to a multiple of ``chunk_size`` (the padded steps adapt the
+    step size outside any window), and the draws are trimmed to
+    ``cfg.num_samples``. Returns ``sample(flat0, generator=None, *,
+    draws=None, ckpt_manager=None) -> (draws (num_samples, dim), stats)``:
+    the chain starts at flat0 + jitter_init N(0, 1); ``draws`` replaces the
+    generator as the source of randomness (:class:`GeneratorDraws`)."""
+    if num_chains != 1:
+        raise NotImplementedError("build_sampler_chunked runs one chain; C chains of the "
+                                  "chunked driver are ROADMAP queue 1 item 9")
+    if cfg.algorithm != "nuts":
+        raise ValueError(f"build_sampler_chunked runs NUTS, got {cfg.algorithm!r}")
+    K = int(chunk_size)
+    n_wchunks = -(-cfg.num_warmup // K)
+    in_w, w_end = warmup_schedule(cfg.num_warmup)
+    pad = n_wchunks * K - cfg.num_warmup
+    in_w = np.concatenate([in_w, np.zeros(pad, bool)])
+    w_end = np.concatenate([w_end, np.zeros(pad, bool)])
+
+    def step(c, eps, draws):
+        z, U, g, acc, div, depth, nl, energy = transition(
+            c["z"], c["U"], c["g"], eps, c["inv_mass"], *draws.slabs())
+        return {**c, "z": z, "U": U, "g": g}, (U, acc, div, depth, nl, energy)
+
+    def sample(flat0, generator=None, *, draws=None, ckpt_manager=None):
+        if ckpt_manager is not None:
+            raise NotImplementedError("sampler checkpoints are ROADMAP queue 1 item 5")
+        dim = flat0.shape[0]
+        dt, dev = flat0.dtype, flat0.device
+        if draws is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            draws = GeneratorDraws(generator, dim, cfg.max_depth, dtype=dt, device=dev)
+        z0 = flat0 + jitter_init * draws.init_jitter()
+        U0, g0 = potential_vg(z0)
+        inv_mass = torch.ones(dim, dtype=dt, device=dev)
+        eps0 = find_reasonable_step_size(potential_vg, z0, U0, g0, draws.search_momentum(),
+                                         inv_mass, cfg.init_step_size)
+        c = dict(z=z0, U=U0, g=g0, da=da_init(eps0),
+                 wf=welford_init(dim, dtype=dt, device=dev), inv_mass=inv_mass)
+        wstats = []
+        for t in range(n_wchunks * K):           # _make_warm_step, one transition each
+            c, st = step(c, torch.exp(c["da"].log_eps), draws)
+            da = da_update(c["da"], st[1], cfg.target_accept)
+            if cfg.adapt_mass:
+                if in_w[t]:
+                    c["wf"] = welford_update(c["wf"], c["z"])
+                if w_end[t]:                      # new mass, fresh window, DA restarted
+                    c["inv_mass"] = welford_variance(c["wf"])
+                    c["wf"] = welford_init(dim, dtype=dt, device=dev)
+                    da = da_init(torch.exp(da.log_eps))
+            c["da"] = da
+            wstats.append(st[4])
+        eps = torch.exp(c["da"].log_eps_avg)
+        zs, stats = [], []
+        for _ in range(-(-cfg.num_samples // K) * K):
+            c, st = step(c, eps, draws)
+            zs.append(c["z"])
+            stats.append(st)
+        S = cfg.num_samples
+        out = {k: torch.stack([torch.as_tensor(st[i]) for st in stats[:S]])
+               for i, k in enumerate(STAT_FIELDS)}
+        out["diverging"] = out["diverging"].bool()
+        out["step_size"] = eps
+        out["inv_mass"] = c["inv_mass"]
+        out["warmup_n_leapfrog"] = torch.stack([torch.as_tensor(v) for v in wstats])[
+            :cfg.num_warmup]
+        return torch.stack(zs[:S]), out
+
+    return sample

@@ -2,8 +2,11 @@
 
 ``params_from_jax`` turns the JAX model's hyper pytree (as numpy arrays:
 ``{"kernel": {"base": {"log_lengthscale": (d,)}, "log_outputscale": ()},
-"log_noise": ()}``) and Z into the port's flat ``theta`` (d+2,) and Z;
-``params_to_numpy`` goes back. The same pair converts ``GPR_HMC.params``
+"log_noise": ()}``, or a composite kernel's tree such as the CO2
+composite's ``{"kernel": {"terms": (...)}, "log_noise": ()}``) and Z into
+the port's flat ``theta`` (its leaves in ``ravel_pytree`` order: (d+2,)
+or 11) and Z; ``params_to_numpy`` goes back (given the ``kernel`` for a
+composite tree). The same pair converts ``GPR_HMC.params``
 and its trace: the JAX model's ``params`` has that tree, and its
 ``ravel_pytree`` order is the flat row's ``[log_ls (d), log_os,
 log_noise]``. ``sgpmc_state_from_jax`` and
@@ -23,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .utils.tree import tree_map
+from .utils.tree import tree_leaves, tree_map, unravel
 
 __all__ = ["params_from_jax", "params_to_numpy", "sgpmc_state_from_jax",
            "sgpmc_state_to_numpy", "tree_from_numpy", "tree_to_numpy"]
@@ -31,24 +34,33 @@ __all__ = ["params_from_jax", "params_to_numpy", "sgpmc_state_from_jax",
 
 def params_from_jax(hypers: dict, Z=None, *, dtype=torch.float64,
                     device="cpu"):
-    """(theta, Z) tensors from the JAX hyper dict (numpy leaves)."""
-    ls = np.asarray(hypers["kernel"]["base"]["log_lengthscale"])
-    os_ = np.asarray(hypers["kernel"]["log_outputscale"])[..., None]
-    noise = np.asarray(hypers["log_noise"])[..., None]
-    theta = torch.as_tensor(np.concatenate([ls, os_, noise], axis=-1),
-                            dtype=dtype, device=device)
+    """(theta, Z) tensors from the JAX hyper dict (numpy leaves), its leaves
+    in ravel order; a leading sample axis of every leaf (that of the scalar
+    ``log_noise``) is kept."""
+    lead = np.shape(hypers["log_noise"])
+    flat = np.concatenate([np.asarray(a).reshape(lead + (-1,))
+                           for a in tree_leaves(hypers)], axis=-1)
+    theta = torch.as_tensor(flat, dtype=dtype, device=device)
     if Z is None:
         return theta
     return theta, torch.as_tensor(np.asarray(Z), dtype=dtype, device=device)
 
 
-def params_to_numpy(theta: torch.Tensor, Z: torch.Tensor | None = None):
-    """The JAX hyper dict (numpy leaves) from ``theta`` (and Z)."""
-    t = theta.detach().cpu().numpy()
-    d = t.shape[-1] - 2
-    hypers = {"kernel": {"base": {"log_lengthscale": t[..., :d]},
-                         "log_outputscale": t[..., d]},
-              "log_noise": t[..., d + 1]}
+def params_to_numpy(theta: torch.Tensor, Z: torch.Tensor | None = None, *, kernel=None):
+    """The JAX hyper dict (numpy leaves) from ``theta`` (and Z): the
+    Scale(RBF-ARD) layout, or with ``kernel`` that kernel's tree (its input
+    dimension read from Z, else 1)."""
+    if kernel is None:
+        t = theta.detach().cpu().numpy()
+        d = t.shape[-1] - 2
+        hypers = {"kernel": {"base": {"log_lengthscale": t[..., :d]},
+                             "log_outputscale": t[..., d]},
+                  "log_noise": t[..., d + 1]}
+    else:
+        kw = dict(dtype=theta.dtype, device="cpu")
+        like = {"kernel": kernel.init_params(1 if Z is None else Z.shape[-1], **kw),
+                "log_noise": torch.zeros((), **kw)}
+        hypers = tree_to_numpy(unravel(theta.detach().cpu(), like))
     if Z is None:
         return hypers
     return hypers, Z.detach().cpu().numpy()

@@ -38,16 +38,17 @@ __all__ = ["sgpr_elbo", "sgpr_predict", "sgpr_optimal_qu", "vfe_stats",
 
 def _common(kernel: Kernel, params: dict, X: torch.Tensor, y: torch.Tensor,
             jitter: float):
-    """Shared factorisation for the bound and the predictive."""
+    """Shared factorisation for the bound and the predictive (batched over
+    leading dimensions of the kernel parameters and the log-noise)."""
     Z = params["Z"]
     kp = params["kernel"]
     sigma2 = torch.exp(params["log_noise"])
-    sigma = torch.sqrt(sigma2)
+    sigma = torch.sqrt(sigma2)[..., None]
     Kmm = kernel.gram(kp, Z, Z)
     Kmn = kernel.gram(kp, Z, X)
     L = safe_cholesky(Kmm, jitter, relative=True)
-    A = tri_solve(L, Kmn) / sigma
-    B = A @ A.T + torch.eye(Z.shape[0], dtype=X.dtype, device=X.device)
+    A = tri_solve(L, Kmn) / sigma[..., None]
+    B = A @ A.transpose(-2, -1) + torch.eye(Z.shape[0], dtype=X.dtype, device=X.device)
     LB = safe_cholesky(B, 0.0)
     c = tri_solve(LB, A @ y) / sigma
     return dict(Z=Z, kp=kp, sigma2=sigma2, L=L, A=A, LB=LB, c=c)
@@ -55,15 +56,17 @@ def _common(kernel: Kernel, params: dict, X: torch.Tensor, y: torch.Tensor,
 
 def sgpr_elbo(kernel: Kernel, params: dict, X: torch.Tensor, y: torch.Tensor,
               jitter: float) -> torch.Tensor:
-    """Collapsed VFE bound, total over the N rows."""
+    """Collapsed VFE bound, total over the N rows; batched over leading
+    dimensions of the kernel parameters and the log-noise (one bound per
+    hyper row)."""
     n = X.shape[0]
     f = _common(kernel, params, X, y, jitter)
     sigma2, A, LB, c = f["sigma2"], f["A"], f["LB"], f["c"]
-    kdiag_sum = kernel.diag(f["kp"], X).sum()
-    qdiag_sum = sigma2 * (A * A).sum()
+    kdiag_sum = kernel.diag(f["kp"], X).sum(-1)
+    qdiag_sum = sigma2 * (A * A).sum((-2, -1))
     bound = -0.5 * n * torch.log(2.0 * math.pi * sigma2)
-    bound = bound - torch.log(torch.diagonal(LB)).sum()
-    bound = bound - 0.5 * ((y * y).sum() / sigma2 - (c * c).sum())
+    bound = bound - torch.log(torch.diagonal(LB, dim1=-2, dim2=-1)).sum(-1)
+    bound = bound - 0.5 * ((y * y).sum() / sigma2 - (c * c).sum(-1))
     return bound - 0.5 * (kdiag_sum - qdiag_sum) / sigma2
 
 

@@ -12,7 +12,8 @@ Every wrapper that launches a kernel adds one to its entry of
 kernels take the potential core as a template parameter and have one entry
 per core and dtype (``ggp_{kind}_{core}_{f32,f64}``) for the kinds each core
 carries (:data:`CORE_KINDS`: the gpr core has no HMC chunk, which no model
-runs); their counters name the core (:func:`launch_key`). Each source is
+runs; the co2 cores a potential, a NUTS chunk and a transition, as the JAX
+package runs them); their counters name the core (:func:`launch_key`). Each source is
 compiled with ``-Xptxas -v``;
 the compiler's report of registers, shared memory and spills is kept beside
 the library (:func:`ptxas_report`).
@@ -35,17 +36,24 @@ __all__ = ["LAUNCHES", "reset_launches", "launch_key", "build", "kernel_fn",
 # what a sampler wrapper launches, per core: one row or chain, or C of them
 _SAMPLER_KINDS = ("potential", "nuts_chunk", "hmc_chunk", "mc_potential",
                   "mc_nuts_chunk", "mc_hmc_chunk")
-CORE_KINDS = {"vfe": _SAMPLER_KINDS, "sgpmc": _SAMPLER_KINDS,
-              "gpr": ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk")}
-_CORE_ID = {"vfe": 0, "sgpmc": 1, "gpr": 2}   # csrc vfe_potential.cu ggp_scratch_elems
+_CO2_KINDS = ("potential", "nuts_chunk", "nuts_transition")
+CORE_KINDS = {"vfe": _SAMPLER_KINDS + ("nuts_transition",), "sgpmc": _SAMPLER_KINDS,
+              "gpr": ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk"),
+              "co2_m32": _CO2_KINDS, "co2_rbf": _CO2_KINDS}
+# csrc vfe_potential.cu ggp_scratch_elems
+_CORE_ID = {"vfe": 0, "sgpmc": 1, "gpr": 2, "co2_m32": 3, "co2_rbf": 4}
 
 
 def launch_key(core: str, kind: str) -> str:
     """The :data:`LAUNCHES` key of a sampler wrapper of ``core``; the vfe
-    core keeps the names of the first slices."""
+    core keeps the names of the first slices, and the two co2 cores (noise
+    component Matern32 or RBF) share their counters."""
+    fam = "co2" if core.startswith("co2") else core
+    if kind == "nuts_transition":
+        return f"{kind}_{fam}"
     if core == "vfe":
         return "vfe_potential" if kind == "potential" else kind
-    return f"{core}_{kind}"
+    return f"{fam}_{kind}"
 
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
@@ -66,12 +74,15 @@ def reset_launches() -> None:
 
 
 # indices of the cfg double array (csrc/vfe_bound.cuh, enum CfgIndex); PRIOR
-# holds 12 doubles, QUAD the 20 Gauss-Hermite nodes and then their 20 weights
+# holds 12 doubles, QUAD the 20 Gauss-Hermite nodes and then their 20
+# weights, LANE_PRIOR the co2 core's 11 prior leaves (44 doubles)
 CFG = dict(N=0, M=1, D=2, JITTER=3, FLOOR=4, WANT_PRIOR=5, WANT_ZGRAD=6,
            PRIOR=7, DIM=19, MAX_DEPTH=20, K=21, ADAPT=22, TARGET=23,
            ADAPT_MASS=24, LR=25, CLIP=26, MIN_NOISE=27, T0=28, S_ACT=29,
            EPS=30, CHAINS=31, LEAPFROG=32, STAGES=33, NB=34, NUM_DATA=35,
-           LIK=36, LATENTS=37, NHALF=38, PRIOR_VAR=39, QUAD=40, LEN=80)
+           LIK=36, LATENTS=37, NHALF=38, PRIOR_VAR=39, QUAD=40, LANE_PRIOR=80,
+           LEN=124)
+_LIST_ENTRIES = ("PRIOR", "QUAD", "LANE_PRIOR")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -81,7 +92,7 @@ _LIB = None
 _P = ctypes.c_void_p
 # the sampler entries ggp_{kind}_{core}, each serving one row or chain and
 # C of them (kinds "mc_*"), and their argument counts
-_NARGS = {"potential": 9, "nuts_chunk": 18, "hmc_chunk": 17}
+_NARGS = {"potential": 9, "nuts_chunk": 18, "hmc_chunk": 17, "nuts_transition": 16}
 _SIGS = {
     **{f"ggp_{k}_{c}": [_P] * n for c, kinds in CORE_KINDS.items()
        for k, n in _NARGS.items() if k in kinds},
@@ -175,10 +186,10 @@ def kernel_fn(base: str, dtype: torch.dtype):
 def cfg_array(**kv) -> ctypes.Array:
     """The kernels' ``cfg`` double array from named entries of :data:`CFG`;
     ``PRIOR`` takes the 12 prior-leaf doubles, ``QUAD`` the 40 quadrature
-    doubles."""
+    doubles, ``LANE_PRIOR`` the co2 core's 44."""
     a = (ctypes.c_double * CFG["LEN"])()
     for k, v in kv.items():
-        for i, x in enumerate(v if k in ("PRIOR", "QUAD") else [v]):
+        for i, x in enumerate(v if k in _LIST_ENTRIES else [v]):
             a[CFG[k] + i] = float(x)
     return a
 

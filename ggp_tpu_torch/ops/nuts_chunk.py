@@ -1,7 +1,9 @@
 """K transitions of iterative multinomial NUTS on a sampler potential (the
 collapsed bound, ``core="vfe"``, the whitened JointHMC target,
-``core="sgpmc"``, or the dense GP marginal, ``core="gpr"``): plain PyTorch
-beside the CUDA kernel ``nuts_chunk`` (kernel 2).
+``core="sgpmc"``, the dense GP marginal, ``core="gpr"``, or the CO2
+composite bound, ``core="co2_m32" | "co2_rbf"``): plain PyTorch beside the
+CUDA kernel ``nuts_chunk`` (kernel 2); and one transition,
+:func:`nuts_transition` (kernel 2b, cores "vfe" and "co2_*").
 
 Counterpart of ``ggp_tpu/ops/fused_nuts.py`` ``_warm_chunk_kernel_body``
 (``adapt=True``: dual averaging and Welford windows in the chunk) and
@@ -10,6 +12,9 @@ built on ``_transition_inkernel``. Randomness comes in as slabs indexed
 per step the way the JAX kernel indexes its own: momentum row t, tree
 uniforms (t, depth, {direction, swap}), leaf uniforms (t, global leaf
 index). :func:`draw_slabs` draws them from a ``torch.Generator``.
+:func:`nuts_transition` is the counterpart of ``_nuts_kernel_body`` (the
+``trans_call`` of ``make_fused_nuts``), which the JAX package's chunked
+sampler driver calls once per transition.
 """
 
 from __future__ import annotations
@@ -24,8 +29,9 @@ from . import _build
 from .vfe_bound import _check_shapes, bound_cfg, neg_logpost_vg
 
 __all__ = ["ChainState", "draw_slabs", "nuts_chunk_plain", "nuts_chunk",
-           "launch_chunk", "as_batch", "first_chain", "DIVERGENCE_THRESHOLD",
-           "MAX_DEPTH"]
+           "nuts_transition", "nuts_transition_plain", "launch_chunk", "as_batch",
+           "first_chain",
+           "DIVERGENCE_THRESHOLD", "MAX_DEPTH"]
 
 DIVERGENCE_THRESHOLD = 1000.0
 MAX_DEPTH = 10               # checkpoint slots of the kernel (csrc kMaxDepth)
@@ -252,7 +258,7 @@ def launch_chunk(kind, core, state, X, y, Z, jitter, slabs, *, n_active, adapt,
     stats = torch.empty((K, C, 6), dtype=dt, device=dev)
     work = _build.scratch(n, m, d, 0, X, chains=C, core=core)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
-                    pivot_floor=None, prior_spec=prior_spec, DIM=dim, K=K,
+                    pivot_floor=None, prior_spec=prior_spec, core=core, DIM=dim, K=K,
                     ADAPT=int(adapt), CHAINS=C, **cfg_extra)
     P = _build.ptr
     name = f"ggp_{kind}_{core}"
@@ -303,3 +309,69 @@ def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
         TARGET=target_accept, ADAPT_MASS=int(adapt_mass), **kw)
     _build.LAUNCHES[_build.launch_key(core, "nuts_chunk")] += 1
     return first_chain(new), draws[:, 0], stats[:, 0]
+
+
+def nuts_transition_plain(z, U, g, eps, inv_mass, X, y, Z, jitter, *, mom, treeu, leafu,
+                          max_depth=8, prior_spec=None, core="vfe"):
+    """:func:`nuts_transition`'s plain version (:func:`_transition` on the
+    plain potential of ``core``), its outputs as tensors."""
+    def pot(zz):
+        return neg_logpost_vg(core, zz, X, y, Z, jitter, prior_spec=prior_spec)
+
+    zp, Up, gp, acc, div, depth, nl, H0 = _transition(
+        pot, z, U, g, eps, inv_mass, mom, treeu, leafu, max_depth)
+    dev = X.device
+    return (zp, Up, gp, acc, torch.as_tensor(div, device=dev),
+            torch.as_tensor(depth, device=dev), torch.as_tensor(nl, device=dev),
+            torch.as_tensor(H0, dtype=X.dtype, device=dev))
+
+
+def nuts_transition(z, U, g, eps, inv_mass, X, y, Z, jitter, *, mom, treeu, leafu,
+                    max_depth=8, prior_spec=None, core="vfe"):
+    """One NUTS transition from (z, U, g) at step size ``eps`` and inverse
+    mass ``inv_mass`` on the potential of ``core`` ("vfe", "co2_m32" or
+    "co2_rbf"), with the slabs of one step: ``mom`` (dim,), ``treeu``
+    (max_depth, 2), ``leafu`` (2**max_depth,). Returns (z, U, g,
+    accept_prob, diverging, depth, n_leapfrog, energy) as tensors, energy
+    the initial Hamiltonian.
+
+    CPU tensors run the plain version (:func:`nuts_transition_plain`); CUDA
+    tensors launch kernel 2b (``csrc/nuts_chunk.cu`` ``nuts_transition_kernel``,
+    grid 1) or raise."""
+    _build.require_kind(core, "nuts_transition")
+    _check_shapes(f"{core} nuts_transition", z, X, y, Z, core)
+    dim = z.shape[0]
+    if not 1 <= max_depth <= MAX_DEPTH:
+        raise ValueError(f"nuts_transition: max_depth must be in [1, {MAX_DEPTH}]")
+    if g.shape != (dim,) or inv_mass.shape != (dim,) or mom.shape != (dim,) \
+            or treeu.shape != (max_depth, 2) or leafu.shape != (1 << max_depth,):
+        raise ValueError("nuts_transition: shapes do not fit g, inv_mass, mom (dim,), "
+                         "treeu (max_depth, 2), leafu (2**max_depth,)")
+    dt, dev = X.dtype, X.device
+    if X.device.type == "cpu":
+        return nuts_transition_plain(z, U, g, eps, inv_mass, X, y, Z, jitter, mom=mom,
+                                     treeu=treeu, leafu=leafu, max_depth=max_depth,
+                                     prior_spec=prior_spec, core=core)
+    scal = torch.stack([torch.as_tensor(eps, dtype=dt, device=dev).reshape(()),
+                        torch.as_tensor(U, dtype=dt, device=dev).reshape(())])
+    _build.require_cuda("nuts_transition", dt, z, g, inv_mass, X, y, Z, mom, treeu,
+                        leafu, scal)
+    n, d = X.shape
+    m = Z.shape[0]
+    zout = torch.empty(dim, dtype=dt, device=dev)
+    gout = torch.empty(dim, dtype=dt, device=dev)
+    stats = torch.empty(6, dtype=dt, device=dev)
+    work = _build.scratch(n, m, d, 0, X, core=core)
+    cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
+                    pivot_floor=None, prior_spec=prior_spec, core=core, DIM=dim,
+                    MAX_DEPTH=max_depth, CHAINS=1)
+    P = _build.ptr
+    name = f"ggp_nuts_transition_{core}"
+    err = _build.kernel_fn(name, dt)(
+        ctypes.cast(cfg, ctypes.c_void_p), P(scal), P(z), P(g), P(inv_mass), P(mom),
+        P(treeu), P(leafu), P(X), P(y), P(Z), P(zout), P(gout), P(stats), P(work),
+        _build.stream_ptr(dev))
+    _build.check(err, name)
+    _build.LAUNCHES[_build.launch_key(core, "nuts_transition")] += 1
+    return (zout, stats[0], gout, stats[1], stats[2] > 0.5, stats[3].long(),
+            stats[4].long(), stats[5])

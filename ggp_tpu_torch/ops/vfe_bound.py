@@ -30,40 +30,45 @@ from . import _build
 from .linalg import capped_inv_ls, chol_upper
 from .sgpmc_bound import sgpmc_neg_logpost_vg
 
-__all__ = ["rbf_vfe_neg_logpost_vg", "vfe_potential", "prior_spec_of_tree",
-           "prior_terms", "chol_upper", "SPEC_RBF_DEFAULT", "CORES",
-           "state_dim", "neg_logpost_vg"]
+__all__ = ["rbf_vfe_neg_logpost_vg", "collapsed_bound", "vfe_potential",
+           "prior_spec_of_tree", "leaf_spec", "prior_terms", "chol_upper",
+           "SPEC_RBF_DEFAULT", "CORES", "state_dim", "neg_logpost_vg"]
 
 SPEC_RBF_DEFAULT = (("gamma", 2.0, 1.0), ("hc_std", 1.0), ("hc_std", 1.0))
 # Potentials the kernels carry (``make_fused_nuts(target=...)``): the
 # collapsed bound over the d+2 log-hypers, the whitened JointHMC target
 # over the hypers and the m whitened inducing values (ops/sgpmc_bound.py),
-# and the dense GP marginal over the d+2 log-hypers (ops/gpr_bound.py).
-CORES = ("vfe", "sgpmc", "gpr")
+# the dense GP marginal over the d+2 log-hypers (ops/gpr_bound.py), and the
+# collapsed bound of the Mauna Loa CO2 composite over its 11 log-hypers with
+# a Matern32 or an RBF noise component (ops/co2_bound.py).
+CORES = ("vfe", "sgpmc", "gpr", "co2_m32", "co2_rbf")
+
+
+def leaf_spec(p):
+    """("family", *params) of one prior leaf with a closed form here, else
+    None."""
+    from ..priors import (Flat, Gamma, HalfCauchy, HalfCauchyOnStd,
+                          HalfNormal, LogNormal)
+    if isinstance(p, Gamma):
+        return ("gamma", float(p.alpha), float(p.beta))
+    if isinstance(p, HalfCauchyOnStd):
+        return ("hc_std", float(p.scale))
+    if isinstance(p, HalfCauchy):
+        return ("hc", float(p.scale))
+    if isinstance(p, HalfNormal):
+        return ("half_normal", float(p.scale))
+    if isinstance(p, LogNormal):
+        return ("lognormal", float(p.mu), float(p.sigma))
+    if isinstance(p, Flat):
+        return ("flat",)
+    return None
 
 
 def prior_spec_of_tree(prior_tree):
     """Static spec (ls, outputscale, noise) of a Scale(RBF-ARD) x Gaussian
     prior tree, each leaf a ("family", *params) tuple; None when the tree
     has another structure or a family without a closed form here."""
-    from ..priors import (Flat, Gamma, HalfCauchy, HalfCauchyOnStd,
-                          HalfNormal, LogNormal)
-
-    def leaf(p):
-        if isinstance(p, Gamma):
-            return ("gamma", float(p.alpha), float(p.beta))
-        if isinstance(p, HalfCauchyOnStd):
-            return ("hc_std", float(p.scale))
-        if isinstance(p, HalfCauchy):
-            return ("hc", float(p.scale))
-        if isinstance(p, HalfNormal):
-            return ("half_normal", float(p.scale))
-        if isinstance(p, LogNormal):
-            return ("lognormal", float(p.mu), float(p.sigma))
-        if isinstance(p, Flat):
-            return ("flat",)
-        return None
-
+    leaf = leaf_spec
     try:
         if set(prior_tree) != {"kernel", "log_noise"} \
                 or set(prior_tree["kernel"]) != {"log_outputscale", "base"} \
@@ -137,7 +142,8 @@ def prior_terms(theta, d, prior_spec=None):
 
 
 def prior_leaf_doubles(prior_spec=None):
-    """The 12 doubles (kind, p1, p2, c) x 3 the kernels read."""
+    """The doubles (kind, p1, p2, c) per leaf the kernels read: 12 for the
+    three leaves of the rbf spec (the default), 44 for a co2 spec."""
     out = []
     for leaf in (SPEC_RBF_DEFAULT if prior_spec is None else prior_spec):
         out += [float(_KINDS.index(leaf[0])), *map(float, _leaf_params(leaf))]
@@ -150,32 +156,17 @@ def _tri(U, b, *, trans=False):
     return torch.linalg.solve_triangular(A, b[:, None], upper=not trans)[:, 0]
 
 
-def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
-                           want_prior=True, pivot_floor=None, prior_spec=None):
-    """Plain PyTorch potential U = -(ELBO + log prior) and dU/dtheta
-    (+ dU/dZ with ``want_z_grad``). ``want_prior=False`` drops the prior
-    (the ML-II training objective); ``pivot_floor`` selects the trainers'
-    modified Cholesky (relative to max(sf2, 1) on Kmm)."""
-    n, d = X.shape
-    m = Z.shape[0]
-    dt, dev = X.dtype, X.device
-    eye = torch.eye(m, dtype=dt, device=dev)
-    log_os, log_noise = theta[d], theta[d + 1]
-    inv_ls = capped_inv_ls(theta[:d], X, Z)
-    sf2 = torch.exp(log_os)
-    s2 = torch.exp(log_noise)
+def collapsed_bound(Knm, Kmm, y, s2, kdiag_sum, jitter, jit_scale, pivot_floor=None):
+    """The kernel-agnostic part of the collapsed bound from the grams Knm (n,
+    m) and Kmm (m, m), shared by the rbf and the co2 potentials: the value F
+    and its adjoints (dF/dKnm, dF/dKmm, dF/dlog_noise). ``kdiag_sum`` is sum_i
+    k(x_i, x_i); Kmm is factorised with jitter * jit_scale on its diagonal
+    (the modified Cholesky, floor ``pivot_floor * jit_scale``, with
+    ``pivot_floor``)."""
+    n, m = Knm.shape
+    eye = torch.eye(m, dtype=Knm.dtype, device=Knm.device)
     sigma = torch.sqrt(s2)
-
-    Xs, Zs = X * inv_ls, Z * inv_ls
-    Xs2, Zs2 = Xs * Xs, Zs * Zs
-    xn, zn = Xs2.sum(1), Zs2.sum(1)
-    Knm = sf2 * torch.exp(-0.5 * torch.clamp(xn[:, None] + zn[None, :]
-                                             - 2.0 * Xs @ Zs.T, min=0.0))
-    Kmm = sf2 * torch.exp(-0.5 * torch.clamp(zn[:, None] + zn[None, :]
-                                             - 2.0 * Zs @ Zs.T, min=0.0))
-    jit_scale = torch.clamp(sf2, min=1.0)
     Kmm_j = Kmm + (jitter * jit_scale) * eye
-
     U = chol_upper(Kmm_j, None if pivot_floor is None else pivot_floor * jit_scale)
     V = torch.linalg.solve_triangular(U, eye, upper=True)        # L^-T
     An = Knm @ V / sigma
@@ -192,7 +183,7 @@ def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
     logdetB = 2.0 * torch.log(torch.diagonal(UB)).sum()
     trB = torch.diagonal(B).sum()
     trBinv = torch.diagonal(Binv).sum()
-    t_term = n * sf2 - s2 * (trB - m)
+    t_term = kdiag_sum - s2 * (trB - m)
     F = (-0.5 * n * torch.log(2.0 * math.pi * s2) - 0.5 * logdetB
          - 0.5 * ((y * y).sum() - (c * c).sum()) / s2 - 0.5 * t_term / s2)
 
@@ -202,7 +193,31 @@ def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
     dKmm = -torch.outer(w, w) / (2.0 * s2) + 0.5 * (V @ T0) @ V.T
     trW = (n - m + trBinv) / s2
     dF_ds2 = 0.5 * (alpha * alpha).sum() - 0.5 * trW + t_term / (2.0 * s2 * s2)
-    dlog_noise = dF_ds2 * s2
+    return F, dKnm, dKmm, dF_ds2 * s2
+
+
+def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
+                           want_prior=True, pivot_floor=None, prior_spec=None):
+    """Plain PyTorch potential U = -(ELBO + log prior) and dU/dtheta
+    (+ dU/dZ with ``want_z_grad``). ``want_prior=False`` drops the prior
+    (the ML-II training objective); ``pivot_floor`` selects the trainers'
+    modified Cholesky (relative to max(sf2, 1) on Kmm)."""
+    n, d = X.shape
+    dt = X.dtype
+    log_os, log_noise = theta[d], theta[d + 1]
+    inv_ls = capped_inv_ls(theta[:d], X, Z)
+    sf2 = torch.exp(log_os)
+    s2 = torch.exp(log_noise)
+
+    Xs, Zs = X * inv_ls, Z * inv_ls
+    Xs2, Zs2 = Xs * Xs, Zs * Zs
+    xn, zn = Xs2.sum(1), Zs2.sum(1)
+    Knm = sf2 * torch.exp(-0.5 * torch.clamp(xn[:, None] + zn[None, :]
+                                             - 2.0 * Xs @ Zs.T, min=0.0))
+    Kmm = sf2 * torch.exp(-0.5 * torch.clamp(zn[:, None] + zn[None, :]
+                                             - 2.0 * Zs @ Zs.T, min=0.0))
+    F, dKnm, dKmm, dlog_noise = collapsed_bound(
+        Knm, Kmm, y, s2, n * sf2, jitter, torch.clamp(sf2, min=1.0), pivot_floor)
     dlog_os = ((dKmm * Kmm).sum() + (dKnm * Knm).sum()
                + jitter * sf2 * (sf2 > 1.0).to(dt) * torch.diagonal(dKmm).sum()
                - n * sf2 / (2.0 * s2))
@@ -225,9 +240,12 @@ def rbf_vfe_neg_logpost_vg(theta, X, y, Z, jitter, *, want_z_grad=False,
 
 def state_dim(core, d, m):
     """Length of one state row of ``core``: d+2 log-hypers, and for
-    ``"sgpmc"`` the m whitened inducing values after them."""
+    ``"sgpmc"`` the m whitened inducing values after them; the co2 cores'
+    11 log-hypers."""
     if core not in CORES:
         raise ValueError(f"core must be one of {CORES}, got {core!r}")
+    if core.startswith("co2"):
+        return 11
     return d + 2 + (m if core == "sgpmc" else 0)
 
 
@@ -235,9 +253,16 @@ def neg_logpost_vg(core, z, X, y, Z, jitter, *, want_z_grad=False,
                    want_prior=True, pivot_floor=None, prior_spec=None):
     """The plain potential of ``core`` at one state row. The sgpmc core's
     Gamma(2,1) hyperpriors are fixed (``prior_spec`` does not apply); the
-    gpr core reads no Z and takes none of the trainers' options."""
+    gpr core reads no Z and takes none of the trainers' options; the co2
+    cores have no Z gradient and take an 11-leaf ``prior_spec``."""
     kw = dict(want_z_grad=want_z_grad, want_prior=want_prior,
               pivot_floor=pivot_floor)
+    if core.startswith("co2"):
+        from .co2_bound import co2_vfe_neg_logpost_vg
+        _check_co2_options(want_z_grad)
+        return co2_vfe_neg_logpost_vg(z, X, y, Z, jitter, noise_comp=core[4:],
+                                      prior_spec=prior_spec, floor=pivot_floor,
+                                      want_prior=want_prior)
     if core == "gpr":
         from .gpr_bound import gpr_neg_logpost_vg
         _check_gpr_options(**kw)
@@ -253,14 +278,24 @@ def _check_gpr_options(want_z_grad, want_prior, pivot_floor):
                          "no pivot floor, always with its prior")
 
 
+def _check_co2_options(want_z_grad):
+    if want_z_grad:
+        raise ValueError("the co2 cores are sampler targets: no Z gradient")
+
+
 def bound_cfg(n, m, d, jitter, *, want_z_grad, want_prior, pivot_floor,
-              prior_spec, **extra):
-    """The kernels' cfg array for one bound configuration."""
+              prior_spec, core="vfe", **extra):
+    """The kernels' cfg array for one bound configuration; a co2 core reads
+    its 11 prior leaves from ``LANE_PRIOR``."""
+    if core.startswith("co2"):
+        from .co2_bound import SPEC_CO2_DEFAULT
+        priors = dict(LANE_PRIOR=prior_leaf_doubles(prior_spec or SPEC_CO2_DEFAULT))
+    else:
+        priors = dict(PRIOR=prior_leaf_doubles(prior_spec))
     return _build.cfg_array(
         N=n, M=m, D=d, JITTER=jitter,
         FLOOR=0.0 if pivot_floor is None else pivot_floor,
-        WANT_PRIOR=int(want_prior), WANT_ZGRAD=int(want_z_grad),
-        PRIOR=prior_leaf_doubles(prior_spec), **extra)
+        WANT_PRIOR=int(want_prior), WANT_ZGRAD=int(want_z_grad), **priors, **extra)
 
 
 def _check_shapes(name, z, X, y, Z, core="vfe"):
@@ -273,6 +308,8 @@ def _check_shapes(name, z, X, y, Z, core="vfe"):
     if (core == "gpr") != (Z.shape[0] == 0):
         raise ValueError(f"{name}: the gpr core takes an empty Z (0, d), every "
                          f"other core m >= 1 rows; got {tuple(Z.shape)}")
+    if core.startswith("co2") and d != 1:
+        raise ValueError(f"{name}: the co2 cores take 1-D inputs, got d={d}")
     dim = state_dim(core, d, Z.shape[0])
     if z.shape != (dim,):
         raise ValueError(f"{name}: a {core} state row is ({dim},), got {tuple(z.shape)}")
@@ -296,7 +333,7 @@ def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
     work = _build.scratch(n, m, d, 0, X, chains=C, core=core)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=want_z_grad,
                     want_prior=want_prior, pivot_floor=pivot_floor,
-                    prior_spec=prior_spec, CHAINS=C, STAGES=stages)
+                    prior_spec=prior_spec, core=core, CHAINS=C, STAGES=stages)
     P = _build.ptr
     err = _build.kernel_fn(f"ggp_potential_{core}", X.dtype)(
         ctypes.cast(cfg, ctypes.c_void_p), P(zs), P(X), P(y), P(Z), P(out),
@@ -310,13 +347,15 @@ def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
                   want_prior=True, pivot_floor=None, prior_spec=None,
                   core="vfe"):
     """U and dU/dz (and dU/dZ) of :func:`neg_logpost_vg` at one state row
-    of ``core``.
+    of ``core`` (the potential kernel, site 1, of each core).
 
     CPU tensors run the plain version; CUDA tensors launch the potential
     kernel (``csrc/vfe_potential.cu``) at grid 1 or raise."""
     _check_shapes(f"{core} potential", theta, X, y, Z, core)
     if core == "gpr":
         _check_gpr_options(want_z_grad, want_prior, pivot_floor)
+    if core.startswith("co2"):
+        _check_co2_options(want_z_grad)
     kw = dict(want_z_grad=want_z_grad, want_prior=want_prior,
               pivot_floor=pivot_floor, prior_spec=prior_spec)
     if X.device.type == "cpu":

@@ -99,10 +99,12 @@ class Flat(Prior):
 
 
 def log_prior(prior_tree, params) -> torch.Tensor:
-    """Sum of prior log-densities over a nested dict of Prior objects whose
-    structure mirrors the parameter dict."""
+    """Sum of prior log-densities over a nested dict (and tuple) of Prior
+    objects whose structure mirrors the parameter tree."""
     if isinstance(prior_tree, Prior):
         return prior_tree.logpdf_unconstrained(params)
+    if isinstance(prior_tree, tuple):
+        return sum(log_prior(p, v) for p, v in zip(prior_tree, params))
     return sum(log_prior(prior_tree[k], params[k]) for k in sorted(prior_tree))
 
 

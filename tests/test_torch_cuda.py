@@ -25,14 +25,18 @@ from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
 from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
-                                          first_chain, nuts_chunk, nuts_chunk_plain)
+                                          first_chain, nuts_chunk, nuts_chunk_plain,
+                                          nuts_transition, nuts_transition_plain)
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
                                          z_adam_chunk, z_adam_chunk_plain)
 from ggp_tpu_torch.ops import svi
-from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, vfe_potential
+from ggp_tpu_torch.ops.vfe_bound import neg_logpost_vg, rbf_vfe_neg_logpost_vg, vfe_potential
 from ggp_tpu_torch.ops.vfe_stats import (vfe_stats_bwd, vfe_stats_bwd_plain, vfe_stats_fwd,
                                          vfe_stats_fwd_plain)
+from ggp_tpu_torch.experiments.co2_bayesian_sgpr_hmc import co2_prior_tree
 from ggp_tpu_torch.experiments.large_scale_regression_sghmc import main as sghmc_main
+from ggp_tpu_torch.kernels import co2_kernel
+from ggp_tpu_torch.ops.co2_bound import co2_potential, co2_vfe_neg_logpost_vg
 
 pytestmark = pytest.mark.cuda
 
@@ -646,3 +650,114 @@ def test_sghmc_experiment_runs_on_the_card(dev):
     assert out["finite"] and np.isfinite(out["rmse"]) and np.isfinite(out["nlpd"])
     for k in ("sgpr_adam_chunk", "vfe_stats_fwd", "vfe_stats_bwd"):
         assert _build.LAUNCHES[k] > before[k], k
+
+
+# -- the co2 cores and the one-transition kernel ---------------------------------
+
+def _co2_problem(dev, dt, n=80, m=16, seed=0):
+    """1-D inputs around 0 (years), a seasonal y; Z a subset of X."""
+    r = np.random.default_rng(seed)
+    X = np.sort(r.uniform(-4.0, 4.0, n))[:, None]
+    y = np.sin(2 * np.pi * X[:, 0]) + 0.05 * X[:, 0] ** 2 + 0.1 * r.normal(size=n)
+    th = 0.3 * r.normal(size=11)
+    return [torch.tensor(a, dtype=dt, device=dev) for a in (th, X, y, X[::n // m][:m])]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("nc", ["m32", "rbf"])
+def test_co2_potential_kernel_matches_plain(dev, dt, nc):
+    th, X, y, Z = _co2_problem(dev, dt)
+    before = _build.LAUNCHES["co2_potential"]
+    out = co2_potential(th, X, y, Z, 1e-4, noise_comp=nc)
+    assert _build.LAUNCHES["co2_potential"] == before + 1
+    ref = co2_vfe_neg_logpost_vg(th, X, y, Z, 1e-4, noise_comp=nc)
+    for a, b in zip(out, ref):
+        assert _rel(a, b) <= TOL[dt]
+
+
+def _transition_chain(step, z, U, g, eps, slabs):
+    draws, stats = [], []
+    for mom, treeu, leafu in zip(*slabs):
+        z, U, g, acc, div, depth, nl, H0 = step(z, U, g, eps, torch.ones_like(z), mom=mom,
+                                                treeu=treeu, leafu=leafu)
+        draws.append(z)
+        stats.append(torch.stack([U, acc, div.to(z.dtype), depth.to(z.dtype),
+                                  nl.to(z.dtype), H0]))
+    return torch.stack(draws), torch.stack(stats)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("core", ["vfe", "co2_m32"])
+def test_nuts_transition_kernel_matches_plain(dev, dt, core):
+    """Four chained one-transition launches against the plain transition on
+    shared slabs: f64 on one path, f32 agreeing on the first transition."""
+    if core == "vfe":
+        th, X, y, Z = _problem(dev, dt, seed=3)
+        jit = 1e-6
+    else:
+        th, X, y, Z = _co2_problem(dev, dt, seed=3)
+        jit = 1e-4
+    K, md = 4, 6
+    U0, g0 = neg_logpost_vg(core, th, X, y, Z, jit)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    slabs = draw_slabs(K, th.shape[0], md, gen, dtype=dt, device=dev)
+    eps = torch.tensor(0.05, dtype=dt, device=dev)
+    key = _build.launch_key(core, "nuts_transition")
+    before = _build.LAUNCHES[key]
+    d_k, x_k = _transition_chain(
+        lambda *a, **k: nuts_transition(*a, X, y, Z, jit, max_depth=md, core=core, **k),
+        th, U0, g0, eps, slabs)
+    assert _build.LAUNCHES[key] == before + K
+    d_p, x_p = _transition_chain(
+        lambda *a, **k: nuts_transition_plain(*a, X, y, Z, jit, max_depth=md, core=core, **k),
+        th, U0, g0, eps, slabs)
+    p = _agreeing_prefix(d_k, d_p, x_k, x_p, CHUNK_TOL[dt])
+    assert p == K if dt == torch.float64 else p >= 1
+    assert _rel(x_k[:p][:, [0, 1, 5]], x_p[:p][:, [0, 1, 5]]) <= CHUNK_TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_co2_nuts_chunk_kernel_matches_plain(dev, dt):
+    th, X, y, Z = _co2_problem(dev, dt, seed=1)
+    K, md = 4, 6
+    U0, g0 = co2_vfe_neg_logpost_vg(th, X, y, Z, 1e-4)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    le = torch.log(torch.tensor(0.05, dtype=dt, device=dev))
+    st = ChainState(z=th, U=U0, g=g0, inv_mass=torch.ones_like(th), log_eps=le,
+                    log_eps_avg=le, h_avg=zero, mu=le + np.log(10.0), t_da=zero,
+                    wf_mean=torch.zeros_like(th), wf_m2=torch.zeros_like(th), wf_count=zero)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mom, treeu, leafu = draw_slabs(K, 11, md, gen, dtype=dt, device=dev)
+    kw = dict(mom=mom, treeu=treeu, leafu=leafu, n_active=K, adapt=True,
+              in_window=torch.arange(K, device=dev) >= 1,
+              window_end=torch.arange(K, device=dev) == 2, max_depth=md, core="co2_m32")
+    before = _build.LAUNCHES["co2_nuts_chunk"]
+    s_k, d_k, x_k = nuts_chunk(st, X, y, Z, 1e-4, **kw)
+    assert _build.LAUNCHES["co2_nuts_chunk"] == before + 1
+    s_p, d_p, x_p = nuts_chunk_plain(st, X, y, Z, 1e-4, **kw)
+    p = _agreeing_prefix(d_k, d_p, x_k, x_p, CHUNK_TOL[dt])
+    assert p == K if dt == torch.float64 else p >= 1
+    assert _rel(x_k[:p][:, [0, 1, 5]], x_p[:p][:, [0, 1, 5]]) <= CHUNK_TOL[dt]
+
+
+def test_co2_model_runs_on_the_card(dev):
+    """The CO2 composite through the model's entry points: the chunked
+    driver (site 1 and one transition launch per transition) and the
+    alternating trainer (the co2 NUTS chunk)."""
+    th, X, y, Z = _co2_problem(dev, torch.float32, seed=5)
+    kern = co2_kernel("matern32")
+    model = BayesianSparseGPR_HMC(X, y, Z_init=Z, kernel=kern, prior_tree=co2_prior_tree(kern),
+                                  jitter=1e-4)
+    before = dict(_build.LAUNCHES)
+    model.warm_start(num_steps=20)
+    tr = model.train_fixed_model(num_warmup=6, num_samples=4, chunk_size=3,
+                                 generator=torch.Generator(device=dev).manual_seed(0))
+    assert tr.shape == (4, 11) and torch.isfinite(tr).all()
+    assert _build.LAUNCHES["nuts_transition_co2"] - before["nuts_transition_co2"] == 6 + 6
+    assert _build.LAUNCHES["co2_potential"] > before["co2_potential"]
+    losses = model.train_model(max_steps=8, hmc_scheduler=[4, 8], round_sizes=((4, 2), (4, 2)),
+                               generator=torch.Generator(device=dev).manual_seed(1))
+    assert torch.isfinite(losses).all() and torch.isfinite(model.trace).all()
+    assert _build.LAUNCHES["co2_nuts_chunk"] > before["co2_nuts_chunk"]
+    mu, var = model.mixture_posterior_predictive(X)
+    assert torch.isfinite(mu).all() and (var > 0).all()
