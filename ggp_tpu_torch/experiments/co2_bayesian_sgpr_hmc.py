@@ -32,7 +32,7 @@ from ..utils.metrics import nlpd_mixture, rmse
 from ..utils.tree import tree_map
 from .co2_data import load_co2_dataset
 
-__all__ = ["main", "co2_prior_tree", "init_co2_params"]
+__all__ = ["main", "co2_model", "co2_prior_tree", "extrapolation", "init_co2_params"]
 
 
 def co2_prior_tree(kernel, input_dim=1, sigma=3.0):
@@ -60,9 +60,28 @@ def init_co2_params(*, dtype=torch.float64, device="cpu"):
     return {"kernel": {"terms": terms}, "log_noise": lg(0.01)}
 
 
+def co2_model(X, y, M=480):
+    """The experiment's model on the training rows: the composite kernel,
+    LogNormal(0, 3) priors, jitter 1e-4, Z every max(1, N // M)-th row of X,
+    and the hypers seeded by :func:`init_co2_params`."""
+    kern = co2_kernel("matern32")
+    kw = dict(dtype=X.dtype, device=X.device)
+    model = BayesianSparseGPR_HMC(X, y, Z_init=X[::max(1, X.shape[0] // M)][:M], kernel=kern,
+                                  prior_tree=co2_prior_tree(kern), jitter=1e-4, **kw)
+    model.hypers = init_co2_params(**kw)
+    return model
+
+
+def extrapolation(model, Xt, yt, y_std):
+    """The mixture predictive on the test years: (means, vars, RMSE in ppm,
+    mixture NLPD)."""
+    means, vars_ = model.mixture_posterior_predictive(Xt)
+    return (means, vars_, float(rmse(means.mean(0), yt, y_std)),
+            float(nlpd_mixture(means, vars_, yt, y_std)))
+
+
 def main(M=480, max_iters=2000, tune=500, n_samples=100, year_split=2003, fixed_z=True,
-         dtype=torch.float32, warm_steps=1500, chunk_size=100,
-         round_sizes=((100, 20), (25, 10)), device=None, seed=0):
+         dtype=torch.float32, device=None):
     """The JAX experiment's protocol; returns a dict of its results and
     times (seconds on the host clock after a device synchronisation)."""
     device = resolve_device("co2_bayesian_sgpr_hmc", device)
@@ -77,23 +96,19 @@ def main(M=480, max_iters=2000, tune=500, n_samples=100, year_split=2003, fixed_
         if X.device.type == "cuda":
             torch.cuda.synchronize()
 
-    kern = co2_kernel("matern32")
-    Z_init = X[::max(1, X.shape[0] // M)][:M]
-    model = BayesianSparseGPR_HMC(X, y, Z_init=Z_init, kernel=kern,
-                                  prior_tree=co2_prior_tree(kern), jitter=1e-4, **kw)
-    model.hypers = init_co2_params(**kw)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    model = co2_model(X, y, M)
+    gen = torch.Generator(device=device).manual_seed(0)
     sync()
     t0 = time.perf_counter()
-    warm = model.warm_start(num_steps=warm_steps, lr=0.01)
+    warm = model.warm_start(num_steps=1500, lr=0.01)
     sync()
     t1 = time.perf_counter()
     if fixed_z:
         model.train_fixed_model(num_warmup=tune, num_samples=n_samples, generator=gen,
-                                chunk_size=chunk_size)
+                                chunk_size=100)
     else:
         model.train_model(max_steps=max_iters, hmc_scheduler=[max_iters // 2, max_iters],
-                          generator=gen, round_sizes=round_sizes)
+                          generator=gen)
     sync()
     t2 = time.perf_counter()
     st = model.stats
@@ -101,9 +116,7 @@ def main(M=480, max_iters=2000, tune=500, n_samples=100, year_split=2003, fixed_
     print(f"warm start {t1 - t0:.3f} s, sampling {t2 - t1:.3f} s ({leaps} leapfrogs in the "
           f"last run), mean accept {float(st['accept_prob'].float().mean()):.3f}, "
           f"divergence fraction {float(st['diverging'].float().mean()):.3f}")
-    means, vars_ = model.mixture_posterior_predictive(Xt)
-    r = float(rmse(means.mean(0), yt, y_std))
-    nl = float(nlpd_mixture(means, vars_, yt, y_std))
+    means, vars_, r, nl = extrapolation(model, Xt, yt, y_std)
     print(f"extrapolation rmse={r:.3f} ppm  mixture nlpd={nl:.3f}  "
           f"({means.shape[0]} components)")
     return {"model": model, "warm_losses": warm, "warm_seconds": t1 - t0,

@@ -267,13 +267,12 @@ class BayesianSparseGPR_HMC:
     def train_model(self, max_steps: int = 2000,
                     hmc_scheduler: Optional[Sequence[int]] = None,
                     lr: float = 0.01, generator: torch.Generator | None = None,
-                    num_chains: int = 1, round_sizes=((100, 20), (25, 10))):
+                    num_chains: int = 1):
         """Alternating trainer: warm start for ``hmc_scheduler[0]`` steps,
         then at each scheduler entry a NUTS round of ``num_chains`` chains
-        ((tune, n) = ``round_sizes[0]`` for the first and last rounds, the
-        JAX package's (100, 20), and ``round_sizes[1]`` between, (25, 10))
-        followed by Z steps up to the next entry. Returns the concatenated
-        losses."""
+        ((tune, n) = (100, 20) for the first and last rounds, (25, 10)
+        between) followed by Z steps up to the next entry. Returns the
+        concatenated losses."""
         if generator is None:
             generator = torch.Generator(device=self.theta.device).manual_seed(0)
         if hmc_scheduler is None:
@@ -284,7 +283,7 @@ class BayesianSparseGPR_HMC:
         bounds = hmc_scheduler + [max_steps]
         for i in range(len(hmc_scheduler)):
             first_or_last = i == 0 or i == len(hmc_scheduler) - 1
-            tune, n = round_sizes[0] if first_or_last else round_sizes[1]
+            tune, n = (100, 20) if first_or_last else (25, 10)
             self.sample_hypers(tune, n, generator, num_chains=num_chains)
             n_z = bounds[i + 1] - bounds[i]
             if n_z > 0:

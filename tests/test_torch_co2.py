@@ -7,8 +7,10 @@ ravel order and the parameter exchange; the one-transition and warm-chunk
 plain versions and the chunked driver against the interpret-mode
 ``make_fused_nuts(target="co2_m32")`` on slabs rebuilt from the JAX keys;
 the autograd warm start against ``_adam_all``; the mixture predictive; the
-experiment's data. The ``cuda``-marked counterparts are in
-``tests/test_torch_cuda.py``.
+experiment's data. The chunked driver's interpret-mode comparison (~30 s,
+most of it JAX compiles) is marked ``slow``; unmarked, the driver is held
+to the plain warm chunk, which is held to the interpret-mode one. The
+``cuda``-marked counterparts are in ``tests/test_torch_cuda.py``.
 """
 
 import sys
@@ -260,7 +262,6 @@ def fused_co2():
                            interpret=True)(jnp.asarray(Z))
 
 
-@pytest.mark.slow
 def test_transition_matches_pallas_interpret(fused_co2):
     """One transition (site 4) of the port's plain version against the
     interpret-mode trans_call of target co2_m32, on the key's slabs."""
@@ -281,7 +282,6 @@ def test_transition_matches_pallas_interpret(fused_co2):
         assert _rel(a.numpy(), b) <= NUTS_TOL
 
 
-@pytest.mark.slow
 def test_warm_chunk_matches_pallas_interpret(fused_co2):
     """A warm chunk of the co2 core (a window inside) of the port's plain
     version against the interpret-mode warm_call of target co2_m32."""

@@ -755,7 +755,7 @@ def test_co2_model_runs_on_the_card(dev):
     assert tr.shape == (4, 11) and torch.isfinite(tr).all()
     assert _build.LAUNCHES["nuts_transition_co2"] - before["nuts_transition_co2"] == 6 + 6
     assert _build.LAUNCHES["co2_potential"] > before["co2_potential"]
-    losses = model.train_model(max_steps=8, hmc_scheduler=[4, 8], round_sizes=((4, 2), (4, 2)),
+    losses = model.train_model(max_steps=8, hmc_scheduler=[4, 8],
                                generator=torch.Generator(device=dev).manual_seed(1))
     assert torch.isfinite(losses).all() and torch.isfinite(model.trace).all()
     assert _build.LAUNCHES["co2_nuts_chunk"] > before["co2_nuts_chunk"]
