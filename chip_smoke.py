@@ -27,7 +27,13 @@ non-zero exit:
    D=18), the anchor's (N=1e6, C=2), each stationary family (N=3000, Z
    rows from X) and bf16 once, with the peak memory of a full-N call and
    cuBLAS's product on a materialised K; sgpr_adam_chunk at the SGHMC
-   experiment's warm-start shape (n=4096, 200 steps); the co2 cores
+   experiment's warm-start shape (n=4096, 200 steps); the streamed Z
+   chunk (z_adam_stream) at N=404 (against kernel 4 too) and at the
+   reg-large path's shape (synthetic-large: n=13,279, D=18, M=100, 40
+   trace rows, 20 steps; in float64 also against the JAX package's Z
+   steps, REGRESSION_REF), with the sampler cores held at that n
+   (vfe_potential, mc_potential and an mc_nuts_chunk pair at C=2,
+   sgpmc_potential, sgpmc_mc_potential); the co2 cores
    (co2_potential, co2_nuts_chunk) and the one-transition kernel
    (nuts_transition, vfe and co2) at the Mauna Loa experiment's shape
    (N=541, D=1, M=480), in float64 and float32;
@@ -35,20 +41,21 @@ non-zero exit:
    the launch counters set to 0 just before it and read just after:
    a. slice: BayesianSparseGPR_HMC as bench.py's headline cell drives it
       (warm start 500 steps, single-chain NUTS rounds (100,20),(25,10),
-      (25,10),(100,20) with 100 Z steps between rounds, mixture predictive);
+      (25,10),(100,20) with 50 Z steps between rounds, mixture predictive);
    b. HMC-C8: bench.py's ``cell_hmc_throughput`` (warm start 500 steps,
-      then 8 chains of HMC, L=10, 500 warmup + 500 draws), timed once;
-   c. multichain NUTS: the slice's rounds with 4 chains;
+      then 8 chains of HMC, L=10, 250 warmup + 250 draws), timed once;
+   c. multichain NUTS: the slice's rounds with 4 chains, 25 Z steps
+      between rounds;
    d. joint-hmc: bench.py's ``cell_joint_hmc`` (SGPMC warm start 100
-      steps, then one chain of HMC, L=10, 500 warmup + 500 draws), timed
+      steps, then one chain of HMC, L=10, 250 warmup + 250 draws), timed
       once, and the 50-component mixture predictive on the held-out 20 %;
-   e. joint-nuts: SGPMC, one chain of NUTS, 100 warmup + 50 draws;
-   f. joint-c4: SGPMC, 4 chains of HMC, L=10, 100 warmup + 100 draws;
-   g. joint-c4-nuts: SGPMC, 4 chains of NUTS, 100 warmup + 50 draws;
+   e. joint-nuts: SGPMC, one chain of NUTS, 50 warmup + 25 draws;
+   f. joint-c4: SGPMC, 4 chains of HMC, L=10, 50 warmup + 50 draws;
+   g. joint-c4-nuts: SGPMC, 4 chains of NUTS, 50 warmup + 25 draws;
    h. gpr-hmc: bench.py's ``cell_gpr_hmc`` (GPR_HMC, one chain of NUTS, 50
-      warmup + 10 draws, once untimed, then the min of 2 timed runs), and
-      the full mixture predictive on the held-out 20 %;
-   i. gpr-c4: GPR_HMC, 4 chains of NUTS, 100 warmup + 25 draws;
+      warmup + 10 draws, one timed run), and the full mixture predictive
+      on the held-out 20 %;
+   i. gpr-c4: GPR_HMC, 4 chains of NUTS, 50 warmup + 10 draws;
    j. svgp: StochasticVariationalGP, Gaussian, experiments/regression.py's
       protocol (M=100, batch 200, 200 epochs), held-out RMSE and NLPD;
    k. svgp-probit: the banana Bernoulli-probit SVGP of
@@ -78,6 +85,12 @@ non-zero exit:
       (co2_reference.py, CO2_REF); co2-f32: the same in float32 (finite
       outputs); co2-alt: the alternating trainer's NUTS rounds, cut, each
       of which must move;
+   r. reg-large: the port's regression driver (experiments/regression.py
+      ``single_run("synthetic-large", 0, "BayesianSGPR_HMC")``: 13,279
+      rows, D=18, M=100, warm start 500, three NUTS rounds of 2 chains,
+      500 Z steps after each on z_adam_stream, the mixture predictive),
+      held to health gates and to the JAX package's CPU run
+      (regression_reference.py, REGRESSION_REF);
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?); where one gpr evaluation's time goes (its six parts, timed as
    prefixes), beside cholesky_ex + cholesky_inverse of the same K; the gpr
@@ -95,14 +108,16 @@ the call's evaluations of its core need (:func:`bound_ops`,
 happens to do.
 
     python3 chip_smoke.py co2
+    python3 chip_smoke.py reg-large
 
-runs only the build, the co2 parity and the three co2 paths.
+run only the build, the co2 parity and the three co2 paths; or the build,
+the parity at the reg-large shape and the reg-large path.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
                                     [gpr-hmc] [gpr-c4] [svgp] [svgp-probit]
                                     [svgp-poisson] [svgp-softmax] [bsvgp]
                                     [sghmc-1m] [sghmc-exp] [co2] [co2-f32]
-                                    [co2-alt]
+                                    [co2-alt] [reg-large]
 
 runs the named main paths instead (default: all) once each under
 ``torch.profiler`` after a short warm-up, and prints where the device time
@@ -118,6 +133,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -131,6 +147,7 @@ from ggp_tpu_torch.experiments.co2_bayesian_sgpr_hmc import (co2_model, extrapol
 from ggp_tpu_torch.experiments.co2_data import load_co2_dataset
 from ggp_tpu_torch.experiments.large_scale_regression_sghmc import main as sghmc_main
 from ggp_tpu_torch.experiments.large_scale_regression_sghmc import tiled_data
+from ggp_tpu_torch.experiments.regression import run_data, single_run
 from ggp_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
 from ggp_tpu_torch.inference.hmc import (find_reasonable_step_size,
                                          find_reasonable_step_size_batched)
@@ -150,7 +167,8 @@ from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
-                                         z_adam_chunk, z_adam_chunk_plain)
+                                         z_adam_chunk, z_adam_chunk_plain, z_adam_resident,
+                                         z_adam_stream, z_adam_stream_plain)
 from ggp_tpu_torch.ops.svi import (bsvgp_chunk, bsvgp_chunk_plain, svi_chunk, svi_chunk_plain,
                                    svi_softmax_chunk, svi_softmax_chunk_plain)
 from ggp_tpu_torch.models.sgpr import sgpr_elbo_from_stats, vfe_stats
@@ -174,6 +192,10 @@ KERNELS = {
                         "ggp_tpu/ops/fused_sgpr.py:434", "ggp_tpu/ops/fused_sgpr.py:420"),
     "z_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
                      "ggp_tpu/ops/fused_sgpr.py:352", None),
+    # the streamed Z chunk (optimize_Z past 2048 rows), a grid over trace rows
+    # and row blocks
+    "z_adam_stream": ("ggp_tpu_torch/csrc/z_adam_stream.cu",
+                      "ggp_tpu/ops/fused_sgpr.py:338", None),
     "mc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
                      "ggp_tpu/ops/fused_multichain.py:1933", None),
     "mc_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
@@ -229,6 +251,8 @@ KERNELS = {
 # a KERNELS entry whose launches are the sum of several counters (one per core)
 LAUNCH_SUMS = {"nuts_transition": ("nuts_transition_vfe", "nuts_transition_co2")}
 CO2_KERNELS = ("co2_potential", "co2_nuts_chunk", "nuts_transition")
+# the kernels the reg-large path launches
+REG_KERNELS = ("sgpr_adam_chunk", "mc_potential", "mc_nuts_chunk", "z_adam_stream")
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
 # ~1e-6 in float32.
@@ -367,6 +391,35 @@ CO2_REF = {
 CO2_METRIC_TOL = 0.05
 CO2_LANE_TOL = 0.1
 CO2_SDS = 4
+# The reg-large path: the regression driver's BayesianSGPR_HMC protocol on
+# synthetic-large (experiments/regression.py single_run, 13,279 train rows,
+# D=18, M=100, 2 chains), held to the JAX package's CPU run in float64
+# (regression_reference.py, which writes REGRESSION_REF_FILE beside this
+# script): (1) the warm start's final loss, within REG_WARM_TOL relative (the
+# path runs float32, jitter 1e-5 against 1e-8); (2) 20 Z-Adam steps of the
+# JAX package's Z chunk from the warm start's Z and hypers, over 40 trace
+# rows drawn around those hypers (seed and spread in the file): kernel 12 in
+# float64 at the same inputs must reproduce the losses and the final Z within
+# REG_ZSTEP_TOL (norm-relative); (3) the test RMSE and mixture NLPD, within
+# REG_METRIC_TOL + REG_SDS standard deviations of the JAX run's keys. On
+# synthetic-large both packages fit y as little better than noise, so (3) is
+# a sanity gate; (1) and (2) are the tight holds.
+REGRESSION_REF_FILE = "regression_reference.json"
+# The reg-large path's NUTS rounds (REGRESSION_REF's "rounds", which
+# regression_reference.py ran), cut from the driver's (100, 20), (25,
+# 10), (100, 20): at this n a warmup transition of the 2-chain sampler takes
+# ~85-175 leapfrogs of ~40 ms (its unit mass against a posterior whose
+# log-noise is known to ~1e-2 and whose lengthscales are barely identified),
+# so the uncut rounds take ~730 s, ~200 s and ~730 s. Ten warmup
+# transitions is the least that leaves the draws' step size adapted (after
+# five, a draw took ~143 leapfrogs); the draws are halved, so the Z steps'
+# trace sizes are S = 20, 10, 20 (kernel 12 is held at the uncut S = 40 in
+# the parity phase). The warm start and the 3 x 500 Z steps are the
+# driver's.
+REG_WARM_TOL = 1e-3
+REG_ZSTEP_TOL = 1e-6
+REG_METRIC_TOL = 0.05
+REG_SDS = 4
 # NVIDIA H100 SXM data sheet (at 700 W): float32 and float64 outside the
 # tensor cores, float64 on the tensor cores (DMMA, full IEEE double: the
 # matrix products of a float64 bound can run there), and HBM3 bandwidth.
@@ -827,6 +880,27 @@ def phase_parity(Xd, yd, Zd, res):
                 abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
                 bound=roofline(200, n, m, d, nbytes(X, y, trace) + 3 * nbytes(Z),
                                nbytes(*out), want_z=True))
+
+        # kernel 12 at the same shape, called directly (optimize_Z routes
+        # N=404 to kernel 4): against its plain version and against kernel 4
+        # (the same function, summed in another order)
+        k4 = out
+        out = z_adam_stream(Z, zz, zz, trace, X, y, jit, **zkw)
+        ref = z_adam_stream_plain(Z, zz, zz, trace, X, y, jit, **zkw)
+        e = max(rel(a, b) for a, b in zip(out, ref))
+        e4 = max(rel(a, b) for a, b in zip(out, k4))
+        ms = cuda_ms(lambda: z_adam_stream(Z, zz, zz, trace, X, y, jit, **zkw), 3)
+        pms = cuda_ms(lambda: z_adam_stream_plain(Z, zz, zz, trace, X, y, jit, **zkw), 1)
+        bound = roofline(200, n, m, d, nbytes(X, y, trace) + 3 * nbytes(Z), nbytes(*out),
+                         want_z=True)
+        print(f"parity z_adam_stream {tag} (N={n}, 20 steps x 10 rows): max rel err {e:.3e} "
+              f"against its plain version, {e4:.3e} against kernel 4; kernel {ms:.3f} ms, "
+              f"plain {pms:.3f} ms" + (f", bound {bound[0]:.5f} ms" if f32 else ""))
+        assert max(e, e4) <= ADAM_TOL[dt], f"z_adam_stream {tag} N={n} rel err {e}, {e4}"
+        res["z_adam_stream"]["rel"][tag] = max(e, e4)
+        if f32:
+            res["z_adam_stream"]["extra"].update(n404_ms=ms, n404_plain_ms=pms,
+                                                 n404_bound_ms=bound[0])
 
 
 def mc_start(X, y, Z, jit, C, seed, core="vfe", z0=0.0):
@@ -1636,31 +1710,23 @@ def phase_gpr_parts(Xd, yd):
     assert all(torch.isfinite(a).all() for a in out)
 
 
-def phase_gpr(Xd, yd, Xte, yte, label, num_chains=1, num_warmup=50, num_samples=10,
-              reps=2, untimed_first=True):
+def phase_gpr(Xd, yd, Xte, yte, label, num_chains=1, num_warmup=50, num_samples=10):
     """bench.py ``cell_gpr_hmc`` (bench.py:215-234) through the port, float32:
-    GPR_HMC(X, y), ``train_model`` once untimed (generator seed 99) when
-    ``untimed_first``, then the min of ``reps`` timed runs (seed 0); then
-    the full mixture predictive on the held-out rows."""
+    GPR_HMC(X, y), ``train_model`` timed once (generator seed 0; bench.py
+    takes the min of two after an untimed run); then the full mixture
+    predictive on the held-out rows."""
     X, y, Xt, yt = (a.to(torch.float32) for a in (Xd, yd, Xte, yte))
     d = X.shape[1]
     torch.cuda.synchronize()
     _build.reset_launches()
     model = GPR_HMC(X, y)
 
-    def run(seed):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        return model.train_model(num_warmup, num_samples, num_chains=num_chains,
-                                 generator=gen)
-    first = (f"; first untimed run {once_ms(lambda: run(99))[1] / 1e3:.3f} s"
-             if untimed_first else "")
-    times = []
-    for _ in range(reps):
-        tr, ms = once_ms(lambda: run(0))
-        times.append(ms / 1e3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tr, ms = once_ms(lambda: model.train_model(num_warmup, num_samples,
+                                               num_chains=num_chains, generator=gen))
     (means, vars_), t_pred = once_ms(lambda: model.full_mixture_posterior_predictive(Xt))
     launches = dict(_build.LAUNCHES)
-    secs = min(times)
+    secs = ms / 1e3
     st = model.stats
     div = float(st["diverging"].float().mean())
     acc = float(st["accept_prob"].mean())
@@ -1675,8 +1741,7 @@ def phase_gpr(Xd, yd, Xte, yte, label, num_chains=1, num_warmup=50, num_samples=
         rhat = (f"; max split-R-hat "
                 f"{max(split_rhat(chains[:, :, j]) for j in range(d + 2)):.4f}")
     print(f"{label} sampling on {CARD} ({num_chains} chain(s) x ({num_warmup} warmup + "
-          f"{num_samples} draws), NUTS): {secs:.3f} s (min of "
-          f"{', '.join(f'{t:.3f}' for t in times)}{first}); "
+          f"{num_samples} draws), NUTS): {secs:.3f} s; "
           f"divergence fraction {div:.4f}; mean accept {acc:.4f}; min-ESS/s {ess:.3f}; "
           f"step size {', '.join(f'{e:.4g}' for e in st['step_size'].reshape(-1).tolist())}; "
           f"mean leapfrogs/draw {float(st['n_leapfrog'].mean()):.1f}; "
@@ -1697,13 +1762,21 @@ def phase_gpr(Xd, yd, Xte, yte, label, num_chains=1, num_warmup=50, num_samples=
 
 
 def gpr_paths(X, y, Xte, yte):
-    """The GPR+HMC main paths by name."""
+    """The GPR+HMC main paths by name (cut from bench.py's min of two timed
+    runs after an untimed one; PERF.md section 4)."""
     return {
         "gpr-hmc": lambda: phase_gpr(X, y, Xte, yte, "gpr-hmc"),
         "gpr-c4": lambda: phase_gpr(X, y, Xte, yte, "gpr-c4", num_chains=4,
-                                    num_warmup=100, num_samples=25, reps=1,
-                                    untimed_first=False),
+                                    num_samples=10),
     }
+
+
+def flagship_paths(X, y, Z):
+    """The flagship's bench.py paths by name (Z steps cut from 100 to 50 and
+    25, hmc-c8's transitions from 500 + 500 to 250 + 250; PERF.md section 4)."""
+    return {"slice": lambda: phase_rounds(X, y, Z, 1, "slice", z_steps=50),
+            "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
+            "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts", z_steps=25)}
 
 
 def min_ess_per_s(trace: np.ndarray, seconds: float) -> float:
@@ -1719,9 +1792,9 @@ def check_launches(label, launches, expected):
     assert not missing, f"{label}: kernels of the path never launched: {missing}"
 
 
-def phase_rounds(Xd, yd, Zd, num_chains, label):
+def phase_rounds(Xd, yd, Zd, num_chains, label, z_steps):
     """bench.py's headline protocol through the port (float32): warm start,
-    NUTS rounds of ``num_chains`` chains with optimize_Z(100) between,
+    NUTS rounds of ``num_chains`` chains with optimize_Z(z_steps) between,
     mixture predictive. Returns the launch counts of the run."""
     X, y, Z = (a.to(torch.float32) for a in (Xd, yd, Zd))
     rounds = [(100, 20), (25, 10), (25, 10), (100, 20)]
@@ -1747,7 +1820,7 @@ def phase_rounds(Xd, yd, Zd, num_chains, label):
               f"step size {', '.join(f'{e:.4g}' for e in eps)}, mean leapfrogs/draw "
               f"{float(model.stats['n_leapfrog'].mean()):.1f}")
         if i < len(rounds) - 1:
-            zl, ms = once_ms(lambda: model.optimize_Z(num_steps=100, lr=0.01))
+            zl, ms = once_ms(lambda: model.optimize_Z(num_steps=z_steps, lr=0.01))
             t_z += ms / 1e3
             assert torch.isfinite(zl).all()
     (means, vars_), t_pred = once_ms(lambda: model.mixture_posterior_predictive(X))
@@ -1770,10 +1843,10 @@ def phase_rounds(Xd, yd, Zd, num_chains, label):
     return launches
 
 
-def phase_hmc_c8(Xd, yd, Zd, C=8):
+def phase_hmc_c8(Xd, yd, Zd, C=8, T=250):
     """bench.py ``cell_hmc_throughput`` (bench.py:261-284) through the
     port, float32, timed once: warm start 500 steps, then C chains of HMC
-    (L=10) with 500 warmup and 500 draws each."""
+    (L=10) with T warmup and T draws each (bench.py: 500)."""
     X, y, Z = (a.to(torch.float32) for a in (Xd, yd, Zd))
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -1781,7 +1854,7 @@ def phase_hmc_c8(Xd, yd, Zd, C=8):
     losses, t_warm = once_ms(lambda: model.warm_start(num_steps=500, lr=0.01))
     assert torch.isfinite(losses).all()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    tr, ms = once_ms(lambda: model.sample_hypers(500, 500, gen, num_chains=C,
+    tr, ms = once_ms(lambda: model.sample_hypers(T, T, gen, num_chains=C,
                                                  algorithm="hmc", num_leapfrog=10))
     launches = dict(_build.LAUNCHES)
     secs = ms / 1e3
@@ -1793,14 +1866,14 @@ def phase_hmc_c8(Xd, yd, Zd, C=8):
     chains = trace.reshape(C, -1, dim)
     rhat = max(split_rhat(chains[:, :, j]) for j in range(dim))
     ess = min_ess_per_s(trace, secs)
-    print(f"hmc-c8 warm_start: {t_warm / 1e3:.3f} s; sampling ({C} chains x (500 warmup "
-          f"+ 500 draws), L=10): {secs:.3f} s; divergence fraction {div:.4f}; mean accept "
+    print(f"hmc-c8 warm_start: {t_warm / 1e3:.3f} s; sampling ({C} chains x ({T} warmup "
+          f"+ {T} draws), L=10): {secs:.3f} s; divergence fraction {div:.4f}; mean accept "
           f"{acc:.4f}; min-ESS/s (pooled trace {trace.shape[0]} x {dim}) {ess:.3f}; max "
           f"split-R-hat {rhat:.4f}; step sizes "
           f"{', '.join(f'{e:.4g}' for e in st['step_size'].tolist())}; "
-          f"{ms / 10000:.3f} ms per leapfrog of a chain (1000 transitions x 10)")
+          f"{ms / (20 * T):.3f} ms per leapfrog of a chain ({2 * T} transitions x 10)")
     check_launches("hmc-c8", launches, ["sgpr_adam_chunk", "mc_potential", "mc_hmc_chunk"])
-    assert trace.shape == (C * 500, dim) and np.isfinite(trace).all()
+    assert trace.shape == (C * T, dim) and np.isfinite(trace).all()
     assert div <= 0.1, f"hmc-c8 divergence fraction {div}"
     assert acc >= 0.5, f"hmc-c8 mean accept {acc}"
     assert math.isfinite(rhat), rhat
@@ -1862,17 +1935,19 @@ def phase_joint(Xd, yd, Zd, Xte, yte, label, num_chains=1, algorithm="hmc",
 
 
 def joint_paths(X, y, Z, Xte, yte):
-    """The JointHMC main paths by name."""
+    """The JointHMC main paths by name (depths cut from bench.py's 500 + 500;
+    PERF.md section 4)."""
     return {
-        "joint-hmc": lambda: phase_joint(X, y, Z, Xte, yte, "joint-hmc"),
+        "joint-hmc": lambda: phase_joint(X, y, Z, Xte, yte, "joint-hmc", num_warmup=250,
+                                         num_samples=250),
         "joint-nuts": lambda: phase_joint(X, y, Z, Xte, yte, "joint-nuts",
-                                          algorithm="nuts", num_warmup=100,
-                                          num_samples=50),
+                                          algorithm="nuts", num_warmup=50,
+                                          num_samples=25),
         "joint-c4": lambda: phase_joint(X, y, Z, Xte, yte, "joint-c4", num_chains=4,
-                                        num_warmup=100, num_samples=100),
+                                        num_warmup=50, num_samples=50),
         "joint-c4-nuts": lambda: phase_joint(X, y, Z, Xte, yte, "joint-c4-nuts",
                                              num_chains=4, algorithm="nuts",
-                                             num_warmup=100, num_samples=50),
+                                             num_warmup=50, num_samples=25),
     }
 
 
@@ -2034,11 +2109,9 @@ def device_breakdown(prof, wall_s, label, top=8):
 def profile_paths(X, y, Z, Xte, yte, names):
     """Each named main path once under torch.profiler (CPU and CUDA
     activities), after a warm-up of the kernels and library handles."""
-    paths = {"slice": lambda: phase_rounds(X, y, Z, 1, "slice"),
-             "hmc-c8": lambda: phase_hmc_c8(X, y, Z),
-             "mc-nuts": lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
-             **joint_paths(X, y, Z, Xte, yte), **gpr_paths(X, y, Xte, yte),
-             **svi_paths(X, y, Xte, yte), **co2_paths()}
+    paths = {**flagship_paths(X, y, Z), **joint_paths(X, y, Z, Xte, yte),
+             **gpr_paths(X, y, Xte, yte), **svi_paths(X, y, Xte, yte), **co2_paths(),
+             "reg-large": phase_reg_large}
     if not names or any(k.startswith("sghmc") for k in names):
         paths.update(sghmc_paths(big_data()))
     Xf, yf, Zf = (a.float() for a in (X, y, Z))
@@ -2253,6 +2326,231 @@ def phase_parity_warm4096(Xb, yb, res, steps=200):
         r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
 
 
+def regression_ref():
+    """REGRESSION_REF: the JAX package's CPU run of the reg-large path
+    (regression_reference.py), read from REGRESSION_REF_FILE beside this
+    script."""
+    with open(Path(__file__).resolve().with_name(REGRESSION_REF_FILE)) as f:
+        return json.load(f)
+
+
+def large_inputs(dt, ref):
+    """The reg-large path's data on the card (synthetic-large, split 0), the
+    driver's Z_init, the warm start's hypers and Z of the JAX run, and the
+    40-row trace drawn around those hypers (regression_reference.py
+    ``zstep_trace``)."""
+    data, Zi = run_data("synthetic-large", 0)
+    f = dict(dtype=dt, device="cuda")
+    th = np.asarray(ref["warm_theta"])
+    trace = th + ref["zstep_spread"] * np.random.RandomState(ref["zstep_seed"]).randn(
+        ref["zstep_rows"], th.shape[0])
+    return [torch.tensor(a, **f) for a in (data.X_train, data.Y_train, Zi, th, ref["warm_Z"],
+                                           trace)]
+
+
+def record_large(res, name, tmp, tag, f32):
+    """Move a parity record made at the path's shape (``tmp``) into the
+    extras of ``res[name]`` (n13279_*), keeping its N=404 row."""
+    r = tmp[name]
+    res[name]["rel"][tag] = max(res[name]["rel"].get(tag, 0.0), r["rel"][tag])
+    if f32:
+        res[name]["extra"].update(n13279_ms=r["ms"], n13279_plain_ms=r["plain_ms"],
+                                  n13279_bound_ms=r["bound"][0])
+
+
+def phase_parity_large(res, steps=20, k4_steps=1):
+    """The kernels at the reg-large path's shape (synthetic-large: n=13,279,
+    D=18, M=100), float64 and float32. Kernel 12 (z_adam_stream): ``steps``
+    Z steps over the 40-row trace from the JAX run's warm state, against its
+    plain version (float64 to TOL, float32 to ADAM_TOL, or where float32
+    does not resolve the chunk, the kernel's error against the float64 plain
+    run at the same jitter within F32_AS_ACCURATE times the plain version's),
+    against kernel 4 over the first ``k4_steps`` steps (the same function in
+    another order, ~44 ms an evaluation there, so one step of 40 rows), and
+    in float64 against REGRESSION_REF's Z steps (REG_ZSTEP_TOL). Then the sampler cores, whose
+    JAX counterparts stream past 1024 (C chains) and 2048 rows (one chain),
+    held at this n: vfe_potential at one chain, mc_potential and one NUTS
+    chunk pair (warm, sample) at C=2, sgpmc_potential and sgpmc_mc_potential
+    (state d+2+M = 120), each with its time and bound."""
+    ref = regression_ref()
+    zr = res["z_adam_stream"]
+    out64 = None
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, y, Zi, th, Zw, trace = large_inputs(dt, ref)
+        n, d = X.shape
+        m = Zi.shape[0]
+        jit = 1e-5 if f32 else 1e-8
+        zz = torch.zeros_like(Zw)
+        zkw = dict(t0=0, num_steps=steps, lr=0.01)
+        out, ms = once_ms(lambda: z_adam_stream(Zw, zz, zz, trace, X, y, jit, **zkw))
+        out, ms = once_ms(lambda: z_adam_stream(Zw, zz, zz, trace, X, y, jit, **zkw))
+        ref_p, pms = once_ms(lambda: z_adam_stream_plain(Zw, zz, zz, trace, X, y, jit, **zkw))
+        bound = roofline(steps * trace.shape[0], n, m, d, nbytes(X, y, trace) + 3 * nbytes(Zw),
+                         nbytes(*out), want_z=True)
+        e = max(rel(a, b) for a, b in zip(out, ref_p))
+        k4 = z_adam_resident(Zw, zz, zz, trace, X, y, jit, t0=0, num_steps=k4_steps, lr=0.01)
+        mine = z_adam_stream(Zw, zz, zz, trace, X, y, jit, t0=0, num_steps=k4_steps, lr=0.01)
+        e4 = max(rel(a, b) for a, b in zip(mine, k4))
+        txt, ok = "", e <= (ADAM_TOL if f32 else TOL)[dt] and e4 <= ADAM_TOL[dt]
+        if f32:
+            r64 = z_adam_stream_plain(*(a.double() for a in (Zw, zz, zz, trace, X, y)), jit,
+                                      **zkw)
+            ek = max(rel(a, b) for a, b in zip(out, r64))
+            ep = max(rel(a, b) for a, b in zip(ref_p, r64))
+            txt = f"; against float64 from the same inputs: kernel {ek:.3e}, plain {ep:.3e}"
+            if not ok and ep > F32_RESOLVES and e4 <= ADAM_TOL[dt]:
+                ok = ek <= F32_AS_ACCURATE * ep
+                txt += (f" (float32 does not resolve this chunk: kernel held to "
+                        f"{F32_AS_ACCURATE:g}x the plain version's error)")
+            zr.update(abs32=max(abs_err(a, b) for a, b in zip(out, ref_p)), ms=ms,
+                      plain_ms=pms, bound=bound)
+            zr["extra"].update(n13279_f32_vs_f64=ek, n13279_f32_plain_vs_f64=ep)
+        else:
+            out64 = out
+            zr["extra"].update(ms_f64=ms, plain_ms_f64=pms)
+        print(f"parity z_adam_stream {tag} at the reg-large shape (n={n}, M={m}, D={d}, "
+              f"{steps} steps x {trace.shape[0]} rows): max rel err {e:.3e} against its plain "
+              f"version, {e4:.3e} against kernel 4 over {k4_steps} steps{txt}; kernel "
+              f"{ms:.3f} ms ({ms / steps:.3f} ms a step), plain {pms:.3f} ms"
+              + (f", bound {bound[0]:.5f} ms" if f32 else ""))
+        assert ok, f"z_adam_stream {tag} n={n} rel err {e}, against kernel 4 {e4}"
+        zr["rel"][tag] = max(zr["rel"].get(tag, 0.0), e, e4)
+
+        # the sampler cores at this n (their streamed counterparts)
+        tmp = new_res()
+        xyz = nbytes(X, y, Zi)
+        U, g = vfe_potential(th, X, y, Zi, jit)
+        U0, g0 = rbf_vfe_neg_logpost_vg(th, X, y, Zi, jit)
+        ev = max(rel(U, U0), rel(g, g0))
+        vms = cuda_ms(lambda: vfe_potential(th, X, y, Zi, jit), 5)
+        vpms = cuda_ms(lambda: rbf_vfe_neg_logpost_vg(th, X, y, Zi, jit), 3)
+        vb = roofline(1, n, m, d, xyz + nbytes(th), (d + 3) * X.element_size())
+        print(f"parity vfe_potential {tag} at n={n}, D={d}, M={m}: max rel err {ev:.3e}; "
+              f"kernel {vms:.4f} ms, plain {vpms:.4f} ms, bound {vb[0]:.6f} ms")
+        assert ev <= TOL[dt], f"vfe_potential {tag} n={n} rel err {ev}"
+        tmp["vfe_potential"].update(rel={tag: ev}, ms=vms, plain_ms=vpms, bound=vb)
+        record_large(res, "vfe_potential", tmp, tag, f32)
+        st0, gen = mc_start(X, y, Zi, jit, 2, seed=17, z0=th)
+        rows = st0.z + 0.05 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
+        potential_parity("mc_potential", lambda r: mc_potential(r, X, y, Zi, jit),
+                         lambda r: mc_potential_plain(r, X, y, Zi, jit), rows, tmp, 3,
+                         lambda o: (2, n, m, d, xyz + nbytes(rows), nbytes(*o)))
+        record_large(res, "mc_potential", tmp, tag, f32)
+        chunk_parity(X, y, Zi, jit, st0, gen, tmp, core="vfe", algo="nuts", grid=2, K=2)
+        record_large(res, "mc_nuts_chunk", tmp, tag, f32)
+        zs0 = torch.cat([th, torch.zeros(m, dtype=dt, device="cuda")])
+        st0, gen = mc_start(X, y, Zi, jit, 2, seed=19, core="sgpmc", z0=zs0)
+        row = st0.z[0].contiguous()
+        out_s = vfe_potential(row, X, y, Zi, jit, core="sgpmc")
+        es = max(rel(a, b) for a, b in zip(out_s, sgpmc_neg_logpost_vg(row, X, y, Zi, jit)))
+        sms = cuda_ms(lambda: vfe_potential(row, X, y, Zi, jit, core="sgpmc"), 5)
+        spms = cuda_ms(lambda: sgpmc_neg_logpost_vg(row, X, y, Zi, jit), 3)
+        sb = roofline(1, n, m, d, xyz + nbytes(row), (row.numel() + 1) * X.element_size(),
+                      core="sgpmc")
+        print(f"parity sgpmc_potential {tag} at n={n}, state {row.numel()}: max rel err "
+              f"{es:.3e}; kernel {sms:.4f} ms, plain {spms:.4f} ms, bound {sb[0]:.6f} ms")
+        assert es <= TOL[dt], f"sgpmc_potential {tag} n={n} rel err {es}"
+        tmp["sgpmc_potential"].update(rel={tag: es}, ms=sms, plain_ms=spms, bound=sb)
+        record_large(res, "sgpmc_potential", tmp, tag, f32)
+        potential_parity(
+            "sgpmc_mc_potential", lambda r: mc_potential(r, X, y, Zi, jit, core="sgpmc"),
+            lambda r: mc_potential_plain(r, X, y, Zi, jit, core="sgpmc"), st0.z, tmp, 3,
+            lambda o: (2, n, m, d, xyz + nbytes(st0.z), nbytes(*o), False, "sgpmc"))
+        record_large(res, "sgpmc_mc_potential", tmp, tag, f32)
+    # the kernel in float64 against the JAX package's Z steps (REGRESSION_REF)
+    e_l = rel(out64[3].cpu(), torch.tensor(ref["zstep_losses"], dtype=torch.float64))
+    e_z = rel(out64[0].cpu(), torch.tensor(ref["zstep_Z"], dtype=torch.float64))
+    print(f"z_adam_stream f64 against the JAX package's Z steps (regression_reference.py): "
+          f"losses {e_l:.3e}, Z {e_z:.3e} (held to {REG_ZSTEP_TOL:g})")
+    assert max(e_l, e_z) <= REG_ZSTEP_TOL, f"z_adam_stream against REGRESSION_REF {e_l}, {e_z}"
+    zr["extra"].update(zstep_vs_jax_losses=e_l, zstep_vs_jax_Z=e_z)
+
+
+def phase_reg_large():
+    """The reg-large path: the port's regression driver
+    (experiments/regression.py ``single_run("synthetic-large", 0,
+    "BayesianSGPR_HMC")``) at the JAX driver's full protocol in float32:
+    13,279 train rows, D=18, M=100, warm start 500 steps (sgpr_adam_chunk),
+    three NUTS rounds of 2 chains (mc_potential, mc_nuts_chunk), cut to
+    REGRESSION_REF's rounds, 500 Z steps after each (z_adam_stream: S = 20,
+    10, 20), the 20-component mixture predictive on the 3,320 test rows. The
+    model's phases are timed, and the rounds cut, from outside (its methods
+    wrapped for this run).
+    Every round is held to the health gates, the warm start's loss and the
+    test metrics to REGRESSION_REF. Returns the launch counts of the run."""
+    ref = regression_ref()
+    rounds = [tuple(r) for r in ref["rounds"]]
+    cls = BayesianSparseGPR_HMC
+    orig = {k: getattr(cls, k) for k in ("warm_start", "sample_hypers", "optimize_Z")}
+    rec = {k: [] for k in orig}
+
+    def timed(name):
+        def run(self, *a, **kw):
+            if name == "sample_hypers":     # the round's (tune, n), cut to the reference's
+                a = rounds[len(rec[name])] + a[2:]
+            out, ms = once_ms(lambda: orig[name](self, *a, **kw))
+            row = {"s": ms / 1e3}
+            if name == "sample_hypers":
+                st = self.stats
+                row.update(tune=a[0], n=a[1], div=float(st["diverging"].float().mean()),
+                           acc=float(st["accept_prob"].mean()),
+                           leapfrogs=float(st["n_leapfrog"].float().mean()),
+                           warm_leapfrogs=float(st["warmup_n_leapfrog"].float().mean()),
+                           eps=st["step_size"].reshape(-1).tolist())
+            else:
+                row.update(steps=out.numel(), first=float(out[0]), last=float(out[-1]),
+                           finite=bool(torch.isfinite(out).all()))
+            rec[name].append(row)
+            print(f"reg-large {name} {len(rec[name])}: {row} at "
+                  f"{time.perf_counter() - T_START:.1f} s", flush=True)
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    try:
+        for k in orig:
+            setattr(cls, k, timed(k))
+        metrics, ms = once_ms(lambda: single_run("synthetic-large", 0, "BayesianSGPR_HMC",
+                                                 device="cuda"))
+    finally:
+        for k, f in orig.items():
+            setattr(cls, k, f)
+    launches = dict(_build.LAUNCHES)
+    (w,) = rec["warm_start"]
+    print(f"reg-large warm_start: {w['s']:.3f} s, 500 steps, loss {w['first']:.4f} -> "
+          f"{w['last']:.4f} (JAX CPU float64 run {ref['warm_loss']:.4f})")
+    for i, (r, z) in enumerate(zip(rec["sample_hypers"], rec["optimize_Z"])):
+        print(f"reg-large round {i} (tune={r['tune']}, n={r['n']}, chains=2): {r['s']:.3f} s, "
+              f"divergence fraction {r['div']:.3f}, mean accept {r['acc']:.3f}, mean leapfrogs "
+              f"{r['leapfrogs']:.1f} a draw and {r['warm_leapfrogs']:.1f} a warmup transition, "
+              f"step size {', '.join(f'{e:.4g}' for e in r['eps'])}; "
+              f"optimize_Z {z['steps']} steps: {z['s']:.3f} s, loss {z['first']:.4f} -> "
+              f"{z['last']:.4f}")
+    t_s = sum(r["s"] for r in rec["sample_hypers"])
+    t_z = sum(z["s"] for z in rec["optimize_Z"])
+    print(f"reg-large seconds: warm start {w['s']:.3f}, sampling {t_s:.3f}, Z steps {t_z:.3f}, "
+          f"driver total {ms / 1e3:.3f} ({CARD}); test RMSE {metrics['test_rmse']:.4f}, "
+          f"NLPD {metrics['test_nlpd']:.4f} (JAX CPU keys: RMSE {ref['rmse']:.4f} +- "
+          f"{ref['rmse_sd']:.4f}, NLPD {ref['nlpd']:.4f} +- {ref['nlpd_sd']:.4f})")
+    check_launches("reg-large", launches,
+                   ["sgpr_adam_chunk", "mc_potential", "mc_nuts_chunk", "z_adam_stream"])
+    for i, r in enumerate(rec["sample_hypers"]):
+        assert r["div"] <= 0.1, f"reg-large round {i} divergence fraction {r['div']}"
+        assert r["acc"] >= 0.5, f"reg-large round {i} mean accept {r['acc']}"
+    assert all(z["finite"] for z in rec["optimize_Z"]) and w["finite"]
+    assert len(rec["sample_hypers"]) == len(rounds) == 3 and len(rec["optimize_Z"]) == 3
+    e_w = abs(w["last"] - ref["warm_loss"]) / abs(ref["warm_loss"])
+    assert e_w <= REG_WARM_TOL, f"reg-large warm-start loss {w['last']} vs {ref['warm_loss']}"
+    for k in ("rmse", "nlpd"):
+        got = metrics[f"test_{k}"]
+        margin = REG_METRIC_TOL + REG_SDS * ref[f"{k}_sd"]
+        assert math.isfinite(got) and abs(got - ref[k]) <= margin, \
+            f"reg-large test {k} {got} vs {ref[k]} +- {margin}"
+    return launches
+
+
 def hyper_means(samples):
     """The kept draws' mean of each log-hyper, pooled over chains:
     [log_ls (d), log_os, log_noise]."""
@@ -2444,9 +2742,9 @@ def main(argv):
         return
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
-    only_co2 = argv[:1] == ["co2"]
+    only = argv[0] if argv[:1] in (["co2"], ["reg-large"]) else None
     res = new_res()
-    if not only_co2:
+    if only is None:
         phase_parity(X, y, Zd, res)
         phase_parity_mc(X, y, Zd, res)
         phase_parity_sgpmc(X, y, Zd, res)
@@ -2454,24 +2752,30 @@ def main(argv):
         phase_parity_svi(X, y, Zd, res)
         big = big_data()
         phase_parity_stats(big[0], big[1], res)
-    phase_parity_co2(X, y, Zd, res)
+    if only != "co2":
+        phase_parity_large(res)
+    if only != "reg-large":
+        phase_parity_co2(X, y, Zd, res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
-    names = [k for k in KERNELS if not only_co2 or k in CO2_KERNELS]
+    subset = {"co2": CO2_KERNELS, "reg-large": REG_KERNELS}.get(only, KERNELS)
+    names = [k for k in KERNELS if k in subset]
     launches = {k: 0 for k in names}
-    paths = [] if only_co2 else [
-        lambda: phase_rounds(X, y, Z, 1, "slice"),
-        lambda: phase_hmc_c8(X, y, Z),
-        lambda: phase_rounds(X, y, Z, 4, "mc-nuts"),
+    paths = [] if only else [
+        *flagship_paths(X, y, Z).values(),
         *joint_paths(X, y, Z, Xte, yte).values(),
         *gpr_paths(X, y, Xte, yte).values(),
         *svi_paths(X, y, Xte, yte).values(),
         *sghmc_paths(big).values()]
-    for run in paths + list(co2_paths().values()):
+    if only != "co2":
+        paths.append(phase_reg_large)
+    if only != "reg-large":
+        paths += list(co2_paths().values())
+    for run in paths:
         got = run()
         for k in launches:
             launches[k] += sum(got[c] for c in LAUNCH_SUMS.get(k, (k,)) if c in got)
         print(f"main paths at {time.perf_counter() - T_START:.1f} s")
-    if not only_co2:
+    if only is None:
         phase_scaling(X, y, Z)
         phase_gpr_parts(X, y)
     assert all(v > 0 for v in launches.values()), launches
@@ -2484,7 +2788,7 @@ def main(argv):
                 "launches": launches[name], "max_abs_err": r["abs32"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": r["library_ms"],
-                "max_rel_err_f64": r["rel"]["f64"], "max_rel_err_f32": r["rel"]["f32"],
+                "max_rel_err_f64": r["rel"].get("f64"), "max_rel_err_f32": r["rel"].get("f32"),
                 **r["extra"]}
         if also:
             item["also_replaces"] = also

@@ -18,7 +18,8 @@ chains over the collapsed bound from minibatch statistics
 ``experiments.large_scale_regression_sghmc`` runs it.
 BayesianSparseGPR_HMC also takes the Mauna Loa CO2 composite
 (``kernels.co2_kernel``), sampled by one launch per NUTS transition as
-``experiments.co2_bayesian_sgpr_hmc`` runs it. The
+``experiments.co2_bayesian_sgpr_hmc`` runs it. ``experiments.regression``
+is the regression benchmark driver over the port's models. The
 hand-written CUDA kernels (``csrc/``) are built at first use on a machine
 with ``nvcc``; CPU tensors run each kernel's plain PyTorch version.
 """

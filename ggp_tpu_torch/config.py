@@ -1,7 +1,7 @@
 """Global configuration of the PyTorch port.
 
-Counterpart of ``ggp_tpu/config.py``: the canonical seed and the jitter
-policy. Importing this module turns TF32 off for matrix products and
+Counterpart of ``ggp_tpu/config.py``: the canonical seed, the jitter
+policy and the experiments' log directory. Importing this module turns TF32 off for matrix products and
 convolutions — the counterpart of the JAX package's
 ``jax_default_matmul_precision="highest"``: Gram matrices formed in TF32
 lose positive-definiteness.
@@ -9,12 +9,16 @@ lose positive-definiteness.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 BASE_SEED = 173          # split / data seed of the reference (utils/config.py:14)
+# the experiment drivers' JSON and CSV logs: logs/ of the checkout
+LOG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "logs")
 
 
 def default_jitter(dtype: torch.dtype) -> float:

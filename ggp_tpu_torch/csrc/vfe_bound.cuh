@@ -436,6 +436,80 @@ struct Collapsed {
   T F, t_term, trBinv, aa, tr_dK, p_mm, p_nm;
 };
 
+// What collapsed_mm returns to every thread: log det B, u^T B^-1 u, tr B
+// and tr B^-1.
+template <typename T>
+struct CollapsedMM {
+  T logdetB, uv, trB, trBinv;
+};
+
+// The M x M part of the collapsed bound, shared by collapsed_bound and the
+// streamed Z trainer (z_adam_stream.cu, which forms B and u over row
+// blocks). On entry w.U = L^T and w.V = L^-T hold Kmm's factor and its
+// inverse, w.Kmm the gram, w.B and w.W both B = I + An^T An, and w.u =
+// An^T y, all visible to the block. It factorises B (w.UB, w.VB), solves c =
+// UB^-T u, v = UB^-1 c, w = U^-1 v against the factors (w.c, w.v, w.w),
+// forms B^-1 (w.Binv), Y1 = (I - B^-1) L^-1 (w.Y1), and dF/dKmm (times Kmm
+// with `times_k`) in w.Pmm and its diagonal in w.dkdiag; w.W ends as T0 =
+// 2I - B - B^-1. The products go through block_gemm in the caller's tiles,
+// over the full range of k or whole tiles of it (the triangular factors
+// hold explicit zeros, so each output keeps the serial sum of the
+// triangular loop).
+template <typename Acc, int TR, int TC, int KC, int NT, typename T>
+__device__ CollapsedMM<T> collapsed_mm(const BoundCfg& cf, const Work<T>& w,
+                                       BoundShared<T>& sh, T s2, bool times_k,
+                                       T (*sA)[TR + 1], T (*sB)[TC + 1]) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int m = cf.m;
+  chol_upper(w.W, w.UB, m, T(cf.floor), cf.floor > 0.0);
+  ut_inv(w.UB, w.VB, m);
+  T p_ld = T(0);                                  // this thread's part of log det B
+  for (int a = tid; a < m; a += nt) p_ld += glog(w.UB[a * m + a]);
+  __syncthreads();
+
+  // c = UB^-T u, v = UB^-1 c, w = U^-1 v (substitution against the factors)
+  ut_t_solve(w.UB, w.u, w.c, w.acc, m);
+  ut_solve(w.UB, w.c, w.v, w.acc, m);
+  ut_solve(w.U, w.v, w.w, w.acc, m);
+
+  // B^-1 = VB VB^T: VB(a, k) = 0 for k < a, VB^T(k, b) = 0 for k < b
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.VB, m, 1, w.VB, 1, m, K_FROM_R | K_FROM_C, sA, sB,
+                              [&](int a, int b, Acc s) { w.Binv[a * m + b] = T(s); });
+  // W = T0 = 2I - B - B^-1 (W is free again)
+  for (int idx = tid; idx < m * m; idx += nt) {
+    const int a = idx / m, b = idx % m;
+    w.W[idx] = (a == b ? T(2) : T(0)) - w.B[idx] - w.Binv[idx];
+  }
+  T p_uv = T(0), p_trB = T(0), p_trBi = T(0);
+  for (int a = tid; a < m; a += nt) {
+    p_uv += w.c[a] * w.c[a];
+    p_trB += w.B[a * m + a];
+    p_trBi += w.Binv[a * m + a];
+  }
+  CollapsedMM<T> out;
+  out.logdetB = T(2) * block_sum(p_ld, sh.red);
+  out.uv = block_sum(p_uv, sh.red);
+  out.trB = block_sum(p_trB, sh.red);
+  out.trBinv = block_sum(p_trBi, sh.red);
+
+  // adjoints: Y1 = (I - B^-1) L^-1 = V^T - B^-1 V^T (V^T(k, b) = 0 for
+  // k < b), VT0 = L^-T (2I - B - B^-1) (V(a, k) = 0 for k < a)
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.Binv, m, 1, w.V, 1, m, K_FROM_C, sA, sB,
+                              [&](int a, int b, Acc s) {
+                                w.Y1[a * m + b] = w.V[b * m + a] - T(s);
+                              });
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.V, m, 1, w.W, m, 1, K_FROM_R, sA, sB,
+                              [&](int a, int b, Acc s) { w.VT0[a * m + b] = T(s); });
+  // dKmm = -w w^T / (2 s2) + L^-T T0 L^-1 / 2 ; Pmm = dKmm (o Kmm)
+  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.VT0, m, 1, w.V, 1, m, K_FROM_C, sA, sB,
+                              [&](int a, int b, Acc s) {
+                                const T dk = -(w.w[a] * w.w[b]) / (T(2) * s2) + T(0.5) * T(s);
+                                w.Pmm[a * m + b] = times_k ? dk * w.Kmm[a * m + b] : dk;
+                                if (a == b) w.dkdiag[a] = dk;
+                              });
+  return out;
+}
+
 // The kernel-agnostic part of the collapsed bound, shared by the cores over
 // inducing points (VfeCore below, the co2 cores of co2_bound.cuh). On entry
 // w.Knm (n x m), w.Kmm and w.W = Kmm + jitter * jit_scale * I hold the
@@ -481,70 +555,28 @@ __device__ Collapsed<T> collapsed_bound(const BoundCfg& cf, const T* y, const Wo
         w.B[b * m + a] = v;
         w.W[b * m + a] = v;
       });
-  chol_upper(w.W, w.UB, m, fl, floored);
-  ut_inv(w.UB, w.VB, m);
-
-  // u = An^T y ; this thread's part of log det B
+  // u = An^T y
   for (int a = tid; a < m; a += nt) w.u[a] = T(dot_acc<double>(w.An + a, m, y, 1, 0, n));
-  T p_ld = T(0);
-  for (int a = tid; a < m; a += nt) p_ld += glog(w.UB[a * m + a]);
   __syncthreads();
-
-  // c = UB^-T u, v = UB^-1 c, w = U^-1 v (substitution against the factors)
-  ut_t_solve(w.UB, w.u, w.c, w.acc, m);
-  ut_solve(w.UB, w.c, w.v, w.acc, m);
-  ut_solve(w.U, w.v, w.w, w.acc, m);
+  const CollapsedMM<T> mm = collapsed_mm<Acc, TR, TC, KC, NT>(cf, w, sh, s2, times_k, sA, sB);
 
   for (int i = tid; i < n; i += nt)
     w.alpha[i] = (y[i] - T(dot_acc<Acc>(w.An + i * m, 1, w.v, 1, 0, m))) / s2;
-
-  // B^-1 = VB VB^T: VB(a, k) = 0 for k < a, VB^T(k, b) = 0 for k < b
-  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.VB, m, 1, w.VB, 1, m, K_FROM_R | K_FROM_C, sA, sB,
-                              [&](int a, int b, Acc s) { w.Binv[a * m + b] = T(s); });
-  // W = T0 = 2I - B - B^-1 (W is free again)
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int a = idx / m, b = idx % m;
-    w.W[idx] = (a == b ? T(2) : T(0)) - w.B[idx] - w.Binv[idx];
-  }
-
-  T p_uv = T(0), p_yy = T(0), p_trB = T(0), p_trBi = T(0), p_aa = T(0);
-  for (int a = tid; a < m; a += nt) {
-    p_uv += w.c[a] * w.c[a];
-    p_trB += w.B[a * m + a];
-    p_trBi += w.Binv[a * m + a];
-  }
+  T p_yy = T(0), p_aa = T(0);
   for (int i = tid; i < n; i += nt) {
     p_yy += y[i] * y[i];
     p_aa += w.alpha[i] * w.alpha[i];
   }
   Collapsed<T> out;
-  const T logdetB = T(2) * block_sum(p_ld, sh.red);
-  const T uv = block_sum(p_uv, sh.red);
   const T yy = block_sum(p_yy, sh.red);
-  const T trB = block_sum(p_trB, sh.red);
-  out.trBinv = block_sum(p_trBi, sh.red);
+  out.trBinv = mm.trBinv;
   out.aa = block_sum(p_aa, sh.red);
   const T nT = T(n), mT = T(m);
-  out.t_term = kdiag_sum - s2 * (trB - mT);
+  out.t_term = kdiag_sum - s2 * (mm.trB - mT);
   const T two_pi = T(6.283185307179586);
-  out.F = T(-0.5) * nT * glog(two_pi * s2) - T(0.5) * logdetB
-          - T(0.5) * (yy - uv) / s2 - T(0.5) * out.t_term / s2;
+  out.F = T(-0.5) * nT * glog(two_pi * s2) - T(0.5) * mm.logdetB
+          - T(0.5) * (yy - mm.uv) / s2 - T(0.5) * out.t_term / s2;
 
-  // adjoints: Y1 = (I - B^-1) L^-1 = V^T - B^-1 V^T (V^T(k, b) = 0 for
-  // k < b), VT0 = L^-T (2I - B - B^-1) (V(a, k) = 0 for k < a)
-  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.Binv, m, 1, w.V, 1, m, K_FROM_C, sA, sB,
-                              [&](int a, int b, Acc s) {
-                                w.Y1[a * m + b] = w.V[b * m + a] - T(s);
-                              });
-  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.V, m, 1, w.W, m, 1, K_FROM_R, sA, sB,
-                              [&](int a, int b, Acc s) { w.VT0[a * m + b] = T(s); });
-  // dKmm = -w w^T / (2 s2) + L^-T T0 L^-1 / 2 ; Pmm = dKmm (o Kmm)
-  block_gemm<Acc, TR, TC, KC, NT>(m, m, m, w.VT0, m, 1, w.V, 1, m, K_FROM_C, sA, sB,
-                              [&](int a, int b, Acc s) {
-                                const T dk = -(w.w[a] * w.w[b]) / (T(2) * s2) + T(0.5) * T(s);
-                                w.Pmm[a * m + b] = times_k ? dk * w.Kmm[a * m + b] : dk;
-                                if (a == b) w.dkdiag[a] = dk;
-                              });
   // dKnm = (An Y1 + alpha w^T) / sigma ; Pnm = dKnm (o Knm)
   block_gemm<Acc, TR, TC, KC, NT>(n, m, m, w.An, m, 1, w.Y1, m, 1, K_FULL, sA, sB,
                               [&](int i, int b, Acc s) {

@@ -1,11 +1,12 @@
-"""Sampler diagnostics in numpy: effective sample size and split-R-hat
-(copied from ``ggp_tpu/inference/diagnostics.py``)."""
+"""Sampler diagnostics in numpy: effective sample size, split-R-hat and the
+per-parameter summary table (copied from ``ggp_tpu/inference/diagnostics.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["effective_sample_size", "split_rhat"]
+__all__ = ["effective_sample_size", "split_rhat", "summary", "trace_to_named_dict",
+           "summary_to_csv"]
 
 
 def _autocov_fft(x: np.ndarray) -> np.ndarray:
@@ -63,3 +64,60 @@ def split_rhat(x: np.ndarray) -> float:
     if W <= 0:
         return float("nan")
     return float(np.sqrt(((hn - 1.0) / hn * W + B / hn) / W))
+
+
+def summary(samples_dict: dict, stats: dict | None = None) -> dict:
+    """Per-parameter mean, sd, ESS and split-R-hat of ``{name: (chains,
+    draws, ...) array}`` (a 1-D array is one chain); a name with several
+    entries gets one row per entry, ``name[(i, ...)]``. With ``stats``, the
+    number of divergent transitions as ``_diverging``."""
+    out = {}
+    for name, arr in samples_dict.items():
+        a = np.asarray(arr)
+        if a.ndim == 1:
+            a = a[None, :]
+        flatdims = a.shape[2:]
+        a2 = a.reshape(a.shape[0], a.shape[1], -1)
+        for j in range(a2.shape[-1]):
+            key = name if a2.shape[-1] == 1 else f"{name}[{np.unravel_index(j, flatdims)}]"
+            x = a2[..., j]
+            out[key] = {"mean": float(x.mean()), "sd": float(x.std()),
+                        "ess": effective_sample_size(x), "rhat": split_rhat(x)}
+    if stats is not None and "diverging" in stats:
+        out["_diverging"] = int(np.asarray(stats["diverging"]).sum())
+    return out
+
+
+def trace_to_named_dict(trace) -> dict:
+    """``{dotted.path: array}`` of the leaves of a trace tree (nested dicts,
+    tuples and lists whose leaves lead with the draw axis), in the JAX
+    package's leaf order (dict keys sorted) and path names."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        else:
+            out[".".join(path) or "param"] = np.asarray(
+                node.detach().cpu() if hasattr(node, "detach") else node)
+
+    walk(trace, ())
+    return out
+
+
+def summary_to_csv(summ: dict, path: str) -> str:
+    """Write a :func:`summary` table as CSV (param, mean, sd, ess, rhat);
+    ``_diverging`` goes in a row of its own."""
+    with open(path, "w") as f:
+        f.write("param,mean,sd,ess,rhat\n")
+        for name, row in summ.items():
+            if name == "_diverging":
+                f.write(f"_diverging,{row},,,\n")
+                continue
+            f.write(f"\"{name}\",{row['mean']:.6g},{row['sd']:.6g},"
+                    f"{row['ess']:.6g},{row['rhat']:.6g}\n")
+    return path

@@ -57,7 +57,8 @@ def launch_key(core: str, kind: str) -> str:
 
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
-            "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "sgpmc_warm_chunk": 0,
+            "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "z_adam_stream": 0,
+            "sgpmc_warm_chunk": 0,
             "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0,
             "vfe_stats_fwd": 0, "vfe_stats_bwd": 0}
 
@@ -98,6 +99,7 @@ _SIGS = {
        for k, n in _NARGS.items() if k in kinds},
     "ggp_sgpr_adam": [_P] * 12,
     "ggp_z_adam": [_P] * 10,
+    "ggp_z_adam_stream": [_P] * 11,
     "ggp_sgpmc_warm": [_P] * 12,
     "ggp_svi_chunk": [_P] * 19,
     "ggp_svi_softmax_chunk": [_P] * 20,
@@ -169,6 +171,8 @@ def _load(path: str) -> ctypes.CDLL:
     lib_.ggp_scratch_elems.restype = ctypes.c_long
     lib_.ggp_svi_scratch_elems.argtypes = [ctypes.c_int] * 4
     lib_.ggp_svi_scratch_elems.restype = ctypes.c_long
+    lib_.ggp_z_adam_stream_elems.argtypes = [ctypes.c_int] * 6
+    lib_.ggp_z_adam_stream_elems.restype = ctypes.c_long
     return lib_
 
 

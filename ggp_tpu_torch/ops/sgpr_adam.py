@@ -1,13 +1,14 @@
 """Whole chunks of Adam steps on the collapsed bound: plain PyTorch beside
-the CUDA kernels ``sgpr_adam_chunk`` (kernel 3) and ``z_adam_chunk``
-(kernel 4).
+the CUDA kernels ``sgpr_adam_chunk`` (kernel 3), ``z_adam_chunk`` (kernel
+4) and ``z_adam_stream`` (kernel 12).
 
 Counterparts of ``ggp_tpu/ops/fused_sgpr.py`` ``_sgpr_chunk_body`` (the
 warm start's (theta, Z) trainer) and ``_zadam_chunk_body`` (optimize_Z's
-Z-only trainer over a hyper trace), and of ``ops/fused_svi.py``
-``_adam_update``. Both train -ELBO without the prior, with the trainers'
-modified Cholesky (pivot floor 1e-6). Inputs are unpadded: ``theta``
-(d+2,), ``Z`` (m, d), a trace ``thetas`` (S, d+2).
+Z-only trainer over a hyper trace; resident up to ``STREAM_MIN_N`` rows,
+streamed over row blocks past it, as the JAX package's two pallas_calls),
+and of ``ops/fused_svi.py`` ``_adam_update``. They train -ELBO without the
+prior, with the trainers' modified Cholesky (pivot floor 1e-6). Inputs are
+unpadded: ``theta`` (d+2,), ``Z`` (m, d), a trace ``thetas`` (S, d+2).
 """
 
 from __future__ import annotations
@@ -18,13 +19,20 @@ import math
 import torch
 
 from . import _build
+from .linalg import capped_inv_ls, chol_upper
 from .vfe_bound import _check_shapes, bound_cfg, rbf_vfe_neg_logpost_vg
 
 __all__ = ["adam_update", "sgpr_adam_chunk_plain", "sgpr_adam_chunk",
-           "z_adam_chunk_plain", "z_adam_chunk", "PIVOT_FLOOR"]
+           "z_adam_chunk_plain", "z_adam_resident", "z_adam_chunk", "stream_neg_elbo_vg",
+           "z_adam_stream_plain", "z_adam_stream", "PIVOT_FLOOR", "STREAM_MIN_N",
+           "STREAM_NB"]
 
 PIVOT_FLOOR = 1e-6
 _BOX = 15.0
+# optimize_Z streams past this many rows (``make_fused_z_adam``: n > 2048),
+# in row blocks of STREAM_NB
+STREAM_MIN_N = 2048
+STREAM_NB = 256
 
 
 def _finite(g):
@@ -149,12 +157,17 @@ def _call_z_adam(Z, m_z, v_z, thetas, X, y, jitter, t0, num_steps, lr,
     return (*outs, losses)
 
 
-def z_adam_chunk(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
-    """:func:`z_adam_chunk_plain` on CPU tensors; kernel 4
-    (``csrc/sgpr_adam.cu``) on CUDA tensors. Inputs are not modified."""
-    _check_shapes("z_adam_chunk", thetas[0], X, y, Z)
+def _check_trace(name, thetas, X, y, Z):
+    _check_shapes(name, thetas[0], X, y, Z)
     if thetas.ndim != 2 or thetas.shape[0] < 1:
-        raise ValueError("z_adam_chunk: thetas must be (S >= 1, d+2)")
+        raise ValueError(f"{name}: thetas must be (S >= 1, d+2)")
+
+
+def z_adam_resident(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
+    """:func:`z_adam_chunk_plain` on CPU tensors; kernel 4
+    (``csrc/sgpr_adam.cu``, one block, site 7's function) on CUDA tensors.
+    Inputs are not modified."""
+    _check_trace("z_adam_chunk", thetas, X, y, Z)
     if X.device.type == "cpu":
         return z_adam_chunk_plain(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
                                   num_steps=num_steps, lr=lr)
@@ -162,4 +175,140 @@ def z_adam_chunk(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
     out = _call_z_adam(Z, m_z, v_z, thetas, X, y, jitter, float(t0),
                        int(num_steps), lr, _build.stream_ptr(X.device))
     _build.LAUNCHES["z_adam_chunk"] += 1
+    return out
+
+
+def z_adam_chunk(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
+    """optimize_Z's chunk, routed by size as the JAX package routes it: up to
+    ``STREAM_MIN_N`` rows :func:`z_adam_resident` (kernel 4 on the card),
+    past it :func:`z_adam_stream` (kernel 12). Inputs are not modified."""
+    if X.shape[0] > STREAM_MIN_N:
+        return z_adam_stream(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
+                             num_steps=num_steps, lr=lr)
+    return z_adam_resident(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
+                           num_steps=num_steps, lr=lr)
+
+
+def _chol_rows(K, floor):
+    """:func:`chol_upper` of each matrix of the batch K (S, m, m), floor[s]
+    on the pivots of K[s]."""
+    return torch.stack([chol_upper(K[s], floor[s]) for s in range(K.shape[0])])
+
+
+def stream_neg_elbo_vg(thetas, X, y, Z, jitter, nb=None):
+    """U_s = -ELBO(theta_s, Z) (no prior) and dU_s/dZ for each row of
+    ``thetas`` (S, d+2), batched over the rows, with the trainers' modified
+    Cholesky: the JAX streamed core's structure
+    (``_rbf_vfe_neg_logpost_vg_streaming``), two additive passes over row
+    blocks of ``nb`` rows (default STREAM_NB) with the M x M part between.
+    Pass 1 sums B - I = sum An_b^T An_b, u = sum An_b^T y_b and y^T y; pass
+    2 recomputes Knm_b and An_b and sums the Knm half of the Z adjoint.
+    Returns (U (S,), dU/dZ (S, m, d))."""
+    nb = STREAM_NB if nb is None else int(nb)
+    n, d = X.shape
+    m = Z.shape[0]
+    eye = torch.eye(m, dtype=X.dtype, device=X.device)
+    inv_ls = capped_inv_ls(thetas[:, :d], X, Z)                  # (S, d)
+    sf2, s2 = torch.exp(thetas[:, d]), torch.exp(thetas[:, d + 1])
+    sigma = torch.sqrt(s2)
+    jit_scale = torch.clamp(sf2, min=1.0)
+    Zs = Z * inv_ls[:, None, :]                                 # (S, m, d)
+    zn = (Zs * Zs).sum(-1)
+    Kmm = sf2[:, None, None] * torch.exp(-0.5 * torch.clamp(
+        zn[:, :, None] + zn[:, None, :] - 2.0 * Zs @ Zs.transpose(1, 2), min=0.0))
+    U = _chol_rows(Kmm + (jitter * jit_scale)[:, None, None] * eye,
+                   PIVOT_FLOOR * jit_scale)
+    V = torch.linalg.solve_triangular(U, eye.expand_as(U), upper=True)   # L^-T
+
+    def block(b0):
+        Xs = X[b0:b0 + nb] * inv_ls[:, None, :]                 # (S, nb, d)
+        xn = (Xs * Xs).sum(-1)
+        Knm = sf2[:, None, None] * torch.exp(-0.5 * torch.clamp(
+            xn[:, :, None] + zn[:, None, :] - 2.0 * Xs @ Zs.transpose(1, 2), min=0.0))
+        return Xs, y[b0:b0 + nb], Knm, Knm @ V / sigma[:, None, None]
+
+    Bacc = torch.zeros_like(Kmm)
+    u = torch.zeros_like(zn)
+    yy = torch.zeros((), dtype=X.dtype, device=X.device)
+    for b0 in range(0, n, nb):
+        _, yb, _, An = block(b0)
+        Bacc = Bacc + An.transpose(1, 2) @ An
+        u = u + (An.transpose(1, 2) @ yb)
+        yy = yy + (yb * yb).sum()
+    B = Bacc + eye
+    UB = _chol_rows(B, torch.full_like(sf2, PIVOT_FLOOR))
+    VB = torch.linalg.solve_triangular(UB, eye.expand_as(UB), upper=True)
+    Binv = VB @ VB.transpose(1, 2)
+    c = torch.linalg.solve_triangular(UB.transpose(1, 2), u[..., None], upper=False)
+    v = torch.linalg.solve_triangular(UB, c, upper=True)
+    w = torch.linalg.solve_triangular(U, v, upper=True)[..., 0]         # (S, m)
+    c, v = c[..., 0], v[..., 0]
+    logdetB = 2.0 * torch.log(torch.diagonal(UB, dim1=1, dim2=2)).sum(-1)
+    t_term = n * sf2 - s2 * (torch.diagonal(B, dim1=1, dim2=2).sum(-1) - m)
+    F = (-0.5 * n * torch.log(2.0 * math.pi * s2) - 0.5 * logdetB
+         - 0.5 * (yy - (c * c).sum(-1)) / s2 - 0.5 * t_term / s2)
+    Y1 = (eye - Binv) @ V.transpose(1, 2)
+    T0 = 2.0 * eye - B - Binv
+    dKmm = (-(w[:, :, None] * w[:, None, :]) / (2.0 * s2[:, None, None])
+            + 0.5 * V @ T0 @ V.transpose(1, 2))
+    Pmm = dKmm * Kmm
+    GnmZ = torch.zeros_like(Zs)
+    for b0 in range(0, n, nb):
+        Xs, yb, Knm, An = block(b0)
+        alpha = (yb - (An @ v[..., None])[..., 0]) / s2[:, None]          # (S, nb)
+        Pnm = (An @ Y1 + alpha[..., None] * w[:, None, :]) / sigma[:, None, None] * Knm
+        GnmZ = GnmZ + Pnm.sum(1)[..., None] * Zs - Pnm.transpose(1, 2) @ Xs
+    GmmZ = Pmm.sum(-1)[..., None] * Zs - Pmm @ Zs
+    return -F, (2.0 * GmmZ + GnmZ) * inv_ls[:, None, :]
+
+
+def z_adam_stream_plain(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr,
+                        nb=None):
+    """:func:`z_adam_chunk_plain`'s function, each step's S evaluations
+    batched through :func:`stream_neg_elbo_vg` (row blocks of ``nb``).
+    Returns (Z, m_z, v_z, losses)."""
+    inv_s = 1.0 / thetas.shape[0]
+    losses = []
+    for t in range(int(num_steps)):
+        U, dZ = stream_neg_elbo_vg(thetas, X, y, Z, jitter, nb)
+        ta = torch.as_tensor(t0 + t + 1.0, dtype=X.dtype, device=X.device)
+        Z, m_z, v_z = adam_update(Z, (inv_s * dZ).sum(0), m_z, v_z, ta, lr)
+        losses.append((inv_s * U).sum())
+    return Z, m_z, v_z, torch.stack(losses)
+
+
+def _call_z_adam_stream(Z, m_z, v_z, thetas, X, y, jitter, t0, num_steps, lr, stream):
+    n, d = X.shape
+    m, S = Z.shape[0], thetas.shape[0]
+    outs = [a.clone() for a in (Z, m_z, v_z)]
+    losses = torch.empty(num_steps, dtype=X.dtype, device=X.device)
+    elems = _build.build().ggp_z_adam_stream_elems
+    work = torch.empty(elems(n, m, d, S, STREAM_NB, 0), dtype=X.dtype, device=X.device)
+    part = torch.empty(elems(n, m, d, S, STREAM_NB, 1), dtype=torch.float64,
+                       device=X.device)
+    cfg = bound_cfg(n, m, d, jitter, want_z_grad=True, want_prior=False,
+                    pivot_floor=PIVOT_FLOOR, prior_spec=None, K=num_steps,
+                    LR=lr, T0=t0, S_ACT=S, NB=STREAM_NB)
+    P = _build.ptr
+    err = _build.kernel_fn("ggp_z_adam_stream", X.dtype)(
+        ctypes.cast(cfg, ctypes.c_void_p), P(thetas), *[P(a) for a in outs],
+        P(X), P(y), P(losses), P(work), P(part), stream)
+    _build.check(err, "z_adam_stream")
+    return (*outs, losses)
+
+
+def z_adam_stream(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
+    """The streamed Z chunk (site 8's function) at any n:
+    :func:`z_adam_stream_plain` on CPU tensors; kernel 12
+    (``csrc/z_adam_stream.cu``: per step five launches over the trace rows
+    and row blocks) on CUDA tensors. :func:`z_adam_chunk` calls it past
+    STREAM_MIN_N rows. Inputs are not modified."""
+    _check_trace("z_adam_stream", thetas, X, y, Z)
+    if X.device.type == "cpu":
+        return z_adam_stream_plain(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
+                                   num_steps=num_steps, lr=lr)
+    _build.require_cuda("z_adam_stream", X.dtype, Z, m_z, v_z, thetas, X, y)
+    out = _call_z_adam_stream(Z, m_z, v_z, thetas, X, y, jitter, float(t0),
+                              int(num_steps), lr, _build.stream_ptr(X.device))
+    _build.LAUNCHES["z_adam_stream"] += 1
     return out

@@ -7,7 +7,7 @@ and the first ``prop`` of them are the training rows. The synthetic data
 sets are drawn from numpy generators seeded by the CRC-32 of their names,
 so their arrays equal the JAX package's. The UCI data sets need files that
 are not in the repository and that the port does not download, so their
-names raise.
+names raise :class:`DataNotInRepository`.
 """
 
 from __future__ import annotations
@@ -19,7 +19,16 @@ import numpy as np
 from ..config import BASE_SEED
 
 __all__ = ["normalize", "Dataset", "SyntheticSmall", "SyntheticMid", "SyntheticLarge",
-           "regression_datasets", "get_regression_data"]
+           "regression_datasets", "get_regression_data", "DataNotInRepository", "UCI_REGRESSION"]
+
+# the JAX package's UCI regression data sets (ggp_tpu/utils/datasets.py)
+UCI_REGRESSION = ("boston", "concrete", "energy", "kin8nm", "naval", "power", "protein",
+                  "winered", "winewhite", "yacht")
+
+
+class DataNotInRepository(NotImplementedError, ValueError):
+    """A data set of the JAX package whose files the repository does not hold
+    (ROADMAP queue 1 item 14: the file readers)."""
 
 
 def normalize(A: np.ndarray):
@@ -104,6 +113,9 @@ regression_datasets = {c.name: c for c in (SyntheticSmall, SyntheticMid, Synthet
 
 def get_regression_data(name: str, split: int = 0, prop: float = 0.8) -> Dataset:
     """The named synthetic data set, split ``split``."""
+    if name in UCI_REGRESSION:
+        raise DataNotInRepository(f"{name!r} needs files that are not in the repository; the "
+                                  "port's file readers are ROADMAP queue 1 item 14")
     if name not in regression_datasets:
         raise ValueError(f"{name!r} is not a synthetic data set of the port "
                          f"({', '.join(regression_datasets)}); the UCI data sets need "

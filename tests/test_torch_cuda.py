@@ -28,7 +28,8 @@ from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
                                           first_chain, nuts_chunk, nuts_chunk_plain,
                                           nuts_transition, nuts_transition_plain)
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
-                                         z_adam_chunk, z_adam_chunk_plain)
+                                         z_adam_chunk, z_adam_chunk_plain, z_adam_stream,
+                                         z_adam_stream_plain)
 from ggp_tpu_torch.ops import svi
 from ggp_tpu_torch.ops.vfe_bound import neg_logpost_vg, rbf_vfe_neg_logpost_vg, vfe_potential
 from ggp_tpu_torch.ops.vfe_stats import (vfe_stats_bwd, vfe_stats_bwd_plain, vfe_stats_fwd,
@@ -231,6 +232,43 @@ def test_adam_chunk_kernels_match_plain(dev, dt):
     b = z_adam_chunk_plain(Z, zz, zz, thetas, X, y, 1e-6, t0=0, num_steps=5, lr=0.01)
     for u, v in zip(a, b):
         assert _rel(u, v) <= 10 * TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_z_adam_stream_matches_plain(dev, dt):
+    """Kernel 12 (the streamed Z chunk) against its plain version at n=2300,
+    past STREAM_MIN_N, where z_adam_chunk routes to it: 9 row blocks of
+    256, the last one partial; S=3 trace rows, 5 steps from t0=2."""
+    th, X, y, Z = _problem(dev, dt, n=2300, m=24, d=5, seed=3)
+    thetas = th + 0.1 * torch.randn((3, th.shape[0]), dtype=dt, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(2))
+    zz = torch.zeros_like(Z)
+    kw = dict(t0=2, num_steps=5, lr=0.01)
+    before = dict(_build.LAUNCHES)
+    a = z_adam_chunk(Z, zz, zz, thetas, X, y, 1e-6, **kw)
+    assert _build.LAUNCHES["z_adam_stream"] == before["z_adam_stream"] + 1
+    assert _build.LAUNCHES["z_adam_chunk"] == before["z_adam_chunk"]
+    b = z_adam_stream_plain(Z, zz, zz, thetas, X, y, 1e-6, **kw)
+    for u, v in zip(a, b):
+        assert _rel(u, v) <= 10 * TOL[dt]
+
+
+def test_z_adam_stream_failures_raise(dev, monkeypatch, tmp_path):
+    """A launch that fails, and a build that fails, raise: nothing falls
+    back to the plain version."""
+    th, X, y, Z = _problem(dev, torch.float64, n=300, m=8, d=3)
+    zz = torch.zeros_like(Z)
+    args = (Z, zz, zz, th[None], X, y, 1e-6)
+    with monkeypatch.context() as mp:
+        mp.setattr(_build, "kernel_fn", lambda base, dtype: (lambda *a: 1))
+        with pytest.raises(RuntimeError, match="z_adam_stream: CUDA launch failed"):
+            z_adam_stream(*args, t0=0, num_steps=1, lr=0.01)
+    with monkeypatch.context() as mp:
+        mp.setattr(_build, "_LIB", None)
+        mp.setattr(_build, "_BUILD", str(tmp_path))
+        mp.setattr(_build, "_nvcc", lambda: "/bin/false")
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            z_adam_stream(*args, t0=0, num_steps=1, lr=0.01)
 
 
 def test_wrappers_raise_on_wrong_inputs(dev):
