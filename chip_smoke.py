@@ -27,13 +27,16 @@ non-zero exit:
    D=18), the anchor's (N=1e6, C=2), each stationary family (N=3000, Z
    rows from X) and bf16 once, with the peak memory of a full-N call and
    cuBLAS's product on a materialised K; sgpr_adam_chunk at the SGHMC
-   experiment's warm-start shape (n=4096, 200 steps); the streamed Z
-   chunk (z_adam_stream) at N=404 (against kernel 4 too) and at the
+   experiment's warm-start shape (n=4096, 200 steps); optimize_Z's chunk
+   (z_adam_chunk, kernel 12 at every n) at N=404, S=10 and at the
    reg-large path's shape (synthetic-large: n=13,279, D=18, M=100, 40
    trace rows, 20 steps; in float64 also against the JAX package's Z
-   steps, REGRESSION_REF), with the sampler cores held at that n
-   (vfe_potential, mc_potential and an mc_nuts_chunk pair at C=2,
-   sgpmc_potential, sgpmc_mc_potential); the co2 cores
+   steps, REGRESSION_REF); at that n the grouped vfe core (vfe_potential
+   at one chain, mc_potential and an mc_nuts_chunk pair at C=2, each also
+   launched twice for bit-identical outputs), the one-block sgpmc core
+   (sgpmc_potential, sgpmc_mc_potential), a scaling line of both vfe
+   designs at n = 1279, 4096, 13,279 and sgpr_adam_chunk's time a step;
+   the co2 cores
    (co2_potential, co2_nuts_chunk) and the one-transition kernel
    (nuts_transition, vfe and co2) at the Mauna Loa experiment's shape
    (N=541, D=1, M=480), in float64 and float32;
@@ -87,10 +90,10 @@ non-zero exit:
       of which must move;
    r. reg-large: the port's regression driver (experiments/regression.py
       ``single_run("synthetic-large", 0, "BayesianSGPR_HMC")``: 13,279
-      rows, D=18, M=100, warm start 500, three NUTS rounds of 2 chains,
-      500 Z steps after each on z_adam_stream, the mixture predictive),
-      held to health gates and to the JAX package's CPU run
-      (regression_reference.py, REGRESSION_REF);
+      rows, D=18, M=100, warm start 500, three NUTS rounds of 2 chains on
+      the grouped vfe core, 500 Z steps after each on kernel 12, the
+      mixture predictive), held to health gates and to the JAX package's
+      CPU run (regression_reference.py, REGRESSION_REF);
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?); where one gpr evaluation's time goes (its six parts, timed as
    prefixes), beside cholesky_ex + cholesky_inverse of the same K; the gpr
@@ -154,7 +157,7 @@ from ggp_tpu_torch.inference.hmc import (find_reasonable_step_size,
 from ggp_tpu_torch.inference.sghmc import SGHMCConfig, ravel_tree, run_sghmc
 from ggp_tpu_torch.kernels import default_rbf
 from ggp_tpu_torch.likelihoods import BernoulliProbit, PoissonLogCox, Softmax
-from ggp_tpu_torch.ops import _build
+from ggp_tpu_torch.ops import _build, vfe_group
 from ggp_tpu_torch.ops.gpr_bound import gpr_neg_logpost_vg
 from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
                                           mc_hmc_chunk_plain, mc_nuts_chunk,
@@ -167,8 +170,8 @@ from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
 from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
-                                         z_adam_chunk, z_adam_chunk_plain, z_adam_resident,
-                                         z_adam_stream, z_adam_stream_plain)
+                                         z_adam_chunk, z_adam_chunk_plain, z_adam_stream,
+                                         z_adam_stream_plain)
 from ggp_tpu_torch.ops.svi import (bsvgp_chunk, bsvgp_chunk_plain, svi_chunk, svi_chunk_plain,
                                    svi_softmax_chunk, svi_softmax_chunk_plain)
 from ggp_tpu_torch.models.sgpr import sgpr_elbo_from_stats, vfe_stats
@@ -190,12 +193,10 @@ KERNELS = {
                    "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
     "sgpr_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
                         "ggp_tpu/ops/fused_sgpr.py:434", "ggp_tpu/ops/fused_sgpr.py:420"),
-    "z_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
-                     "ggp_tpu/ops/fused_sgpr.py:352", None),
-    # the streamed Z chunk (optimize_Z past 2048 rows), a grid over trace rows
-    # and row blocks
-    "z_adam_stream": ("ggp_tpu_torch/csrc/z_adam_stream.cu",
-                      "ggp_tpu/ops/fused_sgpr.py:338", None),
+    # optimize_Z's chunk at every n on the card: kernel 12, a grid over trace
+    # rows and row blocks (site 7's resident and site 8's streamed function)
+    "z_adam_chunk": ("ggp_tpu_torch/csrc/z_adam_stream.cu",
+                     "ggp_tpu/ops/fused_sgpr.py:352", "ggp_tpu/ops/fused_sgpr.py:338"),
     "mc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
                      "ggp_tpu/ops/fused_multichain.py:1933", None),
     "mc_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
@@ -247,12 +248,26 @@ KERNELS = {
                        "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
     "nuts_transition": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
                         "ggp_tpu/ops/fused_nuts.py:770", None),
+    # the vfe core on a group of blocks per chain (csrc/vfe_group.cuh), where
+    # the JAX package streams it (fused_multichain.py:572, fused_bound.py:1090):
+    # past 1024 rows for C >= 2 chains, past 2048 for one
+    "vfe_group_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
+                            "ggp_tpu/ops/fused_multichain.py:1933",
+                            ("ggp_tpu/ops/fused_nuts.py:807",)),
+    "vfe_group_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
+                             "ggp_tpu/ops/fused_multichain.py:1954",
+                             ("ggp_tpu/ops/fused_multichain.py:1966",
+                              "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792")),
 }
-# a KERNELS entry whose launches are the sum of several counters (one per core)
-LAUNCH_SUMS = {"nuts_transition": ("nuts_transition_vfe", "nuts_transition_co2")}
+# a KERNELS entry whose launches are the sum of several counters (one per
+# core, or per wrapper of one kernel)
+LAUNCH_SUMS = {"nuts_transition": ("nuts_transition_vfe", "nuts_transition_co2"),
+               "z_adam_chunk": ("z_adam_stream",),
+               "vfe_group_potential": ("vfe_group_potential", "vfe_group_mc_potential"),
+               "vfe_group_nuts_chunk": ("vfe_group_nuts_chunk", "vfe_group_mc_nuts_chunk")}
 CO2_KERNELS = ("co2_potential", "co2_nuts_chunk", "nuts_transition")
 # the kernels the reg-large path launches
-REG_KERNELS = ("sgpr_adam_chunk", "mc_potential", "mc_nuts_chunk", "z_adam_stream")
+REG_KERNELS = ("sgpr_adam_chunk", "z_adam_chunk", "vfe_group_potential", "vfe_group_nuts_chunk")
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
 # ~1e-6 in float32.
@@ -408,9 +423,12 @@ REGRESSION_REF_FILE = "regression_reference.json"
 # The reg-large path's NUTS rounds (REGRESSION_REF's "rounds", which
 # regression_reference.py ran), cut from the driver's (100, 20), (25,
 # 10), (100, 20): at this n a warmup transition of the 2-chain sampler takes
-# ~85-175 leapfrogs of ~40 ms (its unit mass against a posterior whose
-# log-noise is known to ~1e-2 and whose lengthscales are barely identified),
-# so the uncut rounds take ~730 s, ~200 s and ~730 s. Ten warmup
+# ~85-175 leapfrogs (its unit mass against a posterior whose log-noise is
+# known to ~1e-2 and whose lengthscales are barely identified), so on one
+# block per chain (~40 ms a leapfrog) the uncut rounds took ~730 s, ~200 s
+# and ~730 s; the uncut protocol is the port's driver,
+# ``python3 -m ggp_tpu_torch.experiments.regression -m BayesianSGPR_HMC -d
+# synthetic-large --n_splits 1``. Ten warmup
 # transitions is the least that leaves the draws' step size adapted (after
 # five, a draw took ~143 leapfrogs); the draws are halved, so the Z steps'
 # trace sizes are S = 20, 10, 20 (kernel 12 is held at the uncut S = 40 in
@@ -843,7 +861,7 @@ def phase_parity(Xd, yd, Zd, res):
         if f32:
             res["nuts_chunk"]["abs32"] = max(aerr)
 
-        # kernels 3 and 4: parameters and losses after 20 steps
+        # kernel 3: parameters and losses after 20 steps
         zt, zz = torch.zeros_like(th), torch.zeros_like(Z)
         akw = dict(t0=0, num_steps=20, lr=0.01, clip_norm=10.0, min_noise=1e-4)
         out = sgpr_adam_chunk(th, Z, zt, zt, zz, zz, X, y, jit, **akw)
@@ -862,45 +880,32 @@ def phase_parity(Xd, yd, Zd, res):
                 bound=roofline(20, n, m, d, xyz + 3 * nbytes(th, Z), nbytes(*out),
                                want_z=True))
 
+        # site 7's function (20 steps x 10 trace rows) on kernel 12, where
+        # z_adam_chunk sends every CUDA call: against site 7's plain version
+        # and against the streamed plain version of the same function
         tgen = torch.Generator(device="cuda").manual_seed(7)
         trace = th + 0.1 * torch.randn((10, d + 2), generator=tgen, dtype=dt, device="cuda")
         zkw = dict(t0=0, num_steps=20, lr=0.01)
+        before = _build.LAUNCHES["z_adam_stream"]
         out = z_adam_chunk(Z, zz, zz, trace, X, y, jit, **zkw)
+        assert _build.LAUNCHES["z_adam_stream"] == before + 1, "z_adam_chunk ran no kernel 12"
         ref = z_adam_chunk_plain(Z, zz, zz, trace, X, y, jit, **zkw)
+        ref_s = z_adam_stream_plain(Z, zz, zz, trace, X, y, jit, **zkw)
         e = max(rel(a, b) for a, b in zip(out, ref))
-        print(f"parity z_adam_chunk {tag}: max rel err {e:.3e}")
-        assert e <= ADAM_TOL[dt], f"z_adam_chunk {tag} rel err {e}"
-        res["z_adam_chunk"]["rel"][tag] = e
-        ms = cuda_ms(lambda: z_adam_chunk(Z, zz, zz, trace, X, y, jit, **zkw), 2)
+        es = max(rel(a, b) for a, b in zip(out, ref_s))
+        ms = cuda_ms(lambda: z_adam_chunk(Z, zz, zz, trace, X, y, jit, **zkw), 3)
         pms = cuda_ms(lambda: z_adam_chunk_plain(Z, zz, zz, trace, X, y, jit, **zkw), 1)
-        print(f"timing z_adam_chunk {tag} (20 steps x 10 rows): kernel {ms:.3f} ms, "
-              f"plain {pms:.3f} ms")
-        if f32:
-            res["z_adam_chunk"].update(
-                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
-                bound=roofline(200, n, m, d, nbytes(X, y, trace) + 3 * nbytes(Z),
-                               nbytes(*out), want_z=True))
-
-        # kernel 12 at the same shape, called directly (optimize_Z routes
-        # N=404 to kernel 4): against its plain version and against kernel 4
-        # (the same function, summed in another order)
-        k4 = out
-        out = z_adam_stream(Z, zz, zz, trace, X, y, jit, **zkw)
-        ref = z_adam_stream_plain(Z, zz, zz, trace, X, y, jit, **zkw)
-        e = max(rel(a, b) for a, b in zip(out, ref))
-        e4 = max(rel(a, b) for a, b in zip(out, k4))
-        ms = cuda_ms(lambda: z_adam_stream(Z, zz, zz, trace, X, y, jit, **zkw), 3)
-        pms = cuda_ms(lambda: z_adam_stream_plain(Z, zz, zz, trace, X, y, jit, **zkw), 1)
         bound = roofline(200, n, m, d, nbytes(X, y, trace) + 3 * nbytes(Z), nbytes(*out),
                          want_z=True)
-        print(f"parity z_adam_stream {tag} (N={n}, 20 steps x 10 rows): max rel err {e:.3e} "
-              f"against its plain version, {e4:.3e} against kernel 4; kernel {ms:.3f} ms, "
-              f"plain {pms:.3f} ms" + (f", bound {bound[0]:.5f} ms" if f32 else ""))
-        assert max(e, e4) <= ADAM_TOL[dt], f"z_adam_stream {tag} N={n} rel err {e}, {e4}"
-        res["z_adam_stream"]["rel"][tag] = max(e, e4)
+        print(f"parity z_adam_chunk {tag} on kernel 12 (N={n}, 20 steps x 10 rows): max rel "
+              f"err {e:.3e} against z_adam_chunk_plain, {es:.3e} against z_adam_stream_plain; "
+              f"kernel {ms:.3f} ms ({ms / 20:.3f} ms a step), plain {pms:.3f} ms"
+              + (f", bound {bound[0]:.5f} ms" if f32 else ""))
+        assert max(e, es) <= ADAM_TOL[dt], f"z_adam_chunk {tag} N={n} rel err {e}, {es}"
+        res["z_adam_chunk"]["rel"][tag] = max(e, es)
         if f32:
-            res["z_adam_stream"]["extra"].update(n404_ms=ms, n404_plain_ms=pms,
-                                                 n404_bound_ms=bound[0])
+            res["z_adam_chunk"].update(abs32=max(abs_err(a, b) for a, b in zip(out, ref)),
+                                       ms=ms, plain_ms=pms, bound=bound)
 
 
 def mc_start(X, y, Z, jit, C, seed, core="vfe", z0=0.0):
@@ -1833,7 +1838,7 @@ def phase_rounds(Xd, yd, Zd, num_chains, label, z_steps):
     print(f"{label} min-ESS/s (last trace): {ess:.3f}; RMSE {r:.4f}; NLPD {nl:.4f}; "
           f"mixture components {means.shape[0]}")
     expected = (["vfe_potential", "nuts_chunk"] if num_chains == 1
-                else ["mc_potential", "mc_nuts_chunk"]) + ["sgpr_adam_chunk", "z_adam_chunk"]
+                else ["mc_potential", "mc_nuts_chunk"]) + ["sgpr_adam_chunk", "z_adam_stream"]
     check_launches(label, launches, expected)
     assert max(divs) <= 0.1, f"divergence fraction {max(divs)}"
     assert float(np.mean(accs)) >= 0.5, f"mean accept {np.mean(accs)}"
@@ -2358,22 +2363,47 @@ def record_large(res, name, tmp, tag, f32):
                                   n13279_bound_ms=r["bound"][0])
 
 
-def phase_parity_large(res, steps=20, k4_steps=1):
+def take_row(res, name, tmp, src, tag, f32):
+    """Move the parity record ``tmp[src]`` (made through a wrapper that
+    routed to kernel ``name``) into the row of ``res[name]``."""
+    r = tmp[src]
+    res[name]["rel"][tag] = max(res[name]["rel"].get(tag, 0.0), r["rel"][tag])
+    if f32:
+        res[name].update(abs32=r["abs32"], ms=r["ms"], plain_ms=r["plain_ms"], bound=r["bound"])
+
+
+def check_repeat(what, fn):
+    """Two calls of ``fn`` on the same inputs give bit-identical outputs
+    (tensors, or chain states, in tuples)."""
+    def flat(out):
+        ts = []
+        for o in out:
+            ts += state_tensors(o) if isinstance(o, ChainState) else [o]
+        return ts
+    a, b = flat(fn()), flat(fn())
+    same = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+    print(f"repeat {what}: two launches on the same inputs bit-identical: {same}")
+    assert same, f"{what}: two launches on the same inputs differ"
+
+
+def phase_parity_large(res, steps=20):
     """The kernels at the reg-large path's shape (synthetic-large: n=13,279,
-    D=18, M=100), float64 and float32. Kernel 12 (z_adam_stream): ``steps``
-    Z steps over the 40-row trace from the JAX run's warm state, against its
-    plain version (float64 to TOL, float32 to ADAM_TOL, or where float32
-    does not resolve the chunk, the kernel's error against the float64 plain
-    run at the same jitter within F32_AS_ACCURATE times the plain version's),
-    against kernel 4 over the first ``k4_steps`` steps (the same function in
-    another order, ~44 ms an evaluation there, so one step of 40 rows), and
-    in float64 against REGRESSION_REF's Z steps (REG_ZSTEP_TOL). Then the sampler cores, whose
-    JAX counterparts stream past 1024 (C chains) and 2048 rows (one chain),
-    held at this n: vfe_potential at one chain, mc_potential and one NUTS
-    chunk pair (warm, sample) at C=2, sgpmc_potential and sgpmc_mc_potential
-    (state d+2+M = 120), each with its time and bound."""
+    D=18, M=100), float64 and float32. Kernel 12 (z_adam_chunk's kernel):
+    ``steps`` Z steps over the 40-row trace from the JAX run's warm state,
+    against its plain version (float64 to TOL, float32 to ADAM_TOL, or where
+    float32 does not resolve the chunk, the kernel's error against the
+    float64 plain run at the same jitter within F32_AS_ACCURATE times the
+    plain version's), and in float64 against REGRESSION_REF's Z steps
+    (REG_ZSTEP_TOL). The grouped vfe core (csrc/vfe_group.cuh), where the
+    wrappers route the vfe core past 2048 rows (one chain) and 1024 (C >= 2),
+    as the JAX package streams it: vfe_potential at one chain, mc_potential
+    and one NUTS chunk pair (warm, sample) at C=2, each against its plain
+    version, and each launched twice on the same inputs (bit-identical). The
+    one-block sgpmc core held at this n: sgpmc_potential and
+    sgpmc_mc_potential (state d+2+M = 120). Each with its time and bound.
+    Then :func:`phase_group_scaling` and site 6's times at this n."""
     ref = regression_ref()
-    zr = res["z_adam_stream"]
+    zr = res["z_adam_chunk"]
     out64 = None
     for dt in (torch.float64, torch.float32):
         tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
@@ -2383,62 +2413,82 @@ def phase_parity_large(res, steps=20, k4_steps=1):
         jit = 1e-5 if f32 else 1e-8
         zz = torch.zeros_like(Zw)
         zkw = dict(t0=0, num_steps=steps, lr=0.01)
-        out, ms = once_ms(lambda: z_adam_stream(Zw, zz, zz, trace, X, y, jit, **zkw))
-        out, ms = once_ms(lambda: z_adam_stream(Zw, zz, zz, trace, X, y, jit, **zkw))
+        out, ms = once_ms(lambda: z_adam_chunk(Zw, zz, zz, trace, X, y, jit, **zkw))
+        out, ms = once_ms(lambda: z_adam_chunk(Zw, zz, zz, trace, X, y, jit, **zkw))
         ref_p, pms = once_ms(lambda: z_adam_stream_plain(Zw, zz, zz, trace, X, y, jit, **zkw))
         bound = roofline(steps * trace.shape[0], n, m, d, nbytes(X, y, trace) + 3 * nbytes(Zw),
                          nbytes(*out), want_z=True)
         e = max(rel(a, b) for a, b in zip(out, ref_p))
-        k4 = z_adam_resident(Zw, zz, zz, trace, X, y, jit, t0=0, num_steps=k4_steps, lr=0.01)
-        mine = z_adam_stream(Zw, zz, zz, trace, X, y, jit, t0=0, num_steps=k4_steps, lr=0.01)
-        e4 = max(rel(a, b) for a, b in zip(mine, k4))
-        txt, ok = "", e <= (ADAM_TOL if f32 else TOL)[dt] and e4 <= ADAM_TOL[dt]
+        txt, ok = "", e <= (ADAM_TOL if f32 else TOL)[dt]
         if f32:
             r64 = z_adam_stream_plain(*(a.double() for a in (Zw, zz, zz, trace, X, y)), jit,
                                       **zkw)
             ek = max(rel(a, b) for a, b in zip(out, r64))
             ep = max(rel(a, b) for a, b in zip(ref_p, r64))
             txt = f"; against float64 from the same inputs: kernel {ek:.3e}, plain {ep:.3e}"
-            if not ok and ep > F32_RESOLVES and e4 <= ADAM_TOL[dt]:
+            if not ok and ep > F32_RESOLVES:
                 ok = ek <= F32_AS_ACCURATE * ep
                 txt += (f" (float32 does not resolve this chunk: kernel held to "
                         f"{F32_AS_ACCURATE:g}x the plain version's error)")
-            zr.update(abs32=max(abs_err(a, b) for a, b in zip(out, ref_p)), ms=ms,
-                      plain_ms=pms, bound=bound)
-            zr["extra"].update(n13279_f32_vs_f64=ek, n13279_f32_plain_vs_f64=ep)
+            zr["extra"].update(n13279_ms=ms, n13279_plain_ms=pms, n13279_bound_ms=bound[0],
+                               n13279_f32_vs_f64=ek, n13279_f32_plain_vs_f64=ep)
         else:
             out64 = out
-            zr["extra"].update(ms_f64=ms, plain_ms_f64=pms)
-        print(f"parity z_adam_stream {tag} at the reg-large shape (n={n}, M={m}, D={d}, "
-              f"{steps} steps x {trace.shape[0]} rows): max rel err {e:.3e} against its plain "
-              f"version, {e4:.3e} against kernel 4 over {k4_steps} steps{txt}; kernel "
-              f"{ms:.3f} ms ({ms / steps:.3f} ms a step), plain {pms:.3f} ms"
-              + (f", bound {bound[0]:.5f} ms" if f32 else ""))
-        assert ok, f"z_adam_stream {tag} n={n} rel err {e}, against kernel 4 {e4}"
-        zr["rel"][tag] = max(zr["rel"].get(tag, 0.0), e, e4)
+            zr["extra"].update(n13279_ms_f64=ms, n13279_plain_ms_f64=pms)
+        print(f"parity z_adam_chunk {tag} (kernel 12) at the reg-large shape (n={n}, M={m}, "
+              f"D={d}, {steps} steps x {trace.shape[0]} rows): max rel err {e:.3e} against its "
+              f"plain version{txt}; kernel {ms:.3f} ms ({ms / steps:.3f} ms a step), plain "
+              f"{pms:.3f} ms" + (f", bound {bound[0]:.5f} ms" if f32 else ""))
+        assert ok, f"z_adam_chunk {tag} n={n} rel err {e}"
+        zr["rel"][tag] = max(zr["rel"].get(tag, 0.0), e)
 
-        # the sampler cores at this n (their streamed counterparts)
+        # the vfe core at this n: the grouped kernels
         tmp = new_res()
         xyz = nbytes(X, y, Zi)
+        gp = res["vfe_group_potential"]
+        before = dict(_build.LAUNCHES)
         U, g = vfe_potential(th, X, y, Zi, jit)
+        assert _build.LAUNCHES["vfe_group_potential"] == before["vfe_group_potential"] + 1, \
+            "vfe_potential at this n did not run the grouped core"
         U0, g0 = rbf_vfe_neg_logpost_vg(th, X, y, Zi, jit)
         ev = max(rel(U, U0), rel(g, g0))
-        vms = cuda_ms(lambda: vfe_potential(th, X, y, Zi, jit), 5)
+        check_repeat(f"vfe_potential {tag} (grouped core, one chain)",
+                     lambda: vfe_potential(th, X, y, Zi, jit))
+        vms = cuda_ms(lambda: vfe_potential(th, X, y, Zi, jit), 10)
         vpms = cuda_ms(lambda: rbf_vfe_neg_logpost_vg(th, X, y, Zi, jit), 3)
         vb = roofline(1, n, m, d, xyz + nbytes(th), (d + 3) * X.element_size())
-        print(f"parity vfe_potential {tag} at n={n}, D={d}, M={m}: max rel err {ev:.3e}; "
-              f"kernel {vms:.4f} ms, plain {vpms:.4f} ms, bound {vb[0]:.6f} ms")
+        G1 = vfe_group.geometry("potential", dt, 1, X.device)
+        print(f"parity vfe_potential {tag} at n={n}, D={d}, M={m} (grouped core, G={G1}): max "
+              f"rel err {ev:.3e}; kernel {vms:.4f} ms, plain {vpms:.4f} ms, bound {vb[0]:.6f} ms")
         assert ev <= TOL[dt], f"vfe_potential {tag} n={n} rel err {ev}"
-        tmp["vfe_potential"].update(rel={tag: ev}, ms=vms, plain_ms=vpms, bound=vb)
-        record_large(res, "vfe_potential", tmp, tag, f32)
+        gp["rel"][tag] = max(gp["rel"].get(tag, 0.0), ev)
+        if f32:
+            gp["extra"].update(c1_ms=vms, c1_plain_ms=vpms, c1_bound_ms=vb[0], c1_group=G1)
         st0, gen = mc_start(X, y, Zi, jit, 2, seed=17, z0=th)
         rows = st0.z + 0.05 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
         potential_parity("mc_potential", lambda r: mc_potential(r, X, y, Zi, jit),
                          lambda r: mc_potential_plain(r, X, y, Zi, jit), rows, tmp, 3,
                          lambda o: (2, n, m, d, xyz + nbytes(rows), nbytes(*o)))
-        record_large(res, "mc_potential", tmp, tag, f32)
+        take_row(res, "vfe_group_potential", tmp, "mc_potential", tag, f32)
+        check_repeat(f"mc_potential {tag} (grouped core, C=2)",
+                     lambda: mc_potential(rows, X, y, Zi, jit))
+        before = dict(_build.LAUNCHES)
         chunk_parity(X, y, Zi, jit, st0, gen, tmp, core="vfe", algo="nuts", grid=2, K=2)
-        record_large(res, "mc_nuts_chunk", tmp, tag, f32)
+        assert _build.LAUNCHES["vfe_group_mc_nuts_chunk"] \
+            == before["vfe_group_mc_nuts_chunk"] + 2, "mc_nuts_chunk did not run the grouped core"
+        take_row(res, "vfe_group_nuts_chunk", tmp, "mc_nuts_chunk", tag, f32)
+        sl = draw_mc_slabs(2, 2, d + 2, algorithm="nuts", max_depth=8, generator=gen, dtype=dt,
+                           device="cuda")
+        no = torch.zeros(2, dtype=torch.bool, device="cuda")
+        check_repeat(f"mc_nuts_chunk {tag} (grouped core, C=2, a warm chunk of 2)",
+                     lambda: mc_nuts_chunk(st0, X, y, Zi, jit, n_active=2, adapt=True,
+                                           in_window=no, window_end=no, max_depth=8, **sl))
+        if f32:
+            gp["extra"]["group"] = vfe_group.geometry("potential", dt, 2, X.device)
+            res["vfe_group_nuts_chunk"]["extra"]["group"] = vfe_group.geometry(
+                "nuts_chunk", dt, 2, X.device)
+
+        # the sgpmc core at this n (one block)
         zs0 = torch.cat([th, torch.zeros(m, dtype=dt, device="cuda")])
         st0, gen = mc_start(X, y, Zi, jit, 2, seed=19, core="sgpmc", z0=zs0)
         row = st0.z[0].contiguous()
@@ -2461,10 +2511,77 @@ def phase_parity_large(res, steps=20, k4_steps=1):
     # the kernel in float64 against the JAX package's Z steps (REGRESSION_REF)
     e_l = rel(out64[3].cpu(), torch.tensor(ref["zstep_losses"], dtype=torch.float64))
     e_z = rel(out64[0].cpu(), torch.tensor(ref["zstep_Z"], dtype=torch.float64))
-    print(f"z_adam_stream f64 against the JAX package's Z steps (regression_reference.py): "
+    print(f"z_adam_chunk f64 against the JAX package's Z steps (regression_reference.py): "
           f"losses {e_l:.3e}, Z {e_z:.3e} (held to {REG_ZSTEP_TOL:g})")
-    assert max(e_l, e_z) <= REG_ZSTEP_TOL, f"z_adam_stream against REGRESSION_REF {e_l}, {e_z}"
+    assert max(e_l, e_z) <= REG_ZSTEP_TOL, f"z_adam_chunk against REGRESSION_REF {e_l}, {e_z}"
     zr["extra"].update(zstep_vs_jax_losses=e_l, zstep_vs_jax_Z=e_z)
+    phase_group_scaling(ref, res)
+    phase_warm_large(ref, res)
+
+
+def phase_group_scaling(ref, res, sizes=(404, 1279, 4096, 13279)):
+    """Milliseconds per float32 evaluation of the vfe core on both designs,
+    one block per chain (``call_potential("vfe", ...)``) and a group of
+    blocks per chain (``"vfe_group"``), at C = 1 and 2 chains on the first n
+    rows of synthetic-large (calls of the kernels, not of the wrappers:
+    they count no launch); both designs must agree to TOL. Also the grouped
+    kernels' occupancy, which sets G, and each design's float32 dU/dZ (the
+    trainers' options) against the float64 plain version at the largest n,
+    printed: no path takes dU/dZ from the potential kernel at that n."""
+    X, y, Zi, th, _, _ = large_inputs(torch.float32, ref)
+    jit = 1e-5
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = th + 0.05 * torch.randn((2, th.numel()), generator=gen, device="cuda")
+    parts, table = [], {}
+    for C in (1, 2):
+        r = rows[:C].contiguous()
+        G = vfe_group.geometry("potential", torch.float32, C, X.device)
+        for n in sizes:
+            Xn, yn = X[:n].contiguous(), y[:n].contiguous()
+            one = call_potential("vfe", r, Xn, yn, Zi, jit)
+            grp = call_potential("vfe_group", r, Xn, yn, Zi, jit)
+            e = max(rel(a, b) for a, b in zip(grp, one))
+            assert e <= TOL[torch.float32], f"the two vfe designs at C={C}, n={n}: {e}"
+            t1 = cuda_ms(lambda: call_potential("vfe", r, Xn, yn, Zi, jit), 3)
+            tg = cuda_ms(lambda: call_potential("vfe_group", r, Xn, yn, Zi, jit), 10)
+            table[f"c{C}_n{n}"] = [t1, tg]
+            parts.append(f"C={C} n={n}: one block {t1:.4f} ms, group of {G} {tg:.4f} ms "
+                         f"({t1 / tg:.2f}x, {e:.1e} apart)")
+    occ = {f"{k} {t}": vfe_group.blocks_per_sm(k, dt) for k in ("potential", "nuts_chunk")
+           for t, dt in (("f32", torch.float32), ("f64", torch.float64))}
+    print("scaling vfe core f32 per evaluation, one block per chain against a group: "
+          + "; ".join(parts) + f" ({CARD})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"vfe_group occupancy, blocks per SM of {sms}: {json.dumps(occ)}")
+    opts = dict(want_z_grad=True, want_prior=False, pivot_floor=1e-6)
+    z64 = rbf_vfe_neg_logpost_vg(*(a.double() for a in (rows[0], X, y, Zi)), jit, **opts)[2]
+    ez = {k: rel(call_potential(k, rows[:1], X, y, Zi, jit, **opts)[2][0], z64)
+          for k in ("vfe", "vfe_group")}
+    ez["plain"] = rel(rbf_vfe_neg_logpost_vg(rows[0], X, y, Zi, jit, **opts)[2], z64)
+    print(f"dU/dZ f32 at n={X.shape[0]} against float64 plain (printed, not held): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ez.items()))
+    res["vfe_group_potential"]["extra"].update(scaling_ms=table, blocks_per_sm=occ,
+                                               dz_f32_vs_f64=ez)
+
+
+def phase_warm_large(ref, res, steps=2):
+    """sgpr_adam_chunk (site 6's function: the one-block warm-start kernel)
+    and its plain version at the reg-large shape, float32, ``steps`` steps
+    from the JAX run's warm state: ms a step of each. The difference is
+    printed, not held: phase_parity_warm4096 holds the function."""
+    X, y, _, th, Zw, _ = large_inputs(torch.float32, ref)
+    zt, zz = torch.zeros_like(th), torch.zeros_like(Zw)
+    akw = dict(t0=0, num_steps=steps, lr=0.01, clip_norm=10.0, min_noise=1e-4)
+    out = sgpr_adam_chunk(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw)
+    ref_p = sgpr_adam_chunk_plain(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw)
+    e = max(rel(a, b) for a, b in zip(out, ref_p))
+    ms = cuda_ms(lambda: sgpr_adam_chunk(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw), 1)
+    pms = cuda_ms(lambda: sgpr_adam_chunk_plain(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw), 1)
+    print(f"timing sgpr_adam_chunk f32 at n={X.shape[0]} ({steps} steps): kernel "
+          f"{ms / steps:.3f} ms a step, plain {pms / steps:.3f} ms a step; {e:.3e} apart "
+          f"(printed, not held)")
+    res["sgpr_adam_chunk"]["extra"].update(n13279_ms_per_step=ms / steps,
+                                           n13279_plain_ms_per_step=pms / steps)
 
 
 def phase_reg_large():
@@ -2472,11 +2589,11 @@ def phase_reg_large():
     (experiments/regression.py ``single_run("synthetic-large", 0,
     "BayesianSGPR_HMC")``) at the JAX driver's full protocol in float32:
     13,279 train rows, D=18, M=100, warm start 500 steps (sgpr_adam_chunk),
-    three NUTS rounds of 2 chains (mc_potential, mc_nuts_chunk), cut to
-    REGRESSION_REF's rounds, 500 Z steps after each (z_adam_stream: S = 20,
-    10, 20), the 20-component mixture predictive on the 3,320 test rows. The
-    model's phases are timed, and the rounds cut, from outside (its methods
-    wrapped for this run).
+    three NUTS rounds of 2 chains (mc_potential and mc_nuts_chunk on the
+    grouped vfe core), cut to REGRESSION_REF's rounds, 500 Z steps after each
+    (kernel 12: S = 20, 10, 20), the 20-component mixture predictive on the
+    3,320 test rows. The model's phases are timed, and the rounds cut, from
+    outside (its methods wrapped for this run).
     Every round is held to the health gates, the warm start's loss and the
     test metrics to REGRESSION_REF. Returns the launch counts of the run."""
     ref = regression_ref()
@@ -2534,8 +2651,10 @@ def phase_reg_large():
           f"driver total {ms / 1e3:.3f} ({CARD}); test RMSE {metrics['test_rmse']:.4f}, "
           f"NLPD {metrics['test_nlpd']:.4f} (JAX CPU keys: RMSE {ref['rmse']:.4f} +- "
           f"{ref['rmse_sd']:.4f}, NLPD {ref['nlpd']:.4f} +- {ref['nlpd_sd']:.4f})")
-    check_launches("reg-large", launches,
-                   ["sgpr_adam_chunk", "mc_potential", "mc_nuts_chunk", "z_adam_stream"])
+    check_launches("reg-large", launches, ["sgpr_adam_chunk", "vfe_group_mc_potential",
+                                           "vfe_group_mc_nuts_chunk", "z_adam_stream"])
+    assert launches["mc_nuts_chunk"] == launches["mc_potential"] == 0, \
+        "reg-large ran the one-block vfe core where the grouped one belongs"
     for i, r in enumerate(rec["sample_hypers"]):
         assert r["div"] <= 0.1, f"reg-large round {i} divergence fraction {r['div']}"
         assert r["acc"] >= 0.5, f"reg-large round {i} mean accept {r['acc']}"
@@ -2791,7 +2910,7 @@ def main(argv):
                 "max_rel_err_f64": r["rel"].get("f64"), "max_rel_err_f32": r["rel"].get("f32"),
                 **r["extra"]}
         if also:
-            item["also_replaces"] = also
+            item["also_replaces"] = list(also) if isinstance(also, tuple) else also
         out.append(item)
     print(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": out}))

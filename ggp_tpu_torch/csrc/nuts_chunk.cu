@@ -52,6 +52,7 @@
 #include "co2_bound.cuh"
 #include "gpr_bound.cuh"
 #include "stan_adapt.cuh"
+#include "vfe_group.cuh"
 
 namespace ggp {
 
@@ -249,6 +250,10 @@ __device__ __forceinline__ void write_stats(T* st, T U, const TransOut<T>& tr) {
   st[5] = tr.H0;
 }
 
+// A grouped core (CoreGroup) runs each chain on G = cf.group blocks: every
+// block of the group runs the same transitions on its own copy of the tree
+// state (the core returns identical bits to all of them), and only the
+// group's block 0 (`lead`) writes draws, stats and the chain's state.
 template <template <typename> class Core, typename T>
 __global__ void __launch_bounds__(CoreThreads<Core>::value)
 nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
@@ -258,10 +263,11 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
   __shared__ BoundShared<T> sh;
   __shared__ NutsShared<T, CoreDim<Core>::value> s;
   const int tid = threadIdx.x;
-  const int c = blockIdx.x, C = gridDim.x;            // this block's chain
+  const int G = CoreGroup<Core>::value ? cf.group : 1;
+  const int c = blockIdx.x / G, C = gridDim.x / G;    // this block's chain
+  const bool lead = blockIdx.x % G == 0;
   const int dim = nc.dim, max_depth = nc.max_depth, K = nc.K;
-  const typename Core<T>::WorkT w =
-      Core<T>::work(scratch + (long)c * Core<T>::elems(cf), cf);
+  const typename Core<T>::WorkT w = core_work<Core, T>(scratch, cf, X, Z, sh, c);
   state += c * S_LEN;
   zio += c * dim;
   gio += c * dim;
@@ -284,8 +290,8 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
   for (int t = 0; t < K; ++t) {
     const long row = (long)t * C + c;                 // slab and output row
     if (t >= n_active) {
-      if (int k = tid; k < dim) draws[row * dim + k] = T(0);
-      if (tid < 6) stats[row * 6 + tid] = T(0);
+      if (int k = tid; lead && k < dim) draws[row * dim + k] = T(0);
+      if (lead && tid < 6) stats[row * 6 + tid] = T(0);
       continue;
     }
     const T eps = nc.adapt ? gexp(a.le) : eps_fixed;
@@ -298,11 +304,12 @@ nuts_chunk_kernel(BoundCfg cf, NutsCfg nc, T* state, T* zio, T* gio, T* imio,
                  flags[K + t] > 0, s.pz, s.im, s.wm, s.wm2, dim);
     acc_sum += tr.accept;
     div_sum += tr.diverging ? T(1) : T(0);
-    if (int k = tid; k < dim) draws[row * dim + k] = s.pz[k];
-    if (tid == 0) write_stats(stats + row * 6, Up, tr);
+    if (int k = tid; lead && k < dim) draws[row * dim + k] = s.pz[k];
+    if (lead && tid == 0) write_stats(stats + row * 6, Up, tr);
     __syncthreads();
   }
 
+  if (!lead) return;
   vcopy(zio, s.pz, dim);
   vcopy(gio, s.pg, dim);
   vcopy(imio, s.im, dim);
@@ -325,12 +332,22 @@ int launch_nuts(const double* cfg, void* state, void* z, void* g,
   nc.adapt = (int)cfg[C_ADAPT];
   nc.adapt_mass = (int)cfg[C_ADAPT_MASS];
   nc.target = cfg[C_TARGET];
-  nuts_chunk_kernel<Core, T><<<(int)cfg[C_CHAINS], CoreThreads<Core>::value, 0,
-                                 (cudaStream_t)stream>>>(
-      cf, nc, (T*)state, (T*)z, (T*)g, (T*)im, (T*)wm, (T*)wm2,
-      (const int*)flags, (const T*)mom, (const T*)treeu, (const T*)leafu,
-      (const T*)X, (const T*)y, (const T*)Z, (T*)draws, (T*)stats, (T*)scratch);
-  return (int)cudaGetLastError();
+  const int grid = (int)cfg[C_CHAINS] * (CoreGroup<Core>::value ? cf.group : 1);
+  return launch_grid<CoreGroup<Core>::value>(
+      nuts_chunk_kernel<Core, T>, grid, CoreThreads<Core>::value, stream, cf, nc, (T*)state,
+      (T*)z, (T*)g, (T*)im, (T*)wm, (T*)wm2, (const int*)flags, (const T*)mom,
+      (const T*)treeu, (const T*)leafu, (const T*)X, (const T*)y, (const T*)Z, (T*)draws,
+      (T*)stats, (T*)scratch);
+}
+
+// Blocks of the grouped chunk kernel one SM holds at once (the occupancy the
+// cooperative launch is sized by), or a negative cudaError_t.
+template <typename T>
+int chunk_group_blocks_per_sm() {
+  int nb = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, nuts_chunk_kernel<VfeGroupCore, T>, CoreThreads<VfeGroupCore>::value, 0);
+  return err == cudaSuccess ? nb : -(int)err;
 }
 
 // Kernel 2b: one NUTS transition at a given step size and inverse mass
@@ -406,6 +423,17 @@ int ggp_nuts_chunk_vfe_f32(GGP_NUTS_ARGS) {
 }
 int ggp_nuts_chunk_vfe_f64(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::VfeCore, double>(GGP_NUTS_PASS);
+}
+// cfg[C_CHAINS] chains of cfg[C_GROUP] blocks each, one cooperative launch
+int ggp_nuts_chunk_vfe_group_f32(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::VfeGroupCore, float>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_vfe_group_f64(GGP_NUTS_ARGS) {
+  return ggp::launch_nuts<ggp::VfeGroupCore, double>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_vfe_group_occupancy(int f64) {
+  return f64 ? ggp::chunk_group_blocks_per_sm<double>()
+             : ggp::chunk_group_blocks_per_sm<float>();
 }
 int ggp_nuts_chunk_sgpmc_f32(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::SgpmcCore, float>(GGP_NUTS_PASS);

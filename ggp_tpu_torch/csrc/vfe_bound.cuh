@@ -71,6 +71,39 @@ struct CoreDim {
   static constexpr int value = kMaxDim;
 };
 
+// Whether `Core` spreads one evaluation over a group of cfg[C_GROUP] blocks
+// per chain (vfe_group.cuh), launched cooperatively: chain c is blocks
+// c G .. c G + G - 1 of the grid. Every other core runs a chain on one block.
+template <template <typename> class Core>
+struct CoreGroup {
+  static constexpr bool value = false;
+};
+
+template <typename X>
+struct same_type {
+  using type = X;
+};
+
+// Launch `kernel` on `grid` blocks of `threads` on `stream`: cooperatively
+// for a grouped core (every block co-resident, so one block may wait on
+// another; a grid that does not fit fails with
+// cudaErrorCooperativeLaunchTooLarge, and nothing runs), else as usual.
+// Returns the launch's cudaError_t.
+template <bool Coop, typename... Args>
+int launch_grid(void (*kernel)(Args...), int grid, int threads, void* stream,
+                typename same_type<Args>::type... args) {
+  if constexpr (Coop) {
+    void* ptrs[] = {(void*)&args...};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        (const void*)kernel, dim3(grid), dim3(threads), ptrs, 0, (cudaStream_t)stream);
+    cudaGetLastError();
+    return (int)err;
+  } else {
+    kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+}
+
 // Layout of the `cfg` double array every launcher takes (mirrored by
 // ggp_tpu_torch/ops/_build.py).
 enum CfgIndex {
@@ -81,7 +114,8 @@ enum CfgIndex {
   C_STAGES, C_NB, C_NUM_DATA, C_LIK, C_LATENTS, C_NHALF, C_PRIOR_VAR,
   C_QUAD = 40,                       // 20 Gauss-Hermite nodes, then 20 weights
   C_LANE_PRIOR = 80,                 // co2 core: 11 lanes x (kind, p1, p2, const)
-  C_LEN = 124
+  C_GROUP = 124,                     // blocks per chain of a grouped core
+  C_LEN = 125
 };
 
 enum PriorKind { P_GAMMA = 0, P_HC_STD, P_HC, P_HALF_NORMAL, P_LOGNORMAL, P_FLAT };
@@ -91,6 +125,7 @@ struct PriorLeaf { int kind; double p1, p2, c; };
 struct BoundCfg {
   int n, m, d, want_prior, want_z;
   int stages;                        // gpr core: stop after this part (0: all)
+  int group;                         // blocks per chain of a grouped core
   double jitter, floor;
   PriorLeaf leaf[3];                 // lengthscales, outputscale, noise
   PriorLeaf lane[11];                // co2 core (co2_bound.cuh): one per hyper
@@ -106,6 +141,7 @@ inline BoundCfg bound_cfg(const double* cfg) {
   b.want_prior = (int)cfg[C_WANT_PRIOR];
   b.want_z = (int)cfg[C_WANT_ZGRAD];
   b.stages = (int)cfg[C_STAGES];
+  b.group = (int)cfg[C_GROUP];
   for (int l = 0; l < 14; ++l) {
     const double* p = l < 3 ? cfg + C_PRIOR + 4 * l : cfg + C_LANE_PRIOR + 4 * (l - 3);
     PriorLeaf& q = l < 3 ? b.leaf[l] : b.lane[l - 3];
@@ -338,20 +374,33 @@ __device__ void prior_leaf(const PriorLeaf& p, T u, T* lp, T* g) {
   }
 }
 
+// How the block-wide routines load data: through the SM's L1 (PlainLoad),
+// or from L2 past it (L2Load, ld.global.cg) for data another block of the
+// same launch wrote: L1 is not coherent across SMs, and a line cached there
+// in an earlier evaluation would be stale.
+struct PlainLoad {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p) const { return *p; }
+};
+struct L2Load {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p) const { return __ldcg(p); }
+};
+
 // sum_{k0 <= k < k1} a[k sa] b[k sb] in Acc, in four independent chains, so
-// that the loads of four terms are in flight at once
-template <typename Acc, typename T>
+// that the loads of four terms are in flight at once; `ld` loads a and b
+template <typename Acc, typename T, typename Ld = PlainLoad>
 __device__ __forceinline__ Acc dot_acc(const T* a, int sa, const T* b, int sb, int k0,
-                                       int k1) {
+                                       int k1, Ld ld = Ld()) {
   Acc s0 = Acc(0), s1 = Acc(0), s2 = Acc(0), s3 = Acc(0);
   int k = k0;
   for (; k + 3 < k1; k += 4) {
-    s0 += Acc(a[k * sa]) * Acc(b[k * sb]);
-    s1 += Acc(a[(k + 1) * sa]) * Acc(b[(k + 1) * sb]);
-    s2 += Acc(a[(k + 2) * sa]) * Acc(b[(k + 2) * sb]);
-    s3 += Acc(a[(k + 3) * sa]) * Acc(b[(k + 3) * sb]);
+    s0 += Acc(ld(a + k * sa)) * Acc(ld(b + k * sb));
+    s1 += Acc(ld(a + (k + 1) * sa)) * Acc(ld(b + (k + 1) * sb));
+    s2 += Acc(ld(a + (k + 2) * sa)) * Acc(ld(b + (k + 2) * sb));
+    s3 += Acc(ld(a + (k + 3) * sa)) * Acc(ld(b + (k + 3) * sb));
   }
-  for (; k < k1; ++k) s0 += Acc(a[k * sa]) * Acc(b[k * sb]);
+  for (; k < k1; ++k) s0 += Acc(ld(a + k * sa)) * Acc(ld(b + k * sb));
   return (s0 + s1) + (s2 + s3);
 }
 
@@ -371,11 +420,13 @@ enum GemmSkip { K_FULL = 0, K_FROM_R = 1, K_FROM_C = 2, K_TO_C = 4, SYM_UPPER = 
 // accumulator (the order of a serial loop), and goes to epi(r, c, sum) from
 // the thread that formed it. The chunks live in the caller's shared tiles
 // sA[KC][TR + 1] and sB[KC][TC + 1] (declared once per kernel: a static
-// array here would be one per epilogue). Ends with a barrier.
-template <typename Acc, int TR, int TC, int KC, int NT, typename T, typename Epi>
+// array here would be one per epilogue); `ld` loads A's and B's entries.
+// Ends with a barrier.
+template <typename Acc, int TR, int TC, int KC, int NT, typename T, typename Epi,
+          typename Ld = PlainLoad>
 __device__ void block_gemm(int R, int Cn, int K, const T* A, int ar, int ak, const T* B,
                            int bk, int bc, int skip, T (*sA)[TR + 1], T (*sB)[TC + 1],
-                           Epi epi) {
+                           Epi epi, Ld ld = Ld()) {
   constexpr int kHalf = TC / 2, kStep = NT / kHalf, kPer = TR / kStep;
   static_assert(TC % 2 == 0 && NT % kHalf == 0 && TR % kStep == 0,
                 "tile does not fit the block");
@@ -396,13 +447,13 @@ __device__ void block_gemm(int R, int Cn, int K, const T* A, int ar, int ak, con
           int r, kk;
           if (ak == 1) { r = e / KC; kk = e % KC; } else { kk = e / TR; r = e % TR; }
           const int rg = tr + r, kg = k0 + kk;
-          sA[kk][r] = (rg < R && kg < k_hi) ? A[rg * ar + kg * ak] : T(0);
+          sA[kk][r] = (rg < R && kg < k_hi) ? ld(A + rg * ar + kg * ak) : T(0);
         }
         for (int e = tid; e < KC * TC; e += NT) {
           int c, kk;
           if (bc == 1) { kk = e / TC; c = e % TC; } else { c = e / KC; kk = e % KC; }
           const int cg = tc + c, kg = k0 + kk;
-          sB[kk][c] = (cg < Cn && kg < k_hi) ? B[kg * bk + cg * bc] : T(0);
+          sB[kk][c] = (cg < Cn && kg < k_hi) ? ld(B + kg * bk + cg * bc) : T(0);
         }
         __syncthreads();
 #pragma unroll
@@ -761,5 +812,20 @@ struct VfeCore {
     vfe_bound(cf, z, X, y, Z, w, sh, U, g, dZ);
   }
 };
+
+// The work of this block on chain c, as the sampler kernels take it: a
+// one-block core's own area of the scratch; for a grouped core, its place in
+// the chain's group of blocks, which Core::work reads from cf and blockIdx.x
+// (it also forms what the core keeps for the whole launch). Every thread of
+// the block calls it.
+template <template <typename> class Core, typename T>
+__device__ typename Core<T>::WorkT core_work(T* scratch, const BoundCfg& cf, const T* X,
+                                             const T* Z, BoundShared<T>& sh, int c) {
+  if constexpr (CoreGroup<Core>::value) {
+    return Core<T>::work(scratch, cf, X, Z, sh);
+  } else {
+    return Core<T>::work(scratch + (long)c * Core<T>::elems(cf), cf);
+  }
+}
 
 }  // namespace ggp

@@ -27,6 +27,7 @@
 #include "co2_bound.cuh"
 #include "gpr_bound.cuh"
 #include "sgpmc_bound.cuh"
+#include "vfe_group.cuh"
 
 namespace ggp {
 
@@ -39,15 +40,17 @@ potential_kernel(BoundCfg cf, const T* theta, const T* X, const T* y,
   __shared__ T s_g[kMaxDim];
   __shared__ T s_U;
   const int dim = Core<T>::dim(cf);
-  const int c = blockIdx.x;                            // this block's row
+  const int G = CoreGroup<Core>::value ? cf.group : 1;   // blocks per row
+  const int c = blockIdx.x / G;                          // this block's row
+  const bool lead = blockIdx.x % G == 0;
   theta += c * dim;
   out += c * (dim + 1);
   if (dZ != nullptr) dZ += (long)c * cf.m * cf.d;
   if (int k = threadIdx.x; k < dim) s_theta[k] = theta[k];
   __syncthreads();
-  const typename Core<T>::WorkT w =
-      Core<T>::work(scratch + (long)c * Core<T>::elems(cf), cf);
+  const typename Core<T>::WorkT w = core_work<Core, T>(scratch, cf, X, Z, sh, c);
   Core<T>::eval(cf, s_theta, X, y, Z, w, sh, &s_U, s_g, dZ);
+  if (!lead) return;
   if (threadIdx.x == 0) out[0] = s_U;
   if (int k = threadIdx.x; k < dim) out[1 + k] = s_g[k];
 }
@@ -57,11 +60,20 @@ int launch_potential(const double* cfg, const void* theta, const void* X,
                      const void* y, const void* Z, void* out, void* dZ,
                      void* scratch, void* stream) {
   const BoundCfg cf = bound_cfg(cfg);
-  potential_kernel<Core, T><<<(int)cfg[C_CHAINS], CoreThreads<Core>::value, 0,
-                                 (cudaStream_t)stream>>>(
-      cf, (const T*)theta, (const T*)X, (const T*)y, (const T*)Z, (T*)out,
-      (T*)dZ, (T*)scratch);
-  return (int)cudaGetLastError();
+  const int grid = (int)cfg[C_CHAINS] * (CoreGroup<Core>::value ? cf.group : 1);
+  return launch_grid<CoreGroup<Core>::value>(
+      potential_kernel<Core, T>, grid, CoreThreads<Core>::value, stream, cf,
+      (const T*)theta, (const T*)X, (const T*)y, (const T*)Z, (T*)out, (T*)dZ, (T*)scratch);
+}
+
+// Blocks of the grouped potential kernel one SM holds at once, or a
+// negative cudaError_t.
+template <typename T>
+int potential_group_blocks_per_sm() {
+  int nb = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, potential_kernel<VfeGroupCore, T>, CoreThreads<VfeGroupCore>::value, 0);
+  return err == cudaSuccess ? nb : -(int)err;
 }
 
 }  // namespace ggp
@@ -87,6 +99,22 @@ int ggp_potential_vfe_f32(GGP_POT_ARGS) {
 }
 int ggp_potential_vfe_f64(GGP_POT_ARGS) {
   return ggp::launch_potential<ggp::VfeCore, double>(GGP_POT_PASS);
+}
+// cfg[C_CHAINS] rows of cfg[C_GROUP] blocks each, one cooperative launch
+int ggp_potential_vfe_group_f32(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::VfeGroupCore, float>(GGP_POT_PASS);
+}
+int ggp_potential_vfe_group_f64(GGP_POT_ARGS) {
+  return ggp::launch_potential<ggp::VfeGroupCore, double>(GGP_POT_PASS);
+}
+int ggp_potential_vfe_group_occupancy(int f64) {
+  return f64 ? ggp::potential_group_blocks_per_sm<double>()
+             : ggp::potential_group_blocks_per_sm<float>();
+}
+// elements of T of the grouped core's scratch for C chains of G blocks
+long ggp_group_scratch_elems(int n, int m, int d, int C, int G, int f64) {
+  return f64 ? ggp::group_scratch_elems<double>(n, m, d, C, G)
+             : ggp::group_scratch_elems<float>(n, m, d, C, G);
 }
 int ggp_potential_sgpmc_f32(GGP_POT_ARGS) {
   return ggp::launch_potential<ggp::SgpmcCore, float>(GGP_POT_PASS);

@@ -1,7 +1,8 @@
 // Kernel 12: the streamed chunk of Adam steps on Z over a hyper trace.
 //
-// Replaces ggp_tpu/ops/fused_sgpr.py `_zadam_chunk_body` in its streamed
-// form (the pallas_call at fused_sgpr.py:338, n > 2048): K Adam steps on Z
+// Replaces ggp_tpu/ops/fused_sgpr.py `_zadam_chunk_body` in both its forms,
+// streamed (the pallas_call at fused_sgpr.py:338, n > 2048) and resident
+// (:352, site 7; the port runs this kernel at every n): K Adam steps on Z
 // only, each step the mean over the S rows theta_s of the hyper trace of
 // -ELBO(theta_s, Z) and of its Z gradient, non-finite entries of the mean
 // gradient zeroed, then the optax Adam update with bias correction from t0.
@@ -44,18 +45,20 @@
 // B's partial, dF/dKnm), which spread over P S blocks, and the epilogue's
 // two factorisations and inverses on one block per trace row, a chain of
 // M barrier steps each. What the design does about it: trace rows and row
-// blocks are independent, so a step fills the card with P S blocks where
-// the one-block kernel 4 (sgpr_adam.cu) runs the S rows one after another.
+// blocks are independent, so a step fills the card with P S blocks (the
+// port's first kernel for site 7 ran the S rows one after another on one
+// block).
 // One launch per phase per step; the step loop runs on the host inside one
 // call, with cudaGetLastError checked after every launch. The products are
 // block_gemm's shared-memory tiles; wgmma is later work.
 #include "adam.cuh"
+#include "row_blocks.cuh"
 
 namespace ggp {
 namespace zstream {
 
 constexpr int kStreamBlocks = 264;   // blocks a pass aims at: two per SM of an H100
-constexpr int TR = 32, TC = 32, KC = 8;
+constexpr int TR = kRowTR, TC = kRowTC, KC = kRowKC;
 
 struct Shape {
   int n, m, d, S, NB, R, P;
@@ -168,27 +171,8 @@ template <typename T>
 __device__ void block_grams(const Shape& s, const ThetaArea<T>& a, const T* X, const T* Z,
                             int row0, int nr, T* Knm, T* An, T* xn, const T* il,
                             T (*sA)[TR + 1], T (*sB)[TC + 1]) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int m = s.m, d = s.d;
-  const T sf2 = a.scal[1], sigma = gsqrt(a.scal[2]);
-  for (int i = tid; i < nr; i += nt) {
-    T q = T(0);
-    for (int k = 0; k < d; ++k) { const T b = X[(long)(row0 + i) * d + k] * il[k]; q += b * b; }
-    xn[i] = q;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nr * m; idx += nt) {
-    const int i = idx / m, j = idx % m;
-    T dot = T(0);
-    for (int k = 0; k < d; ++k)
-      dot += (X[(long)(row0 + i) * d + k] * il[k]) * (Z[j * d + k] * il[k]);
-    const T r2 = jmax(xn[i] + a.w.zn[j] - T(2) * dot, T(0));
-    Knm[idx] = sf2 * gexp(T(-0.5) * r2);
-  }
-  __syncthreads();
-  // V(k, j) = 0 for k > j
-  block_gemm<T, TR, TC, KC, kThreads>(nr, m, m, Knm, m, 1, a.w.V, m, 1, K_TO_C, sA, sB,
-                                      [&](int i, int j, T v) { An[i * m + j] = v / sigma; });
+  block_knm(s.m, s.d, X, Z, a.w.zn, il, a.scal[1], row0, nr, Knm, xn);
+  block_an(s.m, nr, Knm, a.w.V, gsqrt(a.scal[2]), An, sA, sB);
 }
 
 // pass 1, block (p, th): partials of B - I (upper triangle), u and yy
@@ -246,21 +230,12 @@ epi_kernel(BoundCfg cf, Shape s, const T* Z, T* work, const double* part) {
   for (int idx = tid; idx < m * m; idx += nt) {
     const int i = idx / m, j = idx % m;
     const int lo = i < j ? i : j, hi = i < j ? j : i;
-    double acc = 0.0;
-    for (int p = 0; p < s.P; ++p) acc += P0[p * pe + lo * m + hi];
-    const T v = T(acc) + (i == j ? T(1) : T(0));
+    const T v = T(sum_partials(P0, pe, s.P, (long)lo * m + hi)) + (i == j ? T(1) : T(0));
     w.B[idx] = v;
     w.W[idx] = v;
   }
-  for (int j = tid; j < m; j += nt) {
-    double acc = 0.0;
-    for (int p = 0; p < s.P; ++p) acc += P0[p * pe + (long)m * m + j];
-    w.u[j] = T(acc);
-  }
-  double yyd = 0.0;
-  if (tid == 0)
-    for (int p = 0; p < s.P; ++p) yyd += P0[p * pe + (long)m * m + m];
-  if (tid == 0) red[0] = yyd;
+  for (int j = tid; j < m; j += nt) w.u[j] = T(sum_partials(P0, pe, s.P, (long)m * m + j));
+  if (tid == 0) red[0] = sum_partials(P0, pe, s.P, (long)m * m + m);
   __syncthreads();
   const T yy = T(red[0]);
   const T sf2 = a.scal[1], s2 = a.scal[2];
@@ -341,9 +316,7 @@ finish_kernel(Shape s, TrainCfg tc, int t, T* Z, T* m_z, T* v_z, T* losses, T* w
     T g = T(0);
     for (int th = 0; th < s.S; ++th) {
       const ThetaArea<T> a = theta_area(work, s, th);
-      const double* G0 = partial_area(part, s, th, 0) + off;
-      double acc = 0.0;
-      for (int p = 0; p < s.P; ++p) acc += G0[p * pe + idx];
+      const double acc = sum_partials(partial_area(part, s, th, 0) + off, pe, s.P, idx);
       // dU/dZ = -(dF/dZ) = (2 GmmZ + GnmZ) il
       g = g + inv_s * ((T(2) * a.w.GmmZ[idx] + T(acc)) * a.il[k]);
     }

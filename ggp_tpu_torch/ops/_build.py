@@ -13,7 +13,10 @@ kernels take the potential core as a template parameter and have one entry
 per core and dtype (``ggp_{kind}_{core}_{f32,f64}``) for the kinds each core
 carries (:data:`CORE_KINDS`: the gpr core has no HMC chunk, which no model
 runs; the co2 cores a potential, a NUTS chunk and a transition, as the JAX
-package runs them); their counters name the core (:func:`launch_key`). Each source is
+package runs them); their counters name the core (:func:`launch_key`). The
+``"vfe_group"`` entries are the vfe core spread over a group of blocks per
+chain (``csrc/vfe_group.cuh``, ``ops/vfe_group.py``), which the vfe wrappers
+route to at large n and launch cooperatively. Each source is
 compiled with ``-Xptxas -v``;
 the compiler's report of registers, shared memory and spills is kept beside
 the library (:func:`ptxas_report`).
@@ -37,9 +40,10 @@ __all__ = ["LAUNCHES", "reset_launches", "launch_key", "build", "kernel_fn",
 _SAMPLER_KINDS = ("potential", "nuts_chunk", "hmc_chunk", "mc_potential",
                   "mc_nuts_chunk", "mc_hmc_chunk")
 _CO2_KINDS = ("potential", "nuts_chunk", "nuts_transition")
+_NUTS_KINDS = ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk")
 CORE_KINDS = {"vfe": _SAMPLER_KINDS + ("nuts_transition",), "sgpmc": _SAMPLER_KINDS,
-              "gpr": ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk"),
-              "co2_m32": _CO2_KINDS, "co2_rbf": _CO2_KINDS}
+              "gpr": _NUTS_KINDS, "co2_m32": _CO2_KINDS, "co2_rbf": _CO2_KINDS,
+              "vfe_group": _NUTS_KINDS}
 # csrc vfe_potential.cu ggp_scratch_elems
 _CORE_ID = {"vfe": 0, "sgpmc": 1, "gpr": 2, "co2_m32": 3, "co2_rbf": 4}
 
@@ -57,7 +61,7 @@ def launch_key(core: str, kind: str) -> str:
 
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
-            "sgpr_adam_chunk": 0, "z_adam_chunk": 0, "z_adam_stream": 0,
+            "sgpr_adam_chunk": 0, "z_adam_stream": 0,
             "sgpmc_warm_chunk": 0,
             "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0,
             "vfe_stats_fwd": 0, "vfe_stats_bwd": 0}
@@ -82,7 +86,7 @@ CFG = dict(N=0, M=1, D=2, JITTER=3, FLOOR=4, WANT_PRIOR=5, WANT_ZGRAD=6,
            ADAPT_MASS=24, LR=25, CLIP=26, MIN_NOISE=27, T0=28, S_ACT=29,
            EPS=30, CHAINS=31, LEAPFROG=32, STAGES=33, NB=34, NUM_DATA=35,
            LIK=36, LATENTS=37, NHALF=38, PRIOR_VAR=39, QUAD=40, LANE_PRIOR=80,
-           LEN=124)
+           GROUP=124, LEN=125)
 _LIST_ENTRIES = ("PRIOR", "QUAD", "LANE_PRIOR")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -98,7 +102,6 @@ _SIGS = {
     **{f"ggp_{k}_{c}": [_P] * n for c, kinds in CORE_KINDS.items()
        for k, n in _NARGS.items() if k in kinds},
     "ggp_sgpr_adam": [_P] * 12,
-    "ggp_z_adam": [_P] * 10,
     "ggp_z_adam_stream": [_P] * 11,
     "ggp_sgpmc_warm": [_P] * 12,
     "ggp_svi_chunk": [_P] * 19,
@@ -173,6 +176,12 @@ def _load(path: str) -> ctypes.CDLL:
     lib_.ggp_svi_scratch_elems.restype = ctypes.c_long
     lib_.ggp_z_adam_stream_elems.argtypes = [ctypes.c_int] * 6
     lib_.ggp_z_adam_stream_elems.restype = ctypes.c_long
+    lib_.ggp_group_scratch_elems.argtypes = [ctypes.c_int] * 6
+    lib_.ggp_group_scratch_elems.restype = ctypes.c_long
+    for kind in ("potential", "nuts_chunk"):
+        fn = getattr(lib_, f"ggp_{kind}_vfe_group_occupancy")
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib_
 
 

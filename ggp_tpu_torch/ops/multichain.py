@@ -49,7 +49,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, vfe_group
 from .nuts_chunk import (DIVERGENCE_THRESHOLD, MAX_DEPTH, ChainState,
                          _transition, as_batch, first_chain, launch_chunk)
 from .vfe_bound import _check_shapes, call_potential, neg_logpost_vg
@@ -92,7 +92,9 @@ def mc_potential_plain(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
 
 def mc_potential(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
     """:func:`mc_potential_plain` on CPU tensors; on CUDA tensors one launch
-    of kernel 1 (``csrc/vfe_potential.cu``) with one block per row, or a
+    of kernel 1 (``csrc/vfe_potential.cu``) with one block per row, or for
+    the vfe core where :func:`~ggp_tpu_torch.ops.vfe_group.route` sends it
+    (past 1024 rows for C >= 2 rows) a group of blocks per row; or a
     raise."""
     if thetas.ndim != 2:
         raise ValueError("mc_potential: thetas must be (C, dim)")
@@ -101,8 +103,9 @@ def mc_potential(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
         return mc_potential_plain(thetas, X, y, Z, jitter, prior_spec=prior_spec,
                                   core=core)
     _build.require_cuda("mc_potential", X.dtype, thetas, X, y, Z)
-    out = call_potential(core, thetas, X, y, Z, jitter, prior_spec=prior_spec)
-    _build.LAUNCHES[_build.launch_key(core, "mc_potential")] += 1
+    kernel = vfe_group.route(core, X.shape[0], thetas.shape[0])
+    out = call_potential(kernel, thetas, X, y, Z, jitter, prior_spec=prior_spec)
+    _build.LAUNCHES[_build.launch_key(kernel, "mc_potential")] += 1
     return out
 
 
@@ -348,7 +351,8 @@ def mc_nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                   max_depth=8, target_accept=0.8, adapt_mass=True,
                   prior_spec=None, core="vfe"):
     """:func:`mc_nuts_chunk_plain` on CPU tensors; on CUDA tensors kernel 2
-    (``csrc/nuts_chunk.cu``) at grid C, one block per chain, or a raise."""
+    (``csrc/nuts_chunk.cu``) at grid C, one block per chain, or for the vfe
+    core past 1024 rows (C >= 2) a group of blocks per chain; or a raise."""
     _check_chunk(f"{core} mc_nuts_chunk", state, X, y, Z, mom, adapt, adapt_mass,
                  in_window, window_end, eps, core)
     K, C, _ = mom.shape
@@ -367,11 +371,12 @@ def mc_nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                                    adapt_mass=adapt_mass, core=core, **kw)
     _build.require_cuda("mc_nuts_chunk", X.dtype, *_state_tensors(state), X, y,
                         Z, mom, treeu, leafu)
-    out = launch_chunk("nuts_chunk", core, state, X, y, Z, jitter,
+    kernel = vfe_group.route(core, X.shape[0], C)
+    out = launch_chunk("nuts_chunk", kernel, state, X, y, Z, jitter,
                        (mom, treeu, leafu), prior_spec=prior_spec,
                        stream=_build.stream_ptr(X.device), MAX_DEPTH=max_depth,
                        TARGET=target_accept, ADAPT_MASS=int(adapt_mass), **kw)
-    _build.LAUNCHES[_build.launch_key(core, "mc_nuts_chunk")] += 1
+    _build.LAUNCHES[_build.launch_key(kernel, "mc_nuts_chunk")] += 1
     return out
 
 

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, vfe_group
 from .vfe_bound import _check_shapes, bound_cfg, neg_logpost_vg
 
 __all__ = ["ChainState", "draw_slabs", "nuts_chunk_plain", "nuts_chunk",
@@ -234,10 +234,11 @@ def launch_chunk(kind, core, state, X, y, Z, jitter, slabs, *, n_active, adapt,
                  eps, in_window, window_end, prior_spec, stream, **cfg_extra):
     """One launch of the sampler chunk kernel ``kind`` ("nuts_chunk",
     ``csrc/nuts_chunk.cu``, or "hmc_chunk", ``csrc/mc_hmc_chunk.cu``) of
-    ``core`` on C chains, one block each: every field of ``state`` has a
-    leading chain axis, ``slabs`` are the random slabs in the kernel's
-    argument order, each (K, C, ...). Returns (new state, draws (K, C,
-    dim), stats (K, C, 6)); ``state`` is not modified."""
+    ``core`` on C chains, one block each (for ``core="vfe_group"``, the NUTS
+    chunk on a group of blocks per chain, launched cooperatively): every
+    field of ``state`` has a leading chain axis, ``slabs`` are the random
+    slabs in the kernel's argument order, each (K, C, ...). Returns (new
+    state, draws (K, C, dim), stats (K, C, 6)); ``state`` is not modified."""
     n, d = X.shape
     m = Z.shape[0]
     C, dim = state.z.shape
@@ -256,10 +257,10 @@ def launch_chunk(kind, core, state, X, y, Z, jitter, slabs, *, n_active, adapt,
         flags = torch.cat([in_window, window_end]).to(device=dev, dtype=torch.int32)
     draws = torch.empty((K, C, dim), dtype=dt, device=dev)
     stats = torch.empty((K, C, 6), dtype=dt, device=dev)
-    work = _build.scratch(n, m, d, 0, X, chains=C, core=core)
+    work, group = vfe_group.launch_work(kind, core, n, m, d, C, X)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
                     pivot_floor=None, prior_spec=prior_spec, core=core, DIM=dim, K=K,
-                    ADAPT=int(adapt), CHAINS=C, **cfg_extra)
+                    ADAPT=int(adapt), CHAINS=C, **cfg_extra, **group)
     P = _build.ptr
     name = f"ggp_{kind}_{core}"
     err = _build.kernel_fn(name, dt)(
@@ -280,8 +281,9 @@ def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                max_depth=8, target_accept=0.8, adapt_mass=True,
                prior_spec=None, core="vfe"):
     """:func:`nuts_chunk_plain` on CPU tensors; kernel 2
-    (``csrc/nuts_chunk.cu``, the whole chunk in one launch, grid 1) on CUDA
-    tensors. ``state`` is not modified."""
+    (``csrc/nuts_chunk.cu``, the whole chunk in one launch, grid 1; for the
+    vfe core past ``vfe_group.GROUP_MIN_N`` rows, one group of blocks) on
+    CUDA tensors. ``state`` is not modified."""
     K, dim = mom.shape
     _check_shapes(f"{core} nuts_chunk", state.z, X, y, Z, core)
     if dim != state.z.shape[0] or treeu.shape != (K, max_depth, 2) \
@@ -302,12 +304,13 @@ def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
     _build.require_cuda("nuts_chunk", X.dtype, state.z, state.g,
                         state.inv_mass, state.wf_mean, state.wf_m2, X, y, Z,
                         mom, treeu, leafu)
+    kernel = vfe_group.route(core, X.shape[0], 1)
     new, draws, stats = launch_chunk(
-        "nuts_chunk", core, as_batch(state), X, y, Z, jitter,
+        "nuts_chunk", kernel, as_batch(state), X, y, Z, jitter,
         (mom[:, None], treeu[:, None], leafu[:, None]),
         stream=_build.stream_ptr(X.device), MAX_DEPTH=max_depth,
         TARGET=target_accept, ADAPT_MASS=int(adapt_mass), **kw)
-    _build.LAUNCHES[_build.launch_key(core, "nuts_chunk")] += 1
+    _build.LAUNCHES[_build.launch_key(kernel, "nuts_chunk")] += 1
     return first_chain(new), draws[:, 0], stats[:, 0]
 
 

@@ -1,11 +1,12 @@
 """Whole chunks of Adam steps on the collapsed bound: plain PyTorch beside
-the CUDA kernels ``sgpr_adam_chunk`` (kernel 3), ``z_adam_chunk`` (kernel
-4) and ``z_adam_stream`` (kernel 12).
+the CUDA kernels ``sgpr_adam_chunk`` (kernel 3) and ``z_adam_stream``
+(kernel 12), which ``z_adam_chunk`` runs on the card at every n.
 
 Counterparts of ``ggp_tpu/ops/fused_sgpr.py`` ``_sgpr_chunk_body`` (the
 warm start's (theta, Z) trainer) and ``_zadam_chunk_body`` (optimize_Z's
-Z-only trainer over a hyper trace; resident up to ``STREAM_MIN_N`` rows,
-streamed over row blocks past it, as the JAX package's two pallas_calls),
+Z-only trainer over a hyper trace; the JAX package's two pallas_calls are
+resident up to ``STREAM_MIN_N`` rows and streamed over row blocks past it;
+on the card kernel 12 computes both),
 and of ``ops/fused_svi.py`` ``_adam_update``. They train -ELBO without the
 prior, with the trainers' modified Cholesky (pivot floor 1e-6). Inputs are
 unpadded: ``theta`` (d+2,), ``Z`` (m, d), a trace ``thetas`` (S, d+2).
@@ -23,14 +24,15 @@ from .linalg import capped_inv_ls, chol_upper
 from .vfe_bound import _check_shapes, bound_cfg, rbf_vfe_neg_logpost_vg
 
 __all__ = ["adam_update", "sgpr_adam_chunk_plain", "sgpr_adam_chunk",
-           "z_adam_chunk_plain", "z_adam_resident", "z_adam_chunk", "stream_neg_elbo_vg",
+           "z_adam_chunk_plain", "z_adam_chunk", "stream_neg_elbo_vg",
            "z_adam_stream_plain", "z_adam_stream", "PIVOT_FLOOR", "STREAM_MIN_N",
            "STREAM_NB"]
 
 PIVOT_FLOOR = 1e-6
 _BOX = 15.0
-# optimize_Z streams past this many rows (``make_fused_z_adam``: n > 2048),
-# in row blocks of STREAM_NB
+# the JAX package streams optimize_Z past this many rows (``make_fused_z_adam``:
+# n > 2048); the plain versions here route by it; kernel 12 takes row
+# blocks of STREAM_NB
 STREAM_MIN_N = 2048
 STREAM_NB = 256
 
@@ -139,54 +141,24 @@ def sgpr_adam_chunk(theta, Z, m_th, v_th, m_z, v_z, X, y, jitter, *, t0,
     return out
 
 
-def _call_z_adam(Z, m_z, v_z, thetas, X, y, jitter, t0, num_steps, lr,
-                 stream):
-    n, d = X.shape
-    m = Z.shape[0]
-    outs = [a.clone() for a in (Z, m_z, v_z)]
-    losses = torch.empty(num_steps, dtype=X.dtype, device=X.device)
-    work = _build.scratch(n, m, d, 2 * m * d, X)
-    cfg = bound_cfg(n, m, d, jitter, want_z_grad=True, want_prior=False,
-                    pivot_floor=PIVOT_FLOOR, prior_spec=None, K=num_steps,
-                    LR=lr, T0=t0, S_ACT=thetas.shape[0])
-    P = _build.ptr
-    err = _build.kernel_fn("ggp_z_adam", X.dtype)(
-        ctypes.cast(cfg, ctypes.c_void_p), P(thetas), *[P(a) for a in outs],
-        P(X), P(y), P(losses), P(work), stream)
-    _build.check(err, "z_adam_chunk")
-    return (*outs, losses)
-
-
 def _check_trace(name, thetas, X, y, Z):
     _check_shapes(name, thetas[0], X, y, Z)
     if thetas.ndim != 2 or thetas.shape[0] < 1:
         raise ValueError(f"{name}: thetas must be (S >= 1, d+2)")
 
 
-def z_adam_resident(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
-    """:func:`z_adam_chunk_plain` on CPU tensors; kernel 4
-    (``csrc/sgpr_adam.cu``, one block, site 7's function) on CUDA tensors.
-    Inputs are not modified."""
-    _check_trace("z_adam_chunk", thetas, X, y, Z)
-    if X.device.type == "cpu":
-        return z_adam_chunk_plain(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
-                                  num_steps=num_steps, lr=lr)
-    _build.require_cuda("z_adam_chunk", X.dtype, Z, m_z, v_z, thetas, X, y)
-    out = _call_z_adam(Z, m_z, v_z, thetas, X, y, jitter, float(t0),
-                       int(num_steps), lr, _build.stream_ptr(X.device))
-    _build.LAUNCHES["z_adam_chunk"] += 1
-    return out
-
-
 def z_adam_chunk(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
-    """optimize_Z's chunk, routed by size as the JAX package routes it: up to
-    ``STREAM_MIN_N`` rows :func:`z_adam_resident` (kernel 4 on the card),
-    past it :func:`z_adam_stream` (kernel 12). Inputs are not modified."""
-    if X.shape[0] > STREAM_MIN_N:
+    """optimize_Z's chunk (sites 7 and 8 compute one function): on CUDA
+    tensors :func:`z_adam_stream` (kernel 12) at every n; on CPU tensors
+    :func:`z_adam_chunk_plain` up to ``STREAM_MIN_N`` rows and the streamed
+    plain version past it, as the JAX package routes its two pallas_calls.
+    Inputs are not modified."""
+    if X.device.type != "cpu" or X.shape[0] > STREAM_MIN_N:
         return z_adam_stream(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
                              num_steps=num_steps, lr=lr)
-    return z_adam_resident(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
-                           num_steps=num_steps, lr=lr)
+    _check_trace("z_adam_chunk", thetas, X, y, Z)
+    return z_adam_chunk_plain(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,
+                              num_steps=num_steps, lr=lr)
 
 
 def _chol_rows(K, floor):
@@ -298,11 +270,12 @@ def _call_z_adam_stream(Z, m_z, v_z, thetas, X, y, jitter, t0, num_steps, lr, st
 
 
 def z_adam_stream(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps, lr):
-    """The streamed Z chunk (site 8's function) at any n:
+    """The streamed Z chunk (sites 7 and 8's function) at any n:
     :func:`z_adam_stream_plain` on CPU tensors; kernel 12
     (``csrc/z_adam_stream.cu``: per step five launches over the trace rows
-    and row blocks) on CUDA tensors. :func:`z_adam_chunk` calls it past
-    STREAM_MIN_N rows. Inputs are not modified."""
+    and row blocks) on CUDA tensors. :func:`z_adam_chunk` calls it for every
+    CUDA tensor and past STREAM_MIN_N rows on the CPU. Inputs are not
+    modified."""
     _check_trace("z_adam_stream", thetas, X, y, Z)
     if X.device.type == "cpu":
         return z_adam_stream_plain(Z, m_z, v_z, thetas, X, y, jitter, t0=t0,

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, vfe_group
 from .linalg import capped_inv_ls, chol_upper
 from .sgpmc_bound import sgpmc_neg_logpost_vg
 
@@ -320,20 +320,22 @@ def _check_shapes(name, z, X, y, Z, core="vfe"):
 def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
                    want_prior=True, pivot_floor=None, prior_spec=None, stages=0):
     """One launch of the potential kernel of ``core`` (``csrc/vfe_potential.cu``)
-    on the C rows of ``zs`` (C, dim), one block each. Returns (U (C,), g (C,
-    dim)[, dU/dZ (C, m, d)]). ``stages`` > 0 stops the gpr core after that
-    many of its six parts (``csrc/gpr_bound.cuh``), whose outputs are then
-    not filled: it exists to time where one evaluation's time goes."""
+    on the C rows of ``zs`` (C, dim): one block each, or for ``core=
+    "vfe_group"`` (the vfe core on a group of blocks per row,
+    ``ops/vfe_group.py``) G blocks each, launched cooperatively. Returns (U
+    (C,), g (C, dim)[, dU/dZ (C, m, d)]). ``stages`` > 0 stops the gpr core
+    after that many of its six parts (``csrc/gpr_bound.cuh``), whose outputs
+    are then not filled: it exists to time where one evaluation's time goes."""
     n, d = X.shape
     m = Z.shape[0]
     C, dim = zs.shape
     out = torch.empty((C, dim + 1), dtype=X.dtype, device=X.device)
     dZ = (torch.empty((C, m, d), dtype=X.dtype, device=X.device)
           if want_z_grad else None)
-    work = _build.scratch(n, m, d, 0, X, chains=C, core=core)
+    work, group = vfe_group.launch_work("potential", core, n, m, d, C, X)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=want_z_grad,
                     want_prior=want_prior, pivot_floor=pivot_floor,
-                    prior_spec=prior_spec, core=core, CHAINS=C, STAGES=stages)
+                    prior_spec=prior_spec, core=core, CHAINS=C, STAGES=stages, **group)
     P = _build.ptr
     err = _build.kernel_fn(f"ggp_potential_{core}", X.dtype)(
         ctypes.cast(cfg, ctypes.c_void_p), P(zs), P(X), P(y), P(Z), P(out),
@@ -350,7 +352,8 @@ def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
     of ``core`` (the potential kernel, site 1, of each core).
 
     CPU tensors run the plain version; CUDA tensors launch the potential
-    kernel (``csrc/vfe_potential.cu``) at grid 1 or raise."""
+    kernel (``csrc/vfe_potential.cu``) at grid 1, or, for the vfe core past
+    ``vfe_group.GROUP_MIN_N`` rows, on one group of blocks; or raise."""
     _check_shapes(f"{core} potential", theta, X, y, Z, core)
     if core == "gpr":
         _check_gpr_options(want_z_grad, want_prior, pivot_floor)
@@ -361,6 +364,7 @@ def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
     if X.device.type == "cpu":
         return neg_logpost_vg(core, theta, X, y, Z, jitter, **kw)
     _build.require_cuda(f"{core} potential", X.dtype, theta, X, y, Z)
-    out = call_potential(core, theta[None], X, y, Z, jitter, **kw)
-    _build.LAUNCHES[_build.launch_key(core, "potential")] += 1
+    kernel = vfe_group.route(core, X.shape[0], 1)
+    out = call_potential(kernel, theta[None], X, y, Z, jitter, **kw)
+    _build.LAUNCHES[_build.launch_key(kernel, "potential")] += 1
     return tuple(a[0] for a in out)

@@ -237,7 +237,7 @@ def test_adam_chunk_kernels_match_plain(dev, dt):
 @pytest.mark.parametrize("dt", DTYPES)
 def test_z_adam_stream_matches_plain(dev, dt):
     """Kernel 12 (the streamed Z chunk) against its plain version at n=2300,
-    past STREAM_MIN_N, where z_adam_chunk routes to it: 9 row blocks of
+    where z_adam_chunk runs it as at every n on the card: 9 row blocks of
     256, the last one partial; S=3 trace rows, 5 steps from t0=2."""
     th, X, y, Z = _problem(dev, dt, n=2300, m=24, d=5, seed=3)
     thetas = th + 0.1 * torch.randn((3, th.shape[0]), dtype=dt, device=dev,
@@ -247,7 +247,8 @@ def test_z_adam_stream_matches_plain(dev, dt):
     before = dict(_build.LAUNCHES)
     a = z_adam_chunk(Z, zz, zz, thetas, X, y, 1e-6, **kw)
     assert _build.LAUNCHES["z_adam_stream"] == before["z_adam_stream"] + 1
-    assert _build.LAUNCHES["z_adam_chunk"] == before["z_adam_chunk"]
+    assert {k: v for k, v in _build.LAUNCHES.items() if k != "z_adam_stream"} \
+        == {k: v for k, v in before.items() if k != "z_adam_stream"}
     b = z_adam_stream_plain(Z, zz, zz, thetas, X, y, 1e-6, **kw)
     for u, v in zip(a, b):
         assert _rel(u, v) <= 10 * TOL[dt]
@@ -269,6 +270,122 @@ def test_z_adam_stream_failures_raise(dev, monkeypatch, tmp_path):
         mp.setattr(_build, "_nvcc", lambda: "/bin/false")
         with pytest.raises(RuntimeError, match="nvcc failed"):
             z_adam_stream(*args, t0=0, num_steps=1, lr=0.01)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_z_adam_chunk_runs_kernel_12_at_n404(dev, dt):
+    """Site 7's function at the slice's shape (N=404, S=10 trace rows, 20
+    steps) through z_adam_chunk: kernel 12, against z_adam_chunk_plain."""
+    th, X, y, Z = _problem(dev, dt, n=404, m=40, d=13, seed=8)
+    thetas = th + 0.1 * torch.randn((10, th.shape[0]), dtype=dt, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(7))
+    zz = torch.zeros_like(Z)
+    kw = dict(t0=0, num_steps=20, lr=0.01)
+    before = _build.LAUNCHES["z_adam_stream"]
+    a = z_adam_chunk(Z, zz, zz, thetas, X, y, 1e-6, **kw)
+    assert _build.LAUNCHES["z_adam_stream"] == before + 1
+    b = z_adam_chunk_plain(Z, zz, zz, thetas, X, y, 1e-6, **kw)
+    for u, v in zip(a, b):
+        assert _rel(u, v) <= 10 * TOL[dt]
+
+
+# -- the vfe core on a group of blocks per chain (csrc/vfe_group.cuh) ----------------
+
+def test_group_scratch_layout_matches_the_kernels(dev):
+    """The C side's count of a grouped launch's scratch
+    (``ggp_group_scratch_elems``) against the layout the kernel's pointers
+    walk (``VfeGroupCore::work``): per chain a 128-byte barrier line; per
+    chain the G blocks' double partials (B - I packed, u, yy, the max |X|,
+    |alpha|^2, sum Pnm, d QnmX sums, GnmZ) then the T area (the M x M work
+    of ``work_elems(0, m, d)``, 8 + 128 scalars, G block areas of Knm_b,
+    An_b, xn, zn and QnmX rows), its bytes rounded up to 16."""
+    lib = _build.build()
+    for n, m, d, C, G in [(13279, 100, 18, 2, 66), (1025, 24, 5, 8, 33), (3000, 7, 13, 1, 264)]:
+        nb = -(-n // G)
+        partial = [m * (m + 1) // 2, m, 1, 1, 1, 1, d, m * d]
+        work0 = [m * m] * 11 + [m] * 7 + [m * d] * 3
+        block = [nb * m, nb * m, nb, m, nb * d]
+        t_area = sum(work0) + 8 + 128 + G * sum(block)
+        for dt in DTYPES:
+            itemsize = torch.empty(0, dtype=dt).element_size()
+            chain = G * sum(partial) * 8 + -(-t_area * itemsize // 16) * 16
+            assert chain % 8 == 0       # every chain's doubles start 8-byte aligned
+            want = -(-(C * 128 + C * chain) // itemsize)
+            assert lib.ggp_group_scratch_elems(n, m, d, C, G, int(dt == torch.float64)) == want
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n", [4096, 13279])
+def test_group_potential_matches_plain(dev, dt, n):
+    """Past both thresholds the vfe potential runs on the grouped core, at
+    one chain (vfe_potential) and two (mc_potential): U and dU/dtheta
+    against the plain version, dU/dZ too in float64; two launches on the
+    same inputs give the same bits."""
+    th, X, y, Z = _problem(dev, dt, n=n, m=100, d=18, seed=9)
+    rows = th + 0.05 * torch.randn((2, th.shape[0]), dtype=dt, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(9))
+    before = dict(_build.LAUNCHES)
+    one = vfe_potential(rows[0], X, y, Z, 1e-6)
+    two = mc_potential(rows, X, y, Z, 1e-6)
+    assert _build.LAUNCHES["vfe_group_potential"] == before["vfe_group_potential"] + 1
+    assert _build.LAUNCHES["vfe_group_mc_potential"] == before["vfe_group_mc_potential"] + 1
+    assert _build.LAUNCHES["vfe_potential"] == before["vfe_potential"]
+    assert _build.LAUNCHES["mc_potential"] == before["mc_potential"]
+    ref = mc_potential_plain(rows, X, y, Z, 1e-6)
+    for a, b in zip(two, ref):
+        assert _rel(a, b) <= TOL[dt]
+    for a, b in zip(one, (ref[0][0], ref[1][0])):
+        assert _rel(a, b) <= TOL[dt]
+    again = mc_potential(rows, X, y, Z, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(two, again))
+    if dt == torch.float64:
+        opts = dict(want_z_grad=True, want_prior=False, pivot_floor=1e-6)
+        out = vfe_potential(rows[0], X, y, Z, 1e-6, **opts)
+        for a, b in zip(out, rbf_vfe_neg_logpost_vg(rows[0], X, y, Z, 1e-6, **opts)):
+            assert _rel(a, b) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_group_nuts_chunk_matches_plain(dev, dt):
+    """Two chains of NUTS at n=4096 on the grouped core (K=3, max depth 5):
+    per chain, f64 on one path for the whole chunk, f32 at least for its
+    first transition; two launches on the same inputs give the same bits."""
+    th, X, y, Z = _problem(dev, dt, n=4096, m=32, d=6, seed=10)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    z = th + 0.05 * torch.randn((2, th.shape[0]), generator=gen, dtype=dt, device=dev)
+    U, g = mc_potential_plain(z, X, y, Z, 1e-6)
+    le = torch.full((2,), -3.0, dtype=dt, device=dev)
+    zc, zv = torch.zeros(2, dtype=dt, device=dev), torch.zeros_like(z)
+    st = ChainState(z=z, U=U, g=g, inv_mass=torch.ones_like(z), log_eps=le, log_eps_avg=le,
+                    h_avg=zc, mu=le + np.log(10.0), t_da=zc, wf_mean=zv, wf_m2=zv, wf_count=zc)
+    K, md = 3, 5
+    sl = draw_mc_slabs(K, 2, th.shape[0], algorithm="nuts", max_depth=md, generator=gen,
+                       dtype=dt, device=dev)
+    kw = dict(n_active=K, adapt=True, max_depth=md, in_window=torch.arange(K, device=dev) >= 1,
+              window_end=torch.arange(K, device=dev) == 2, **sl)
+    before = dict(_build.LAUNCHES)
+    s_k, d_k, x_k = mc_nuts_chunk(st, X, y, Z, 1e-6, **kw)
+    assert _build.LAUNCHES["vfe_group_mc_nuts_chunk"] == before["vfe_group_mc_nuts_chunk"] + 1
+    assert _build.LAUNCHES["mc_nuts_chunk"] == before["mc_nuts_chunk"]
+    s_p, d_p, x_p = mc_nuts_chunk_plain(st, X, y, Z, 1e-6, **kw)
+    for c in range(2):
+        p = _agreeing_prefix(d_k[:, c], d_p[:, c], x_k[:, c], x_p[:, c], CHUNK_TOL[dt])
+        assert p == K if dt == torch.float64 else p >= 1, (c, p)
+        assert _rel(x_k[:p, c][:, [0, 1, 5]], x_p[:p, c][:, [0, 1, 5]]) <= CHUNK_TOL[dt]
+    s_2, d_2, x_2 = mc_nuts_chunk(st, X, y, Z, 1e-6, **kw)
+    assert torch.equal(d_k, d_2) and torch.equal(x_k, x_2) and torch.equal(s_k.z, s_2.z)
+
+
+def test_group_grid_that_does_not_fit_raises(dev, monkeypatch):
+    """A cooperative grid larger than the card holds is refused by the
+    launch and raises; nothing falls back to the one-block kernel."""
+    from ggp_tpu_torch.ops import vfe_group
+    th, X, y, Z = _problem(dev, torch.float64, n=4096, m=16, d=5, seed=11)
+    monkeypatch.setattr(vfe_group, "geometry", lambda kind, dtype, chains, device: 100000)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        vfe_potential(th, X, y, Z, 1e-6)
+    assert _build.LAUNCHES == before
 
 
 def test_wrappers_raise_on_wrong_inputs(dev):
