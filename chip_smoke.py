@@ -15,8 +15,10 @@ non-zero exit:
    The JointHMC (SGPMC) kernels, the "sgpmc" core of the sampler kernels
    and the warm start, are held the same way at the same shape (state row
    d+2+M = 115), at grid 1 and grid 8; and the GPR+HMC kernels, the dense
-   "gpr" core of the potential and NUTS kernels, at N=404, D=13 (state row
-   d+2 = 15), at grid 1 and grid 8; and the three SVI kernels (svi_chunk
+   "gpr" core of the potential and NUTS kernels (a group of blocks per
+   chain), at N=404, D=13 (state row d+2 = 15), for one chain and for 8,
+   each launched twice for bit-identical outputs, and the potential at
+   bench.py's winered shape (N=1279, D=11); and the three SVI kernels (svi_chunk
    with its Gaussian, Bernoulli-probit and Poisson terms, bsvgp_chunk at
    S=5 with q(theta) at spread 0.1 and 1, svi_softmax_chunk at C=3,
    n_half=32), one chunk of 16 Adam steps at M=100, batch 200, and one of
@@ -26,8 +28,10 @@ non-zero exit:
    step's shape (C=4, B=2048 rows gathered by index from 1e6, M=100,
    D=18), the anchor's (N=1e6, C=2), each stationary family (N=3000, Z
    rows from X) and bf16 once, with the peak memory of a full-N call and
-   cuBLAS's product on a materialised K; sgpr_adam_chunk at the SGHMC
-   experiment's warm-start shape (n=4096, 200 steps); optimize_Z's chunk
+   cuBLAS's product on a materialised K; the warm start's trainers at N=404
+   (sgpr_adam_chunk, one block; sgpr_adam_group, the grouped vfe core,
+   which sgpr_adam_chunk takes past 2048 rows) and the grouped one at the
+   SGHMC experiment's warm-start shape (n=4096, 200 steps); optimize_Z's chunk
    (z_adam_chunk, kernel 12 at every n) at N=404, S=10 and at the
    reg-large path's shape (synthetic-large: n=13,279, D=18, M=100, 40
    trace rows, 20 steps; in float64 also against the JAX package's Z
@@ -35,7 +39,8 @@ non-zero exit:
    at one chain, mc_potential and an mc_nuts_chunk pair at C=2, each also
    launched twice for bit-identical outputs), the one-block sgpmc core
    (sgpmc_potential, sgpmc_mc_potential), a scaling line of both vfe
-   designs at n = 1279, 4096, 13,279 and sgpr_adam_chunk's time a step;
+   designs at n = 1279, 4096, 13,279, and the grouped trainer's 20 steps
+   from the path's start, with both trainers' time a step;
    the co2 cores
    (co2_potential, co2_nuts_chunk) and the one-transition kernel
    (nuts_transition, vfe and co2) at the Mauna Loa experiment's shape
@@ -96,8 +101,7 @@ non-zero exit:
       CPU run (regression_reference.py, REGRESSION_REF);
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?); where one gpr evaluation's time goes (its six parts, timed as
-   prefixes), beside cholesky_ex + cholesky_inverse of the same K; the gpr
-   potential at bench.py's winered shape (N=1279, D=11);
+   prefixes), beside cholesky_ex + cholesky_inverse of the same K;
 6. a JSON line of per-kernel results, then the final status line.
 
 Every kernel's ``bound_ms`` is the least time the card could take for the
@@ -112,9 +116,12 @@ happens to do.
 
     python3 chip_smoke.py co2
     python3 chip_smoke.py reg-large
+    python3 chip_smoke.py gpr
 
 run only the build, the co2 parity and the three co2 paths; or the build,
-the parity at the reg-large shape and the reg-large path.
+the parity at the reg-large shape (the grouped trainer held there among
+them) and the reg-large path; or the build, the gpr core's parity, the
+gpr-hmc and gpr-c4 paths and the gpr core's parts.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
                                     [gpr-hmc] [gpr-c4] [svgp] [svgp-probit]
@@ -169,9 +176,9 @@ from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
                                           nuts_transition, nuts_transition_plain)
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
-from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
-                                         z_adam_chunk, z_adam_chunk_plain, z_adam_stream,
-                                         z_adam_stream_plain)
+from ggp_tpu_torch.ops.sgpr_adam import (call_sgpr_adam, sgpr_adam_chunk,
+                                         sgpr_adam_chunk_plain, z_adam_chunk, z_adam_chunk_plain,
+                                         z_adam_stream, z_adam_stream_plain)
 from ggp_tpu_torch.ops.svi import (bsvgp_chunk, bsvgp_chunk_plain, svi_chunk, svi_chunk_plain,
                                    svi_softmax_chunk, svi_softmax_chunk_plain)
 from ggp_tpu_torch.models.sgpr import sgpr_elbo_from_stats, vfe_stats
@@ -191,8 +198,11 @@ KERNELS = {
                       "ggp_tpu/ops/fused_nuts.py:807", None),
     "nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
                    "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
-    "sgpr_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu",
-                        "ggp_tpu/ops/fused_sgpr.py:434", "ggp_tpu/ops/fused_sgpr.py:420"),
+    "sgpr_adam_chunk": ("ggp_tpu_torch/csrc/sgpr_adam.cu", "ggp_tpu/ops/fused_sgpr.py:434", None),
+    # the warm start past 2048 rows (site 6's streamed function) on the grouped
+    # vfe core: sgpr_adam_group_kernel, G blocks of one cooperative launch
+    "sgpr_adam_group": ("ggp_tpu_torch/csrc/sgpr_adam.cu", "ggp_tpu/ops/fused_sgpr.py:420",
+                        None),
     # optimize_Z's chunk at every n on the card: kernel 12, a grid over trace
     # rows and row blocks (site 7's resident and site 8's streamed function)
     "z_adam_chunk": ("ggp_tpu_torch/csrc/z_adam_stream.cu",
@@ -222,8 +232,9 @@ KERNELS = {
                             "ggp_tpu/ops/fused_multichain.py:1966"),
     "sgpmc_warm_chunk": ("ggp_tpu_torch/csrc/sgpmc_warm.cu",
                          "ggp_tpu/ops/fused_sgpmc.py:131", None),
-    # the "gpr" core (csrc/gpr_bound.cuh); the JAX package ran C chains of
-    # GPR on its XLA sampler, the port runs the same sites' core at grid C
+    # the "gpr" core (csrc/gpr_bound.cuh: a group of blocks per chain, a
+    # blocked factorisation); the JAX package ran C chains of GPR on its XLA
+    # sampler, the port runs the same sites' core for C chains
     "gpr_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
                       "ggp_tpu/ops/fused_nuts.py:807", None),
     "gpr_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
@@ -266,8 +277,9 @@ LAUNCH_SUMS = {"nuts_transition": ("nuts_transition_vfe", "nuts_transition_co2")
                "vfe_group_potential": ("vfe_group_potential", "vfe_group_mc_potential"),
                "vfe_group_nuts_chunk": ("vfe_group_nuts_chunk", "vfe_group_mc_nuts_chunk")}
 CO2_KERNELS = ("co2_potential", "co2_nuts_chunk", "nuts_transition")
+GPR_KERNELS = ("gpr_potential", "gpr_nuts_chunk", "gpr_mc_potential", "gpr_mc_nuts_chunk")
 # the kernels the reg-large path launches
-REG_KERNELS = ("sgpr_adam_chunk", "z_adam_chunk", "vfe_group_potential", "vfe_group_nuts_chunk")
+REG_KERNELS = ("sgpr_adam_group", "z_adam_chunk", "vfe_group_potential", "vfe_group_nuts_chunk")
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
 # ~1e-6 in float32.
@@ -711,9 +723,13 @@ def bsvgp_ops(m, nb, d, S):
 
 def register_report():
     """One line per kernel instantiation from the build's ``-Xptxas -v``
-    output: registers, spill stores and static shared memory."""
+    output: registers, spill stores and static shared memory; and one line
+    per source with the seconds nvcc took on it."""
     lines, name, spill = [], None, "?"
     for line in _build.ptxas_report().splitlines():
+        m = re.match(r"== (\S+) \(([\d.]+) s\)", line)
+        if m:
+            lines.append(f"nvcc {m.group(1)}: {m.group(2)} s")
         m = re.search(r"Compiling entry function '_ZN3ggp\d+(\w+?_kernel)I"
                       r"(?:NS_\d+(\w+)E)?([fd])E", line)
         if m:
@@ -879,6 +895,19 @@ def phase_parity(Xd, yd, Zd, res):
                 abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
                 bound=roofline(20, n, m, d, xyz + 3 * nbytes(th, Z), nbytes(*out),
                                want_z=True))
+        # the grouped trainer (kernel 3g) at the same shape, which the wrapper
+        # takes past 2048 rows only: held the same way, and timed beside kernel 3
+        gargs = (th, Z, zt, zt, zz, zz, X, y, jit)
+        outg = call_sgpr_adam("group", *gargs, **akw)
+        eg = max(rel(a, b) for a, b in zip(outg, ref))
+        gms = cuda_ms(lambda: call_sgpr_adam("group", *gargs, **akw), 3)
+        print(f"parity sgpr_adam_group {tag} at n={n} (20 steps): max rel err {eg:.3e}; "
+              f"{gms / 20:.4f} ms a step against the one-block kernel's {ms / 20:.4f} ms")
+        assert eg <= ADAM_TOL[dt], f"sgpr_adam_group {tag} n={n} rel err {eg}"
+        rg = res["sgpr_adam_group"]
+        rg["rel"][tag] = max(rg["rel"].get(tag, 0.0), eg)
+        if f32:
+            rg["extra"].update(n404_ms_per_step=gms / 20, n404_block_ms_per_step=ms / 20)
 
         # site 7's function (20 steps x 10 trace rows) on kernel 12, where
         # z_adam_chunk sends every CUDA call: against site 7's plain version
@@ -1209,12 +1238,15 @@ def phase_parity_sgpmc(Xd, yd, Zd, res, C=8, L=10, md=8):
 
 
 def phase_parity_gpr(Xd, yd, res, C=8, md=8):
-    """The gpr core of the potential and NUTS kernels against the plain
-    version at bench.py's GPR+HMC shape (N=404, D=13, state row 15): the
-    potential at grid 1 (two rows) and grid C; a warm and a sample NUTS
-    chunk of K=8 transitions (max depth md) at grid 1 and grid C. In float32 both
-    versions are also held against the float64 plain version on the same
-    inputs."""
+    """The gpr core (csrc/gpr_bound.cuh: a group of blocks per chain) of the
+    potential and NUTS kernels against the plain version at bench.py's
+    GPR+HMC shape (N=404, D=13, state row 15): the potential for one chain
+    (two rows) and C chains; a warm and a sample NUTS chunk of K=8
+    transitions (max depth md) for one chain and C chains; two launches of
+    the potential (1 and C rows) and of a C-chain warm chunk bit-identical;
+    and the potential at bench.py's winered shape (N=1279, D=11), with its
+    time. In float32 both versions are also held against the float64 plain
+    version on the same inputs."""
     for dt in (torch.float64, torch.float32):
         tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
         X, y = Xd.to(dt), yd.to(dt)
@@ -1250,15 +1282,46 @@ def phase_parity_gpr(Xd, yd, res, C=8, md=8):
                 abs32=max(aerr), ms=ms, plain_ms=pms,
                 bound=roofline(1, n, 0, d, nbytes(X, y, row), (row.numel() + 1) * 4,
                                core="gpr"))
+        check_repeat(f"gpr_potential {tag} (grouped core, one chain)",
+                     lambda: vfe_potential(row, X, y, Z, jit, core="gpr"))
         th = st0.z + 0.3 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
         potential_parity(
             "gpr_mc_potential", lambda r: mc_potential(r, X, y, Z, jit, core="gpr"),
             lambda r: mc_potential_plain(r, X, y, Z, jit, core="gpr"), th, res, 5,
             lambda out: (C, n, 0, d, nbytes(X, y, th), nbytes(*out), False, "gpr"))
+        check_repeat(f"gpr_mc_potential {tag} (grouped core, C={C})",
+                     lambda: mc_potential(th, X, y, Z, jit, core="gpr"))
         for grid in (1, C):
             st = as_batch(first_chain(st0)) if grid == 1 else st0
             chunk_parity(X, y, Z, jit, st, gen, res, core="gpr", algo="nuts", grid=grid,
                          K=8, md=md)
+        sl = draw_mc_slabs(2, C, d + 2, algorithm="nuts", max_depth=md, generator=gen, dtype=dt,
+                           device="cuda")
+        no = torch.zeros(2, dtype=torch.bool, device="cuda")
+        check_repeat(f"gpr_mc_nuts_chunk {tag} (grouped core, C={C}, a warm chunk of 2)",
+                     lambda: mc_nuts_chunk(st0, X, y, Z, jit, n_active=2, adapt=True,
+                                           in_window=no, window_end=no, max_depth=md,
+                                           core="gpr", **sl))
+
+        # bench.py's winered shape, where the JAX package leaves the fused core
+        Xw, yw, *_ = (torch.tensor(a, dtype=dt, device="cuda") for a in make_data("winered"))
+        nw, dw = Xw.shape
+        Zw = Xw.new_empty((0, dw))
+        tw = torch.tensor([0.5] * dw + [0.0, -2.0], dtype=dt, device="cuda")
+        out = vfe_potential(tw, Xw, yw, Zw, jit, core="gpr")
+        ew = max(rel(a, b) for a, b in zip(out, gpr_neg_logpost_vg(tw, Xw, yw, jit)))
+        wms = cuda_ms(lambda: vfe_potential(tw, Xw, yw, Zw, jit, core="gpr"), 5)
+        wpms = cuda_ms(lambda: gpr_neg_logpost_vg(tw, Xw, yw, jit), 3)
+        wb = roofline(1, nw, 0, dw, nbytes(Xw, yw, tw), (dw + 3) * Xw.element_size(), core="gpr")
+        print(f"parity gpr_potential {tag} at winered shape (N={nw}, D={dw}): max rel err "
+              f"{ew:.3e}; kernel {wms:.4f} ms, plain {wpms:.4f} ms, bound {wb[0]:.6f} ms "
+              f"({CARD})")
+        assert ew <= TOL[dt], f"gpr_potential {tag} winered rel err {ew}"
+        gp = res["gpr_potential"]
+        gp["rel"][tag] = max(gp["rel"][tag], ew)
+        gp["extra"].update({f"winered_ms_{tag}": wms, f"winered_plain_ms_{tag}": wpms})
+        if f32:
+            gp["extra"]["winered_bound_ms"] = wb[0]
 
 
 def co2_data(dt):
@@ -1673,11 +1736,12 @@ def svi_paths(Xd, yd, Xte, yte):
 def phase_gpr_parts(Xd, yd):
     """Where one float32 evaluation of the gpr core goes at (N, D) =
     (404, 13): the six parts of csrc/gpr_bound.cuh timed as prefixes (grams;
-    + Cholesky; + inverse; + substitutions; + V V^T and P; + the rest of
-    the adjoint), and, as the yardstick of a faster factorisation, the time
-    of torch.linalg.cholesky_ex + torch.cholesky_inverse on the same K.
-    Then the whole evaluation at bench.py's winered shape (N=1279, D=11),
-    against the plain version once."""
+    + the blocked Cholesky; + the inverse fused into its steps; + the solves
+    and value; + K^-1, Kbar and P per tile; + the sums of the gradient),
+    each a launch of the potential kernel (so each prefix also holds the
+    launch and the host's call), and, as the yardstick of the factorisation,
+    the time of torch.linalg.cholesky_ex + torch.cholesky_inverse on the
+    same K."""
     X, y = Xd.float(), yd.float()
     n, d = X.shape
     Z = X.new_empty((0, d))
@@ -1685,8 +1749,7 @@ def phase_gpr_parts(Xd, yd):
     prefix = [cuda_ms(lambda: call_potential("gpr", row[None], X, y, Z, 1e-5, stages=s), 20)
               for s in range(1, 7)]
     parts = [prefix[0]] + [b - a for a, b in zip(prefix, prefix[1:])]
-    names = ("grams", "Cholesky", "inverse U^-1", "substitutions", "V V^T and P",
-             "rest of the adjoint")
+    names = ("grams", "Cholesky", "inverse", "solves", "K^-1 and P", "gradient sums")
     print(f"gpr evaluation parts f32 (N={n}, D={d}, on {CARD}): "
           + "; ".join(f"{k} {v:.4f} ms" for k, v in zip(names, parts))
           + f"; whole {prefix[-1]:.4f} ms")
@@ -1700,19 +1763,6 @@ def phase_gpr_parts(Xd, yd):
         return torch.cholesky_inverse(L)
     print(f"reference torch.linalg.cholesky_ex + torch.cholesky_inverse f32 on the "
           f"same K: {cuda_ms(lib, 20):.4f} ms")
-    Xw, yw, *_ = (torch.tensor(a, dtype=torch.float32, device="cuda")
-                  for a in make_data("winered"))
-    nw, dw = Xw.shape
-    Zw = Xw.new_empty((0, dw))
-    th = torch.tensor([0.5] * dw + [0.0, -2.0], device="cuda")
-    out = vfe_potential(th, Xw, yw, Zw, 1e-5, core="gpr")
-    ref = gpr_neg_logpost_vg(th, Xw, yw, 1e-5)
-    e = max(rel(a, b) for a, b in zip(out, ref))
-    ms = cuda_ms(lambda: vfe_potential(th, Xw, yw, Zw, 1e-5, core="gpr"), 3)
-    print(f"envelope gpr_potential f32 at winered shape (N={nw}, D={dw}): {ms:.3f} ms "
-          f"per call (3 calls), max rel err against the plain version {e:.3e}, "
-          f"scratch {_build.build().ggp_scratch_elems(2, nw, 0, dw) * 4 / 1e6:.1f} MB")
-    assert all(torch.isfinite(a).all() for a in out)
 
 
 def phase_gpr(Xd, yd, Xte, yte, label, num_chains=1, num_warmup=50, num_samples=10):
@@ -2181,12 +2231,13 @@ def stats_bound(kind, X, Zs, idx, outs, fam="rbf"):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def stats_case(label, X, y, inputs, fam, res, bf16=False, record=False, reps=5):
+def stats_case(label, X, y, inputs, fam, res, bf16=False, record=False, reps=5, key=None):
     """Both statistics kernels against their plain versions on
     ``inputs(X.dtype)``; in float32 both versions are also read against the
-    float64 plain version on the same inputs. Prints the errors and the
-    times of both; ``record`` writes the kernels' rows of ``res`` (ms,
-    plain_ms, bound)."""
+    float64 plain version on the same inputs. Prints the errors, the times
+    of both and the bounds; ``record`` writes the kernels' rows of ``res``
+    (ms, plain_ms, bound), ``key`` their float32 times and bound as extras
+    ``{key}_ms``, ``{key}_plain_ms``, ``{key}_bound_ms``."""
     dt = X.dtype
     Zs, il, os, idx, gsym, dsky = inputs(dt)
     tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
@@ -2210,9 +2261,12 @@ def stats_case(label, X, y, inputs, fam, res, bf16=False, record=False, reps=5):
           "bwd": cuda_ms(lambda: vfe_stats_bwd(*bwd_in, fam), reps)}
     pms = {"fwd": cuda_ms(lambda: vfe_stats_fwd_plain(*fwd_in, fam, bf16), 1),
            "bwd": cuda_ms(lambda: vfe_stats_bwd_plain(*bwd_in, fam), 1)}
+    bnd = {"fwd": stats_bound("fwd", X, Zs, idx, out_f, fam),
+           "bwd": stats_bound("bwd", X, Zs, idx, out_b, fam)}
     print(f"parity vfe_stats {tag} {label}: max rel err fwd {errs['fwd']:.3e} bwd "
           f"{errs['bwd']:.3e}{txt}; kernel fwd {ms['fwd']:.4f} ms bwd {ms['bwd']:.4f} ms, plain "
-          f"fwd {pms['fwd']:.4f} ms bwd {pms['bwd']:.4f} ms")
+          f"fwd {pms['fwd']:.4f} ms bwd {pms['bwd']:.4f} ms, bound (float32 peak) fwd "
+          f"{bnd['fwd'][0]:.5f} ms bwd {bnd['bwd'][0]:.5f} ms")
     for k in ("fwd", "bwd"):
         assert errs[k] <= STATS_TOL[dt], f"vfe_stats_{k} {tag} {label} rel err {errs[k]}"
         if f32:
@@ -2224,8 +2278,10 @@ def stats_case(label, X, y, inputs, fam, res, bf16=False, record=False, reps=5):
             r = res[f"vfe_stats_{k}"]
             r["abs32"] = max(r["abs32"], max(abs_err(a, b) for a, b in zip(o, ref)))
             if record:
-                r.update(ms=ms[k], plain_ms=pms[k],
-                         bound=stats_bound(k, X, Zs, idx, o, fam))
+                r.update(ms=ms[k], plain_ms=pms[k], bound=bnd[k])
+            if key:
+                r["extra"].update({f"{key}_ms": ms[k], f"{key}_plain_ms": pms[k],
+                                   f"{key}_bound_ms": bnd[k][0]})
 
 
 def phase_parity_stats(Xb, yb, res):
@@ -2235,15 +2291,18 @@ def phase_parity_stats(Xb, yb, res):
     1M-row X; M=100, D=18), at the anchor's shape (N=1,000,000, C=2), each
     family at N=3000 with Z rows taken from X, and bf16 once. At the anchor
     shape: the peak device memory one forward + backward call adds, against
-    N M 4 bytes (a materialised Knm), and cuBLAS's product on a materialised
-    K of the same shape (the library yardstick). Then sgpr_adam_chunk at
-    the sghmc-exp warm start's shape (n=4096, M=100, D=18, 200 steps)."""
+    N M 4 bytes (a materialised Knm), and cuBLAS's products on a materialised
+    K of the same shape: K^T K, the library yardstick of the forward, and K g,
+    one product of the backward (no single PyTorch call computes the
+    backward, whose library_ms stays null). Then the warm start's grouped
+    trainer at the sghmc-exp warm start's shape (n=4096, M=100, D=18, 200
+    steps)."""
     N = Xb.shape[0]
     M = 100
     for dt in (torch.float64, torch.float32):
         X, y = Xb.to(dt), yb.to(dt)
         stats_case("step shape (C=4, B=2048 by idx, M=100, D=18)", X, y,
-                   stats_inputs(X, 4, M, 21, B=2048), "rbf", res)
+                   stats_inputs(X, 4, M, 21, B=2048), "rbf", res, key="step")
         anchor = stats_inputs(X, 2, M, 22)
         stats_case(f"anchor shape (N={N}, C=2, M=100, D=18)", X, y, anchor, "rbf", res,
                    record=True, reps=3)
@@ -2272,28 +2331,31 @@ def phase_parity_stats(Xb, yb, res):
             lib_b = cuda_ms(lambda: torch.matmul(K, gsym), 5)
             del K
             print(f"reference cuBLAS f32 on a materialised K (2, {N}, {M}): K^T K {lib_f:.4f} "
-                  f"ms, K g {lib_b:.4f} ms")
+                  f"ms, K g {lib_b:.4f} ms (one product of the backward, not a call that "
+                  f"computes it)")
             res["vfe_stats_fwd"]["library_ms"] = lib_f
-            res["vfe_stats_bwd"]["library_ms"] = lib_b
+            res["vfe_stats_bwd"]["extra"]["kg_product_ms"] = lib_b
     phase_parity_warm4096(Xb, yb, res)
 
 
 def phase_parity_warm4096(Xb, yb, res, steps=200):
-    """sgpr_adam_chunk (site 6's function: the warm start with X read from
-    device memory) at the sghmc-exp warm start's shape: the experiment's Z and
-    4096-row subsample (RandomState(45)), theta 0, SparseGPR's chain (lr
-    0.02, clip 100, noise floor 1e-4), one chunk of 200 steps, kernel against
-    plain. Float32 is held to ADAM_TOL, and both float32 versions are read
-    against the float64 run from the same inputs; where the plain version
-    itself sits more than F32_RESOLVES from float64, the kernel is held to
-    F32_AS_ACCURATE times the plain version's error instead (as the SVI
-    chunks are)."""
+    """sgpr_adam_chunk at the sghmc-exp warm start's shape, where it takes
+    the grouped trainer (kernel 3g, site 6's streamed function): the
+    experiment's Z and 4096-row subsample (RandomState(45)), theta 0,
+    SparseGPR's chain (lr 0.02, clip 100, noise floor 1e-4), one chunk of
+    200 steps, kernel against plain. Float32 is held to ADAM_TOL, and both
+    float32 versions are read against the float64 run from the same inputs;
+    where the plain version itself sits more than F32_RESOLVES from
+    float64, the kernel is held to F32_AS_ACCURATE times the plain version's
+    error instead (as the SVI chunks are). Two launches of 20 steps must be
+    bit-identical; the one-block kernel's time for the same chunk is
+    printed beside the grouped one's."""
     rng = np.random.RandomState(45)
     N = Xb.shape[0]
     Zi = torch.as_tensor(rng.randint(0, N, 100), device="cuda")
     sub = torch.as_tensor(rng.randint(0, N, 4096), device="cuda")
     akw = dict(t0=0, lr=0.02, clip_norm=100.0, min_noise=1e-4)
-    r = res["sgpr_adam_chunk"]
+    r = res["sgpr_adam_group"]
     ref64 = None
     for dt in (torch.float64, torch.float32):
         tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
@@ -2303,15 +2365,26 @@ def phase_parity_warm4096(Xb, yb, res, steps=200):
         th = torch.zeros(d + 2, dtype=dt, device="cuda")
         zt, zz = torch.zeros_like(th), torch.zeros_like(Z)
         args = (th, Z, zt, zt, zz, zz, X, y, 1e-5)
+        before = _build.LAUNCHES["sgpr_adam_group"]
         out, ms = once_ms(lambda: sgpr_adam_chunk(*args, num_steps=steps, **akw))
+        assert _build.LAUNCHES["sgpr_adam_group"] == before + 1, \
+            "sgpr_adam_chunk at n=4096 did not run the grouped trainer"
         ref, pms = once_ms(lambda: sgpr_adam_chunk_plain(*args, num_steps=steps, **akw))
+        check_repeat(f"sgpr_adam_chunk {tag} (grouped trainer, n={n}, 20 steps)",
+                     lambda: sgpr_adam_chunk(*args, num_steps=20, **akw))
         bound = roofline(steps, n, 100, d, nbytes(X, y) + 3 * nbytes(th, Z), nbytes(*out),
                          want_z=True)
         e = max(rel(a, b) for a, b in zip(out, ref))
-        head = (f"parity sgpr_adam_chunk {tag} at the sghmc-exp warm start (n={n}, M=100, "
+        head = (f"parity sgpr_adam_group {tag} at the sghmc-exp warm start (n={n}, M=100, "
                 f"D={d}), {steps} steps: max rel err {e:.3e}")
         tail = (f"kernel {ms:.3f} ms, plain {pms:.3f} ms per {steps}-step chunk "
                 f"({ms / steps:.4f} ms per step), bound {bound[0]:.5f} ms")
+        if f32:
+            _, bms = once_ms(lambda: call_sgpr_adam("block", *args, num_steps=steps, **akw))
+            tail += f"; the one-block kernel {bms:.3f} ms ({bms / steps:.4f} ms per step)"
+            r.update(abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
+                     bound=bound)
+            r["extra"].update(n4096_block_ms=bms)
         ok, txt = e <= ADAM_TOL[dt], ""
         if f32:
             ek = max(rel(a, b) for a, b in zip(out, ref64))
@@ -2321,13 +2394,12 @@ def phase_parity_warm4096(Xb, yb, res, steps=200):
                 ok = ek <= F32_AS_ACCURATE * ep
                 txt += (f" (float32 does not resolve this chunk: kernel held to "
                         f"{F32_AS_ACCURATE:g}x the plain version's error)")
-            r["extra"].update(n4096_ms=ms, n4096_plain_ms=pms, n4096_bound_ms=bound[0],
-                              n4096_steps=steps, n4096_f32_vs_f64=ek,
+            r["extra"].update(n4096_steps=steps, n4096_f32_vs_f64=ek,
                               n4096_f32_plain_vs_f64=ep)
         else:
             ref64 = ref
         print(f"{head}{txt}; {tail}")
-        assert ok, f"sgpr_adam_chunk {tag} n={n} rel err {e}"
+        assert ok, f"sgpr_adam_group {tag} n={n} rel err {e}"
         r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
 
 
@@ -2401,7 +2473,8 @@ def phase_parity_large(res, steps=20):
     version, and each launched twice on the same inputs (bit-identical). The
     one-block sgpmc core held at this n: sgpmc_potential and
     sgpmc_mc_potential (state d+2+M = 120). Each with its time and bound.
-    Then :func:`phase_group_scaling` and site 6's times at this n."""
+    Then :func:`phase_group_scaling` and :func:`phase_trainer_large` (the
+    warm start's grouped trainer held at this n)."""
     ref = regression_ref()
     zr = res["z_adam_chunk"]
     out64 = None
@@ -2516,7 +2589,7 @@ def phase_parity_large(res, steps=20):
     assert max(e_l, e_z) <= REG_ZSTEP_TOL, f"z_adam_chunk against REGRESSION_REF {e_l}, {e_z}"
     zr["extra"].update(zstep_vs_jax_losses=e_l, zstep_vs_jax_Z=e_z)
     phase_group_scaling(ref, res)
-    phase_warm_large(ref, res)
+    phase_trainer_large(ref, res)
 
 
 def phase_group_scaling(ref, res, sizes=(404, 1279, 4096, 13279)):
@@ -2564,24 +2637,58 @@ def phase_group_scaling(ref, res, sizes=(404, 1279, 4096, 13279)):
                                                dz_f32_vs_f64=ez)
 
 
-def phase_warm_large(ref, res, steps=2):
-    """sgpr_adam_chunk (site 6's function: the one-block warm-start kernel)
-    and its plain version at the reg-large shape, float32, ``steps`` steps
-    from the JAX run's warm state: ms a step of each. The difference is
-    printed, not held: phase_parity_warm4096 holds the function."""
-    X, y, _, th, Zw, _ = large_inputs(torch.float32, ref)
-    zt, zz = torch.zeros_like(th), torch.zeros_like(Zw)
-    akw = dict(t0=0, num_steps=steps, lr=0.01, clip_norm=10.0, min_noise=1e-4)
-    out = sgpr_adam_chunk(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw)
-    ref_p = sgpr_adam_chunk_plain(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw)
-    e = max(rel(a, b) for a, b in zip(out, ref_p))
-    ms = cuda_ms(lambda: sgpr_adam_chunk(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw), 1)
-    pms = cuda_ms(lambda: sgpr_adam_chunk_plain(th, Zw, zt, zt, zz, zz, X, y, 1e-5, **akw), 1)
-    print(f"timing sgpr_adam_chunk f32 at n={X.shape[0]} ({steps} steps): kernel "
-          f"{ms / steps:.3f} ms a step, plain {pms / steps:.3f} ms a step; {e:.3e} apart "
-          f"(printed, not held)")
-    res["sgpr_adam_chunk"]["extra"].update(n13279_ms_per_step=ms / steps,
-                                           n13279_plain_ms_per_step=pms / steps)
+def phase_trainer_large(ref, res, steps=20):
+    """The warm start's kernel at the reg-large shape (synthetic-large:
+    n=13,279, D=18, M=100), where sgpr_adam_chunk takes the grouped trainer
+    (kernel 3g, site 6's streamed function): ``steps`` steps from the path's
+    start (theta 0, the driver's Z_init; lr 0.01, clip 10, as reg-large's
+    warm start) against the plain version, float64 (jitter 1e-8) to TOL and
+    float32 (jitter 1e-5) to ADAM_TOL, or where float32 does not resolve the
+    chunk, the kernel's error against the float64 plain run at the same
+    jitter within F32_AS_ACCURATE times the plain version's; two launches
+    bit-identical; and the ms a step of both designs (the one-block kernel
+    over 2 steps)."""
+    r = res["sgpr_adam_group"]
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, y, Zi, th, _, _ = large_inputs(dt, ref)
+        n, d = X.shape
+        m = Zi.shape[0]
+        th0, zz = torch.zeros_like(th), torch.zeros_like(Zi)
+        jit = 1e-5 if f32 else 1e-8
+        akw = dict(t0=0, num_steps=steps, lr=0.01, clip_norm=10.0, min_noise=1e-4)
+        args = (th0, Zi, th0, th0, zz, zz, X, y, jit)
+        before = _build.LAUNCHES["sgpr_adam_group"]
+        out, ms = once_ms(lambda: sgpr_adam_chunk(*args, **akw))
+        assert _build.LAUNCHES["sgpr_adam_group"] == before + 1, \
+            "sgpr_adam_chunk at n=13,279 did not run the grouped trainer"
+        ref_p, pms = once_ms(lambda: sgpr_adam_chunk_plain(*args, **akw))
+        check_repeat(f"sgpr_adam_chunk {tag} (grouped trainer, n={n}, {steps} steps)",
+                     lambda: sgpr_adam_chunk(*args, **akw))
+        e = max(rel(a, b) for a, b in zip(out, ref_p))
+        ok, txt = e <= (ADAM_TOL if f32 else TOL)[dt], ""
+        if f32:
+            r64 = sgpr_adam_chunk_plain(*(a.double() for a in args[:-1]), jit, **akw)
+            ek = max(rel(a, b) for a, b in zip(out, r64))
+            ep = max(rel(a, b) for a, b in zip(ref_p, r64))
+            txt = f"; against float64 from the same inputs: kernel {ek:.3e}, plain {ep:.3e}"
+            if not ok and ep > F32_RESOLVES:
+                ok = ek <= F32_AS_ACCURATE * ep
+                txt += (f" (float32 does not resolve this chunk: kernel held to "
+                        f"{F32_AS_ACCURATE:g}x the plain version's error)")
+            _, bms = once_ms(lambda: call_sgpr_adam("block", *args, **dict(akw, num_steps=2)))
+            bound = roofline(steps, n, m, d, nbytes(X, y) + 3 * nbytes(th0, Zi), nbytes(*out),
+                             want_z=True)
+            txt += (f"; {ms / steps:.4f} ms a step (plain {pms / steps:.4f} ms, the one-block "
+                    f"kernel {bms / 2:.4f} ms), bound {bound[0] / steps:.6f} ms a step")
+            r["extra"].update(n13279_ms_per_step=ms / steps, n13279_plain_ms_per_step=pms / steps,
+                              n13279_block_ms_per_step=bms / 2,
+                              n13279_bound_ms_per_step=bound[0] / steps,
+                              n13279_f32_vs_f64=ek, n13279_f32_plain_vs_f64=ep)
+        print(f"parity sgpr_adam_group {tag} at the reg-large shape (n={n}, M={m}, D={d}), "
+              f"{steps} steps from the path's start: max rel err {e:.3e}{txt}")
+        assert ok, f"sgpr_adam_group {tag} n={n} rel err {e}"
+        r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
 
 
 def phase_reg_large():
@@ -2651,10 +2758,11 @@ def phase_reg_large():
           f"driver total {ms / 1e3:.3f} ({CARD}); test RMSE {metrics['test_rmse']:.4f}, "
           f"NLPD {metrics['test_nlpd']:.4f} (JAX CPU keys: RMSE {ref['rmse']:.4f} +- "
           f"{ref['rmse_sd']:.4f}, NLPD {ref['nlpd']:.4f} +- {ref['nlpd_sd']:.4f})")
-    check_launches("reg-large", launches, ["sgpr_adam_chunk", "vfe_group_mc_potential",
+    check_launches("reg-large", launches, ["sgpr_adam_group", "vfe_group_mc_potential",
                                            "vfe_group_mc_nuts_chunk", "z_adam_stream"])
-    assert launches["mc_nuts_chunk"] == launches["mc_potential"] == 0, \
-        "reg-large ran the one-block vfe core where the grouped one belongs"
+    assert launches["mc_nuts_chunk"] == launches["mc_potential"] \
+        == launches["sgpr_adam_chunk"] == 0, \
+        "reg-large ran a one-block vfe kernel where the grouped one belongs"
     for i, r in enumerate(rec["sample_hypers"]):
         assert r["div"] <= 0.1, f"reg-large round {i} divergence fraction {r['div']}"
         assert r["acc"] >= 0.5, f"reg-large round {i} mean accept {r['acc']}"
@@ -2808,13 +2916,13 @@ def phase_sghmc_exp():
     out = sghmc_main(n_rows=1_000_000, **kw)
     launches = dict(_build.LAUNCHES)
     print(f"sghmc-exp on {CARD}: warm start {out['warm_seconds']:.3f} s "
-          f"({launches['sgpr_adam_chunk']} sgpr_adam_chunk launches); SGHMC "
+          f"({launches['sgpr_adam_group']} sgpr_adam_group launches); SGHMC "
           f"{out['sghmc_seconds']:.3f} s ({out['steps_per_s']:.1f} steps/s), all finite "
           f"{out['finite']}; {out['components']} components: test RMSE {out['rmse']:.4f}, "
           f"mixture NLPD {out['nlpd']:.4f} (gates: RMSE <= {SGHMC_EXP_GATES['rmse']}, NLPD <= "
           f"{SGHMC_EXP_GATES['nlpd']}); mean log-hypers "
           + ", ".join(f"{v:.4f}" for v in hyper_means(out["samples"]).tolist()))
-    check_launches("sghmc-exp", launches, ["sgpr_adam_chunk", "vfe_stats_fwd", "vfe_stats_bwd"])
+    check_launches("sghmc-exp", launches, ["sgpr_adam_group", "vfe_stats_fwd", "vfe_stats_bwd"])
     assert out["finite"], "sghmc-exp: non-finite samples"
     assert out["rmse"] <= SGHMC_EXP_GATES["rmse"], out["rmse"]
     assert out["nlpd"] <= SGHMC_EXP_GATES["nlpd"], out["nlpd"]
@@ -2861,22 +2969,24 @@ def main(argv):
         return
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
-    only = argv[0] if argv[:1] in (["co2"], ["reg-large"]) else None
+    only = argv[0] if argv[:1] in (["co2"], ["reg-large"], ["gpr"]) else None
     res = new_res()
     if only is None:
         phase_parity(X, y, Zd, res)
         phase_parity_mc(X, y, Zd, res)
         phase_parity_sgpmc(X, y, Zd, res)
+    if only in (None, "gpr"):
         phase_parity_gpr(X, y, res)
+    if only is None:
         phase_parity_svi(X, y, Zd, res)
         big = big_data()
         phase_parity_stats(big[0], big[1], res)
-    if only != "co2":
+    if only in (None, "reg-large"):
         phase_parity_large(res)
-    if only != "reg-large":
+    if only in (None, "co2"):
         phase_parity_co2(X, y, Zd, res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
-    subset = {"co2": CO2_KERNELS, "reg-large": REG_KERNELS}.get(only, KERNELS)
+    subset = {"co2": CO2_KERNELS, "reg-large": REG_KERNELS, "gpr": GPR_KERNELS}.get(only, KERNELS)
     names = [k for k in KERNELS if k in subset]
     launches = {k: 0 for k in names}
     paths = [] if only else [
@@ -2885,9 +2995,11 @@ def main(argv):
         *gpr_paths(X, y, Xte, yte).values(),
         *svi_paths(X, y, Xte, yte).values(),
         *sghmc_paths(big).values()]
-    if only != "co2":
+    if only == "gpr":
+        paths += list(gpr_paths(X, y, Xte, yte).values())
+    if only in (None, "reg-large"):
         paths.append(phase_reg_large)
-    if only != "reg-large":
+    if only in (None, "co2"):
         paths += list(co2_paths().values())
     for run in paths:
         got = run()
@@ -2896,6 +3008,7 @@ def main(argv):
         print(f"main paths at {time.perf_counter() - T_START:.1f} s")
     if only is None:
         phase_scaling(X, y, Z)
+    if only in (None, "gpr"):
         phase_gpr_parts(X, y)
     assert all(v > 0 for v in launches.values()), launches
     out = []

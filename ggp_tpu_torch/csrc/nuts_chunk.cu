@@ -2,7 +2,7 @@
 // potential (template parameter `Core`: the collapsed bound of
 // BayesianSGPR_HMC over its d+2 log-hypers, VfeCore; the whitened
 // JointHMC target over d+2+m, SgpmcCore; or the dense GP marginal of
-// GPR_HMC over d+2, GprCore), with Stan warmup adaptation
+// GPR_HMC over d+2, GprGroupCore), with Stan warmup adaptation
 // in-kernel (adapt=1) or at a fixed step size with per-draw outputs
 // (adapt=0), for one chain per block and cfg[C_CHAINS] chains per launch.
 //
@@ -14,8 +14,8 @@
 // `make_fused_hmc_multichain`, built on `_nuts_transition_batched`; grid
 // C); each for targets "vfe" and "sgpmc" (entries
 // ggp_nuts_chunk_{vfe,sgpmc}_{f32,f64}); and the grid-1 chunks with
-// target="gpr" (ggp_nuts_chunk_gpr_{f32,f64}), which the port also runs at
-// grid C for C chains of GPR_HMC; and the grid-1 chunks with targets
+// target="gpr" (ggp_nuts_chunk_gpr_{f32,f64}, a group of blocks per chain),
+// which the port also runs for C chains of GPR_HMC; and the grid-1 chunks with targets
 // "co2_m32" / "co2_rbf" (Co2M32Core / Co2RbfCore, co2_bound.cuh; entries
 // ggp_nuts_chunk_co2_{m32,rbf}_{f32,f64}).
 //
@@ -29,8 +29,8 @@
 //
 // What bounds it on the card: each chain is sequential. Every leapfrog is
 // one evaluation of the core (a latency chain of barriers and L2 reads in
-// one block, ~2.4 ms for the bound at N=404, M=100; the dense gpr core
-// factorises N x N), and the tree logic
+// one block, ~2.4 ms for the bound at N=404, M=100; the grouped cores spread
+// it over G blocks per chain), and the tree logic
 // between evaluations is a handful of dim-length vector operations. C
 // chains take C SMs of 132; a launch ends when its longest tree does.
 //
@@ -340,13 +340,13 @@ int launch_nuts(const double* cfg, void* state, void* z, void* g,
       (T*)stats, (T*)scratch);
 }
 
-// Blocks of the grouped chunk kernel one SM holds at once (the occupancy the
-// cooperative launch is sized by), or a negative cudaError_t.
-template <typename T>
+// Blocks of the grouped chunk kernel of `Core` one SM holds at once (the
+// occupancy the cooperative launch is sized by), or a negative cudaError_t.
+template <template <typename> class Core, typename T>
 int chunk_group_blocks_per_sm() {
   int nb = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, nuts_chunk_kernel<VfeGroupCore, T>, CoreThreads<VfeGroupCore>::value, 0);
+      &nb, nuts_chunk_kernel<Core, T>, CoreThreads<Core>::value, 0);
   return err == cudaSuccess ? nb : -(int)err;
 }
 
@@ -432,8 +432,8 @@ int ggp_nuts_chunk_vfe_group_f64(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::VfeGroupCore, double>(GGP_NUTS_PASS);
 }
 int ggp_nuts_chunk_vfe_group_occupancy(int f64) {
-  return f64 ? ggp::chunk_group_blocks_per_sm<double>()
-             : ggp::chunk_group_blocks_per_sm<float>();
+  return f64 ? ggp::chunk_group_blocks_per_sm<ggp::VfeGroupCore, double>()
+             : ggp::chunk_group_blocks_per_sm<ggp::VfeGroupCore, float>();
 }
 int ggp_nuts_chunk_sgpmc_f32(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::SgpmcCore, float>(GGP_NUTS_PASS);
@@ -441,11 +441,16 @@ int ggp_nuts_chunk_sgpmc_f32(GGP_NUTS_ARGS) {
 int ggp_nuts_chunk_sgpmc_f64(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::SgpmcCore, double>(GGP_NUTS_PASS);
 }
+// cfg[C_CHAINS] chains of cfg[C_GROUP] blocks each, one cooperative launch
 int ggp_nuts_chunk_gpr_f32(GGP_NUTS_ARGS) {
-  return ggp::launch_nuts<ggp::GprCore, float>(GGP_NUTS_PASS);
+  return ggp::launch_nuts<ggp::GprGroupCore, float>(GGP_NUTS_PASS);
 }
 int ggp_nuts_chunk_gpr_f64(GGP_NUTS_ARGS) {
-  return ggp::launch_nuts<ggp::GprCore, double>(GGP_NUTS_PASS);
+  return ggp::launch_nuts<ggp::GprGroupCore, double>(GGP_NUTS_PASS);
+}
+int ggp_nuts_chunk_gpr_occupancy(int f64) {
+  return f64 ? ggp::chunk_group_blocks_per_sm<ggp::GprGroupCore, double>()
+             : ggp::chunk_group_blocks_per_sm<ggp::GprGroupCore, float>();
 }
 int ggp_nuts_chunk_co2_m32_f32(GGP_NUTS_ARGS) {
   return ggp::launch_nuts<ggp::Co2M32Core, float>(GGP_NUTS_PASS);

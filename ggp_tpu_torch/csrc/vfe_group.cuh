@@ -38,8 +38,12 @@
 // bits in every block, so the sampler's tree logic, which every block of the
 // group runs on its own copy, takes the same decisions everywhere: no
 // decision is broadcast, and every block reaches every barrier. Only block 0
-// writes outputs. The lengthscale cap (max |X|, |Z|) is formed once per
-// launch (X and Z do not change inside one).
+// writes U and g; dU/dZ (want_z) is reduced in slices, block p summing the
+// G partials of entries m d p / G .. m d (p + 1) / G - 1 and writing them.
+// The lengthscale cap's max |X| is formed once per launch (X does not change
+// inside one), its max |Z| by `group_cap` from the Z the caller passes: once
+// per launch in the sampler kernels, every step in the grouped trainer
+// (sgpr_adam.cu), whose Z changes inside the launch.
 //
 // Data one block writes and another reads inside the launch (V, Y1, v, w,
 // the chain's scalars and every partial) is read from L2 with ld.global.cg
@@ -123,7 +127,7 @@ __device__ inline void group_sync(unsigned* bar, int G, int p) {
     while (((old ^ *vb) & 0x80000000u) == 0) {
       __nanosleep(128);
       if (global_ns() - t0 > kSpinNs) {
-        printf("vfe_group: block %d of a group of %d waited over %llu ns at a barrier\n", p,
+        printf("group_sync: block %d of a group of %d waited over %llu ns at a barrier\n", p,
                G, kSpinNs);
         __trap();
       }
@@ -144,12 +148,24 @@ struct GroupWork {
   unsigned* bar;               // the chain's barrier
   long pe, p1;
   int p, G, row0, nr;
+  T xmax;                      // max |X|
   T cap;                       // 1024 / max(1e-3, |X|, |Z|)
 };
 
+// gw.cap from gw.xmax and the max of |Z| (md entries, read by every block
+// itself: a max is exact in any order, so every block gets the same cap).
+// Every thread calls it.
+template <typename T>
+__device__ void group_cap(GroupWork<T>& gw, const T* Z, int md, BoundShared<T>& sh) {
+  T mz = T(0);
+  for (int i = threadIdx.x; i < md; i += blockDim.x) mz = jmax(mz, gabs(Z[i]));
+  mz = block_max(mz, sh.red);
+  gw.cap = T(1024) / jmax(mz > gw.xmax ? mz : gw.xmax, T(1e-3));
+}
+
 // U_out = -(ELBO [+ log prior]) and g_out = dU/dtheta (d + 2 entries) of one
-// state row theta, and dZ_out = dU/dZ when cf.want_z (written by block 0):
-// vfe_bound's function on the chain's group. Every block of the group calls
+// state row theta, and dZ_out = dU/dZ when cf.want_z (each block writes its
+// slice): vfe_bound's function on the chain's group. Every block of the group calls
 // it with the same theta (visible to all its threads); its outputs are
 // visible to all threads on return. U_out is written by thread 0.
 template <typename T>
@@ -371,9 +387,10 @@ __device__ void vfe_group_bound(const BoundCfg& cf, const T* theta, const T* X, 
     g_out[d + 1] = -g_noise;
     *U_out = -Ftot;
   }
-  if (head && cf.want_z && dZ_out != nullptr) {
-    for (int idx = tid; idx < m * d; idx += nt)
-      dZ_out[idx] = (T(2) * w.GmmZ[idx] + T(sum_partials(two0, pe, G, 2 + d + idx)))
+  if (cf.want_z && dZ_out != nullptr) {       // this block's slice of dU/dZ
+    const long md = (long)m * d, z0 = md * p / G, z1 = md * (p + 1) / G;
+    for (long idx = z0 + tid; idx < z1; idx += nt)
+      dZ_out[idx] = (T(2) * __ldcg(w.GmmZ + idx) + T(sum_partials(two0, pe, G, 2 + d + idx)))
                     * il[idx % d];
   }
   __syncthreads();
@@ -388,9 +405,9 @@ struct VfeGroupCore {
 
   // The work of block blockIdx.x (chain blockIdx.x / G, place p =
   // blockIdx.x % G) in the launch's scratch; and the lengthscale cap, formed
-  // once per launch: each block takes the max of |X| over its rows (block 0
-  // also of |Z|), and after the chain's barrier every block reduces the G
-  // maxima (a max is exact in any order).
+  // once per launch: each block takes the max of |X| over its rows, and
+  // after the chain's barrier every block reduces the G maxima (a max is
+  // exact in any order), then takes |Z| in (group_cap).
   static __device__ WorkT work(T* scratch, const BoundCfg& cf, const T* X, const T* Z,
                                BoundShared<T>& sh) {
     const int tid = threadIdx.x, nt = blockDim.x;
@@ -419,8 +436,6 @@ struct VfeGroupCore {
 
     T mx = T(0);
     for (long i = tid; i < (long)gw.nr * d; i += nt) mx = jmax(mx, gabs(X[(long)gw.row0 * d + i]));
-    if (p == 0)
-      for (int i = tid; i < m * d; i += nt) mx = jmax(mx, gabs(Z[i]));
     mx = block_max(mx, sh.red);
     if (tid == 0) gw.part[(long)p * s.pe + s.p1] = double(mx);
     group_sync(gw.bar, G, p);
@@ -433,8 +448,9 @@ struct VfeGroupCore {
       sh.red[0] = top;
     }
     __syncthreads();
-    gw.cap = T(1024) / jmax(sh.red[0], T(1e-3));
+    gw.xmax = sh.red[0];
     __syncthreads();
+    group_cap(gw, Z, m * d, sh);
     return gw;
   }
 

@@ -3,7 +3,7 @@
 // cfg[C_CHAINS] state rows, one row per block. The potential is the
 // template parameter `Core`: the collapsed bound (VfeCore, vfe_bound.cuh),
 // the whitened JointHMC target (SgpmcCore, sgpmc_bound.cuh) or the dense
-// GP marginal (GprCore, gpr_bound.cuh).
+// GP marginal (GprGroupCore, gpr_bound.cuh).
 //
 // Replaces: ggp_tpu/ops/fused_nuts.py `_potential_kernel_body` (the
 // `pot_call` pallas_call of `make_fused_nuts`, grid 1), which serves the
@@ -20,10 +20,11 @@
 //
 // What bounds it on the card and what the design does about it: see
 // vfe_bound.cuh, sgpmc_bound.cuh, gpr_bound.cuh and co2_bound.cuh; each block runs the
-// core's device function once on its own row and its own scratch area, so
-// a call's time is one evaluation's latency chain (barriers and L2 reads),
-// not bandwidth or FLOPs, as long as the C blocks fit on the 132 SMs and
-// their scratch areas in L2.
+// core's device function once on its own row and its own scratch area (a
+// grouped core, vfe_group.cuh or gpr_bound.cuh: G blocks per row, launched
+// cooperatively), so a call's time is one evaluation's latency chain
+// (barriers and L2 reads), not bandwidth or FLOPs, as long as the blocks
+// fit on the 132 SMs and their scratch areas in L2.
 #include "co2_bound.cuh"
 #include "gpr_bound.cuh"
 #include "sgpmc_bound.cuh"
@@ -66,13 +67,13 @@ int launch_potential(const double* cfg, const void* theta, const void* X,
       (const T*)theta, (const T*)X, (const T*)y, (const T*)Z, (T*)out, (T*)dZ, (T*)scratch);
 }
 
-// Blocks of the grouped potential kernel one SM holds at once, or a
-// negative cudaError_t.
-template <typename T>
+// Blocks of the grouped potential kernel of `Core` one SM holds at once,
+// or a negative cudaError_t.
+template <template <typename> class Core, typename T>
 int potential_group_blocks_per_sm() {
   int nb = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, potential_kernel<VfeGroupCore, T>, CoreThreads<VfeGroupCore>::value, 0);
+      &nb, potential_kernel<Core, T>, CoreThreads<Core>::value, 0);
   return err == cudaSuccess ? nb : -(int)err;
 }
 
@@ -85,10 +86,11 @@ int potential_group_blocks_per_sm() {
 
 extern "C" {
 
-// elements of one evaluation's scratch area; core 0 = vfe, 1 = sgpmc,
-// 2 = gpr, 3 = co2_m32, 4 = co2_rbf (ggp_tpu_torch/ops/_build.py _CORE_ID)
+// elements of one evaluation's scratch area of a one-block core; core 0 =
+// vfe, 1 = sgpmc, 3 = co2_m32, 4 = co2_rbf (ggp_tpu_torch/ops/_build.py
+// _CORE_ID; the grouped cores size theirs by ggp_group_scratch_elems and
+// ggp_gpr_scratch_elems)
 long ggp_scratch_elems(int core, int n, int m, int d) {
-  if (core == 2) return ggp::gpr_work_elems(n, d);
   if (core >= 3) return ggp::work_elems(n, m, 1);
   return core == 1 ? ggp::sgpmc_work_elems(n, m, d) : ggp::work_elems(n, m, d);
 }
@@ -108,8 +110,8 @@ int ggp_potential_vfe_group_f64(GGP_POT_ARGS) {
   return ggp::launch_potential<ggp::VfeGroupCore, double>(GGP_POT_PASS);
 }
 int ggp_potential_vfe_group_occupancy(int f64) {
-  return f64 ? ggp::potential_group_blocks_per_sm<double>()
-             : ggp::potential_group_blocks_per_sm<float>();
+  return f64 ? ggp::potential_group_blocks_per_sm<ggp::VfeGroupCore, double>()
+             : ggp::potential_group_blocks_per_sm<ggp::VfeGroupCore, float>();
 }
 // elements of T of the grouped core's scratch for C chains of G blocks
 long ggp_group_scratch_elems(int n, int m, int d, int C, int G, int f64) {
@@ -122,11 +124,21 @@ int ggp_potential_sgpmc_f32(GGP_POT_ARGS) {
 int ggp_potential_sgpmc_f64(GGP_POT_ARGS) {
   return ggp::launch_potential<ggp::SgpmcCore, double>(GGP_POT_PASS);
 }
+// cfg[C_CHAINS] rows of cfg[C_GROUP] blocks each, one cooperative launch
 int ggp_potential_gpr_f32(GGP_POT_ARGS) {
-  return ggp::launch_potential<ggp::GprCore, float>(GGP_POT_PASS);
+  return ggp::launch_potential<ggp::GprGroupCore, float>(GGP_POT_PASS);
 }
 int ggp_potential_gpr_f64(GGP_POT_ARGS) {
-  return ggp::launch_potential<ggp::GprCore, double>(GGP_POT_PASS);
+  return ggp::launch_potential<ggp::GprGroupCore, double>(GGP_POT_PASS);
+}
+int ggp_potential_gpr_occupancy(int f64) {
+  return f64 ? ggp::potential_group_blocks_per_sm<ggp::GprGroupCore, double>()
+             : ggp::potential_group_blocks_per_sm<ggp::GprGroupCore, float>();
+}
+// elements of T of the gpr core's scratch for C chains of G blocks
+long ggp_gpr_scratch_elems(int n, int d, int C, int G, int f64) {
+  return f64 ? ggp::gpr_scratch_elems<double>(n, d, C, G)
+             : ggp::gpr_scratch_elems<float>(n, d, C, G);
 }
 int ggp_potential_co2_m32_f32(GGP_POT_ARGS) {
   return ggp::launch_potential<ggp::Co2M32Core, float>(GGP_POT_PASS);

@@ -16,10 +16,14 @@ runs; the co2 cores a potential, a NUTS chunk and a transition, as the JAX
 package runs them); their counters name the core (:func:`launch_key`). The
 ``"vfe_group"`` entries are the vfe core spread over a group of blocks per
 chain (``csrc/vfe_group.cuh``, ``ops/vfe_group.py``), which the vfe wrappers
-route to at large n and launch cooperatively. Each source is
+route to at large n and launch cooperatively; the ``"gpr"`` entries run the
+dense core on a group of blocks per chain at every n (``csrc/gpr_bound.cuh``).
+The grouped trainer ``ggp_sgpr_adam_group`` runs the warm start's Adam steps
+on the grouped vfe core (``csrc/sgpr_adam.cu``). Each source is
 compiled with ``-Xptxas -v``;
-the compiler's report of registers, shared memory and spills is kept beside
-the library (:func:`ptxas_report`).
+the compiler's report of registers, shared memory and spills, and the
+seconds each source took to compile, are kept beside the library
+(:func:`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -29,12 +33,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "launch_key", "build", "kernel_fn",
            "cfg_array", "check", "stream_ptr", "scratch", "ptr",
-           "require_cuda", "require_kind", "ptxas_report", "CFG", "CORE_KINDS"]
+           "require_cuda", "require_kind", "ptxas_report", "CFG", "CORE_KINDS", "GROUPED"]
 
 # what a sampler wrapper launches, per core: one row or chain, or C of them
 _SAMPLER_KINDS = ("potential", "nuts_chunk", "hmc_chunk", "mc_potential",
@@ -44,8 +49,10 @@ _NUTS_KINDS = ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk")
 CORE_KINDS = {"vfe": _SAMPLER_KINDS + ("nuts_transition",), "sgpmc": _SAMPLER_KINDS,
               "gpr": _NUTS_KINDS, "co2_m32": _CO2_KINDS, "co2_rbf": _CO2_KINDS,
               "vfe_group": _NUTS_KINDS}
-# csrc vfe_potential.cu ggp_scratch_elems
-_CORE_ID = {"vfe": 0, "sgpmc": 1, "gpr": 2, "co2_m32": 3, "co2_rbf": 4}
+# csrc vfe_potential.cu ggp_scratch_elems (the one-block cores)
+_CORE_ID = {"vfe": 0, "sgpmc": 1, "co2_m32": 3, "co2_rbf": 4}
+# the cores that run a chain on a group of blocks, launched cooperatively
+GROUPED = ("vfe_group", "gpr")
 
 
 def launch_key(core: str, kind: str) -> str:
@@ -61,7 +68,7 @@ def launch_key(core: str, kind: str) -> str:
 
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
-            "sgpr_adam_chunk": 0, "z_adam_stream": 0,
+            "sgpr_adam_chunk": 0, "sgpr_adam_group": 0, "z_adam_stream": 0,
             "sgpmc_warm_chunk": 0,
             "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0,
             "vfe_stats_fwd": 0, "vfe_stats_bwd": 0}
@@ -102,6 +109,7 @@ _SIGS = {
     **{f"ggp_{k}_{c}": [_P] * n for c, kinds in CORE_KINDS.items()
        for k, n in _NARGS.items() if k in kinds},
     "ggp_sgpr_adam": [_P] * 12,
+    "ggp_sgpr_adam_group": [_P] * 12,
     "ggp_z_adam_stream": [_P] * 11,
     "ggp_sgpmc_warm": [_P] * 12,
     "ggp_svi_chunk": [_P] * 19,
@@ -137,19 +145,31 @@ def build() -> ctypes.CDLL:
         tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
         arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
         objs, procs = [], []
+        t0 = time.perf_counter()
         for src in (s for s in srcs if s.endswith(".cu")):
             obj = os.path.join(_BUILD, f"{os.path.basename(src)[:-3]}.{tag}.o")
             objs.append(obj)
-            procs.append(subprocess.Popen(
-                [_nvcc(), *arch, "-Xptxas", "-v", "-c", "-Xcompiler", "-fPIC",
-                 "-o", obj, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+            with open(obj + ".log", "w") as log:    # a file, not a pipe: nothing waits on a reader
+                procs.append((src, obj, subprocess.Popen(
+                    [_nvcc(), *arch, "-Xptxas", "-v", "-c", "-Xcompiler", "-fPIC",
+                     "-o", obj, src], stdout=log, stderr=subprocess.STDOUT)))
+        secs = {}
+        while len(secs) < len(procs):
+            for src, _, p in procs:
+                if src not in secs and p.poll() is not None:
+                    secs[src] = time.perf_counter() - t0
+            time.sleep(0.05)
+        logs = []
+        for src, obj, p in procs:
+            with open(obj + ".log") as f:
+                logs.append((src, f.read(), p.returncode))
+            os.remove(obj + ".log")
         failed = [f"{src}:\n{log}" for src, log, rc in logs if rc != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         with open(out[:-3] + ".ptxas.txt", "w") as f:
-            f.writelines(f"== {os.path.basename(src)}\n{log}" for src, log, _ in logs)
+            f.writelines(f"== {os.path.basename(src)} ({secs[src]:.1f} s)\n{log}"
+                         for src, log, _ in logs)
         tmp = out + f".tmp{os.getpid()}"
         res = subprocess.run([_nvcc(), *arch, "-shared", "-o", tmp, *objs],
                              capture_output=True, text=True)
@@ -178,8 +198,13 @@ def _load(path: str) -> ctypes.CDLL:
     lib_.ggp_z_adam_stream_elems.restype = ctypes.c_long
     lib_.ggp_group_scratch_elems.argtypes = [ctypes.c_int] * 6
     lib_.ggp_group_scratch_elems.restype = ctypes.c_long
-    for kind in ("potential", "nuts_chunk"):
-        fn = getattr(lib_, f"ggp_{kind}_vfe_group_occupancy")
+    lib_.ggp_gpr_scratch_elems.argtypes = [ctypes.c_int] * 5
+    lib_.ggp_gpr_scratch_elems.restype = ctypes.c_long
+    lib_.ggp_sgpr_adam_group_elems.argtypes = [ctypes.c_int] * 5
+    lib_.ggp_sgpr_adam_group_elems.restype = ctypes.c_long
+    for name in [f"ggp_{kind}_{core}_occupancy" for kind in ("potential", "nuts_chunk")
+                 for core in GROUPED] + ["ggp_sgpr_adam_vfe_group_occupancy"]:
+        fn = getattr(lib_, name)
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_int
     return lib_

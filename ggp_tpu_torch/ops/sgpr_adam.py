@@ -1,9 +1,12 @@
 """Whole chunks of Adam steps on the collapsed bound: plain PyTorch beside
-the CUDA kernels ``sgpr_adam_chunk`` (kernel 3) and ``z_adam_stream``
-(kernel 12), which ``z_adam_chunk`` runs on the card at every n.
+the CUDA kernels ``sgpr_adam_chunk`` (kernel 3: one block; kernel 3g: the
+grouped vfe core, which ``sgpr_adam_chunk`` runs past ``GROUP_MIN_N`` rows)
+and ``z_adam_stream`` (kernel 12), which ``z_adam_chunk`` runs on the card at
+every n.
 
-Counterparts of ``ggp_tpu/ops/fused_sgpr.py`` ``_sgpr_chunk_body`` (the
-warm start's (theta, Z) trainer) and ``_zadam_chunk_body`` (optimize_Z's
+Counterparts of ``ggp_tpu/ops/fused_sgpr.py`` ``_sgpr_chunk_body`` and
+``_sgpr_stream_chunk_body`` (the warm start's (theta, Z) trainer, resident
+and streamed past 2048 rows) and ``_zadam_chunk_body`` (optimize_Z's
 Z-only trainer over a hyper trace; the JAX package's two pallas_calls are
 resident up to ``STREAM_MIN_N`` rows and streamed over row blocks past it;
 on the card kernel 12 computes both),
@@ -19,11 +22,12 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, vfe_group
 from .linalg import capped_inv_ls, chol_upper
 from .vfe_bound import _check_shapes, bound_cfg, rbf_vfe_neg_logpost_vg
 
-__all__ = ["adam_update", "sgpr_adam_chunk_plain", "sgpr_adam_chunk",
+__all__ = ["adam_update", "sgpr_adam_chunk_plain", "sgpr_adam_chunk", "sgpr_adam_group_plain",
+           "trainer_route", "call_sgpr_adam", "GROUP_MIN_N",
            "z_adam_chunk_plain", "z_adam_chunk", "stream_neg_elbo_vg",
            "z_adam_stream_plain", "z_adam_stream", "PIVOT_FLOOR", "STREAM_MIN_N",
            "STREAM_NB"]
@@ -35,6 +39,9 @@ _BOX = 15.0
 # blocks of STREAM_NB
 STREAM_MIN_N = 2048
 STREAM_NB = 256
+# the JAX package streams the warm start past this many rows (``make_fused_sgpr``:
+# n > 2048); on the card ``sgpr_adam_chunk`` takes the grouped trainer there
+GROUP_MIN_N = 2048
 
 
 def _finite(g):
@@ -103,29 +110,96 @@ def z_adam_chunk_plain(Z, m_z, v_z, thetas, X, y, jitter, *, t0, num_steps,
     return Z, m_z, v_z, torch.stack(losses)
 
 
-def _call_sgpr_adam(theta, Z, m_th, v_th, m_z, v_z, X, y, jitter, t0,
-                    num_steps, lr, clip_norm, min_noise, stream):
+def sgpr_adam_group_plain(theta, Z, m_th, v_th, m_z, v_z, X, y, jitter, G, *,
+                          t0, num_steps, lr, clip_norm, min_noise=1e-4):
+    """The grouped trainer (kernel 3g, ``csrc/sgpr_adam.cu``) in plain
+    PyTorch, step for step in its order: each step's evaluation is
+    ``vfe_group.group_neg_logpost_vg`` on G row blocks; the masked squares
+    of dU/dZ summed in double per slice (block p's entries m d p / G .. m d
+    (p + 1) / G - 1), the G slice sums in the order p = 0 .. G-1, then
+    theta's; the same clip, Adam step, box and noise floor as
+    :func:`sgpr_adam_chunk_plain`, which it computes. Returns what that
+    does."""
+    d = X.shape[1]
+    dev, dt = X.device, X.dtype
+    md = Z.numel()
+    is_noise = torch.arange(d + 2, device=dev) == d + 1
+    log_floor = math.log(min_noise)
+    losses = []
+    for t in range(int(num_steps)):
+        loss, gt, gZ = vfe_group.group_neg_logpost_vg(
+            theta, X, y, Z, jitter, G, want_z_grad=True, want_prior=False,
+            pivot_floor=PIVOT_FLOOR)
+        gt, gZ = _finite(gt), _finite(gZ)
+        flat = gZ.reshape(-1).to(torch.float64)
+        gn2 = torch.zeros((), dtype=torch.float64, device=dev)
+        for p in range(G):
+            sl = flat[md * p // G:md * (p + 1) // G]
+            gn2 = gn2 + (sl * sl).sum()
+        gn2 = gn2 + (gt.to(torch.float64) ** 2).sum()
+        sc = torch.clamp(clip_norm / torch.sqrt(gn2).to(dt), max=1.0)
+        ta = torch.as_tensor(t0 + t + 1.0, dtype=dt, device=dev)
+        theta, m_th, v_th = adam_update(theta, gt * sc, m_th, v_th, ta, lr)
+        Z, m_z, v_z = adam_update(Z, gZ * sc, m_z, v_z, ta, lr)
+        theta = torch.clamp(theta, -_BOX, _BOX)
+        theta = torch.where(is_noise, torch.clamp(theta, min=log_floor), theta)
+        losses.append(loss)
+    return theta, Z, m_th, v_th, m_z, v_z, torch.stack(losses)
+
+
+def trainer_route(n: int) -> str:
+    """The warm-start kernel for n rows on the card: ``"group"`` (kernel 3g,
+    the grouped vfe core) past ``GROUP_MIN_N``, where the JAX package
+    streams its trainer, else ``"block"`` (kernel 3, one block)."""
+    return "group" if n > GROUP_MIN_N else "block"
+
+
+def trainer_scratch(n, m, d, G, like):
+    """The grouped trainer's scratch (the count from the C side), its
+    barrier zeroed."""
+    elems = int(_build.build().ggp_sgpr_adam_group_elems(n, m, d, G,
+                                                         int(like.dtype == torch.float64)))
+    work = torch.empty(elems, dtype=like.dtype, device=like.device)
+    work[:128 // like.element_size()].zero_()
+    return work
+
+
+def call_sgpr_adam(kernel, theta, Z, m_th, v_th, m_z, v_z, X, y, jitter, *, t0,
+                   num_steps, lr, clip_norm, min_noise=1e-4):
+    """One launch of the warm-start kernel ``kernel`` ("block": kernel 3 on
+    one block; "group": kernel 3g, launched cooperatively on G blocks, all
+    the card holds) on CUDA tensors; counts no launch (the wrapper
+    :func:`sgpr_adam_chunk` does). Returns (theta, Z, m_th, v_th, m_z, v_z,
+    losses); the inputs are not modified."""
     n, d = X.shape
     m = Z.shape[0]
     outs = [a.clone() for a in (theta, Z, m_th, v_th, m_z, v_z)]
-    losses = torch.empty(num_steps, dtype=X.dtype, device=X.device)
-    work = _build.scratch(n, m, d, m * d, X)
+    losses = torch.empty(int(num_steps), dtype=X.dtype, device=X.device)
+    extra = {}
+    if kernel == "group":
+        G = vfe_group.geometry("sgpr_adam", X.dtype, 1, X.device)
+        work, extra = trainer_scratch(n, m, d, G, X), {"GROUP": G}
+    else:
+        work = _build.scratch(n, m, d, m * d, X)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=True, want_prior=False,
-                    pivot_floor=PIVOT_FLOOR, prior_spec=None, K=num_steps,
-                    LR=lr, CLIP=clip_norm, MIN_NOISE=min_noise, T0=t0)
+                    pivot_floor=PIVOT_FLOOR, prior_spec=None, K=int(num_steps),
+                    LR=lr, CLIP=clip_norm, MIN_NOISE=min_noise, T0=float(t0), **extra)
     P = _build.ptr
-    err = _build.kernel_fn("ggp_sgpr_adam", X.dtype)(
+    name = "ggp_sgpr_adam_group" if kernel == "group" else "ggp_sgpr_adam"
+    err = _build.kernel_fn(name, X.dtype)(
         ctypes.cast(cfg, ctypes.c_void_p), *[P(a) for a in outs], P(X), P(y),
-        P(losses), P(work), stream)
-    _build.check(err, "sgpr_adam_chunk")
+        P(losses), P(work), _build.stream_ptr(X.device))
+    _build.check(err, name)
     return (*outs, losses)
 
 
 def sgpr_adam_chunk(theta, Z, m_th, v_th, m_z, v_z, X, y, jitter, *, t0,
                     num_steps, lr, clip_norm, min_noise=1e-4):
-    """:func:`sgpr_adam_chunk_plain` on CPU tensors; kernel 3
-    (``csrc/sgpr_adam.cu``) on CUDA tensors, where the whole chunk is one
-    launch. Inputs are not modified."""
+    """:func:`sgpr_adam_chunk_plain` on CPU tensors; on CUDA tensors the
+    whole chunk in one launch of the kernel :func:`trainer_route` names
+    (``csrc/sgpr_adam.cu``: kernel 3 on one block up to ``GROUP_MIN_N``
+    rows, kernel 3g on the grouped vfe core past it). Inputs are not
+    modified."""
     _check_shapes("sgpr_adam_chunk", theta, X, y, Z)
     if X.device.type == "cpu":
         return sgpr_adam_chunk_plain(theta, Z, m_th, v_th, m_z, v_z, X, y,
@@ -134,10 +208,11 @@ def sgpr_adam_chunk(theta, Z, m_th, v_th, m_z, v_z, X, y, jitter, *, t0,
                                      min_noise=min_noise)
     _build.require_cuda("sgpr_adam_chunk", X.dtype, theta, Z, m_th, v_th,
                         m_z, v_z, X, y)
-    out = _call_sgpr_adam(theta, Z, m_th, v_th, m_z, v_z, X, y, jitter,
-                          float(t0), int(num_steps), lr, clip_norm, min_noise,
-                          _build.stream_ptr(X.device))
-    _build.LAUNCHES["sgpr_adam_chunk"] += 1
+    kernel = trainer_route(X.shape[0])
+    out = call_sgpr_adam(kernel, theta, Z, m_th, v_th, m_z, v_z, X, y, jitter, t0=t0,
+                         num_steps=num_steps, lr=lr, clip_norm=clip_norm,
+                         min_noise=min_noise)
+    _build.LAUNCHES["sgpr_adam_group" if kernel == "group" else "sgpr_adam_chunk"] += 1
     return out
 
 

@@ -1,17 +1,22 @@
-"""The grouped vfe core (``csrc/vfe_group.cuh``, ``VfeGroupCore``): one
-evaluation of the collapsed bound spread over a group of G thread blocks per
-chain, which the potential kernel and the NUTS chunk kernel run where the
-JAX package streams the vfe core: past 1024 rows for C >= 2 chains
+"""The grouped cores: one evaluation spread over a group of G thread blocks
+per chain, in one cooperative launch. The grouped vfe core
+(``csrc/vfe_group.cuh``, ``VfeGroupCore``) computes the collapsed bound;
+the potential kernel and the NUTS chunk kernel run it where the JAX package
+streams the vfe core: past 1024 rows for C >= 2 chains
 (``fused_multichain.MAX_N_MULTICHAIN``), past 2048 for one chain
-(``fused_nuts.MAX_N_RESIDENT``). Below that the one-block core runs.
+(``fused_nuts.MAX_N_RESIDENT``); below that the one-block core runs. The
+grouped trainer (``csrc/sgpr_adam.cu``, ``ops/sgpr_adam.py``) runs it past
+2048 rows too. The dense gpr core (``csrc/gpr_bound.cuh``, ``GprGroupCore``)
+runs on a group at every n.
 
 Here is what a launch needs and the CPU can check: the routing rule
 (:func:`route`), the launch geometry (:func:`group_size`, :func:`row_blocks`,
 :func:`geometry`), the scratch of a launch (:func:`launch_work`,
-:func:`group_scratch`, sized by the C side), and a plain model of the
+:func:`group_scratch`, sized by the C side), and a plain model of the vfe
 kernel's summation order (:func:`group_neg_logpost_vg`: row-block partials
 summed p = 0 .. G-1, then the M x M part), which computes the function of
-``vfe_bound.rbf_vfe_neg_logpost_vg``.
+``vfe_bound.rbf_vfe_neg_logpost_vg``. The gpr core's plain model is
+``ops.gpr_bound.gpr_group_neg_logpost_vg``.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ _OCCUPANCY: dict = {}
 def route(core: str, n: int, chains: int) -> str:
     """The core whose kernel runs ``core`` on n rows for ``chains`` chains:
     ``"vfe_group"`` where the JAX package streams the vfe core (n > 1024
-    with C >= 2 chains, n > 2048 with one), else ``core`` itself."""
+    with C >= 2 chains, n > 2048 with one), else ``core`` itself (the gpr
+    core is grouped at every n)."""
     if core == "vfe" and n > (GROUP_MIN_N_MC if chains >= 2 else GROUP_MIN_N):
         return "vfe_group"
     return core
@@ -50,7 +56,7 @@ def group_size(chains: int, sm_count: int, blocks_per_sm: int) -> int:
     block: the cooperative launch needs every block resident at once."""
     G = (sm_count * blocks_per_sm) // chains
     if G < 1:
-        raise RuntimeError(f"the grouped vfe core needs a block per chain: {chains} chains "
+        raise RuntimeError(f"a grouped core needs a block per chain: {chains} chains "
                            f"on {sm_count} SMs of {blocks_per_sm} resident blocks")
     return G
 
@@ -63,32 +69,37 @@ def row_blocks(n: int, G: int) -> list[tuple[int, int]]:
     return [(b[p], b[p + 1] - b[p]) for p in range(G)]
 
 
-def blocks_per_sm(kind: str, dtype: torch.dtype) -> int:
-    """Blocks of the grouped ``kind`` kernel ("potential" or "nuts_chunk")
-    that one SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    at its block size; registers and shared memory decide it)."""
-    key = (kind, dtype)
+def blocks_per_sm(kind: str, dtype: torch.dtype, core: str = "vfe_group") -> int:
+    """Blocks of the grouped ``kind`` kernel ("potential", "nuts_chunk"; or
+    "sgpr_adam" for the grouped trainer) of ``core`` that one SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its block
+    size; registers and shared memory decide it)."""
+    key = (kind, dtype, core)
     if key not in _OCCUPANCY:
-        fn = getattr(_build.build(), f"ggp_{kind}_vfe_group_occupancy")
+        fn = getattr(_build.build(), f"ggp_{kind}_{core}_occupancy")
         bps = int(fn(int(dtype == torch.float64)))
         if bps < 0:
-            raise RuntimeError(f"vfe_group {kind}: occupancy query failed with cudaError_t {-bps}")
+            raise RuntimeError(f"{core} {kind}: occupancy query failed with cudaError_t {-bps}")
         _OCCUPANCY[key] = bps
     return _OCCUPANCY[key]
 
 
-def geometry(kind: str, dtype: torch.dtype, chains: int, device) -> int:
-    """G for one launch of the grouped ``kind`` kernel on ``chains`` chains:
-    :func:`group_size` from the card's SM count and :func:`blocks_per_sm`."""
+def geometry(kind: str, dtype: torch.dtype, chains: int, device, core: str = "vfe_group") -> int:
+    """G for one launch of the grouped ``kind`` kernel of ``core`` on
+    ``chains`` chains: :func:`group_size` from the card's SM count and
+    :func:`blocks_per_sm`."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return group_size(chains, sms, blocks_per_sm(kind, dtype))
+    return group_size(chains, sms, blocks_per_sm(kind, dtype, core))
 
 
-def group_scratch(n: int, m: int, d: int, C: int, G: int, like: torch.Tensor) -> torch.Tensor:
-    """One launch's scratch (the count from the C side), its C barriers
-    zeroed, the rest uninitialised."""
+def group_scratch(n: int, m: int, d: int, C: int, G: int, like: torch.Tensor,
+                  core: str = "vfe_group") -> torch.Tensor:
+    """One launch's scratch of a grouped core (the count from the C side),
+    its C barriers zeroed, the rest uninitialised."""
     f64 = int(like.dtype == torch.float64)
-    elems = int(_build.build().ggp_group_scratch_elems(n, m, d, C, G, f64))
+    lib = _build.build()
+    elems = int(lib.ggp_gpr_scratch_elems(n, d, C, G, f64) if core == "gpr"
+                else lib.ggp_group_scratch_elems(n, m, d, C, G, f64))
     work = torch.empty(elems, dtype=like.dtype, device=like.device)
     work[:C * _BAR_WORDS * 4 // like.element_size()].zero_()
     return work
@@ -97,14 +108,14 @@ def group_scratch(n: int, m: int, d: int, C: int, G: int, like: torch.Tensor) ->
 def launch_work(kind: str, core: str, n: int, m: int, d: int, C: int,
                 like: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """The scratch of one launch of the ``kind`` kernel of ``core`` on C
-    chains, and the cfg entries its geometry adds: for ``"vfe_group"`` G
-    (cfg slot GROUP, :func:`geometry`) and :func:`group_scratch`; for any
-    other core one evaluation's area per chain (``_build.scratch``) and
-    none."""
-    if core != "vfe_group":
+    chains, and the cfg entries its geometry adds: for a grouped core
+    (``_build.GROUPED``) G (cfg slot GROUP, :func:`geometry`) and
+    :func:`group_scratch`; for any other core one evaluation's area per
+    chain (``_build.scratch``) and none."""
+    if core not in _build.GROUPED:
         return _build.scratch(n, m, d, 0, like, chains=C, core=core), {}
-    G = geometry(kind, like.dtype, C, like.device)
-    return group_scratch(n, m, d, C, G, like), {"GROUP": G}
+    G = geometry(kind, like.dtype, C, like.device, core=core)
+    return group_scratch(n, m, d, C, G, like, core=core), {"GROUP": G}
 
 
 def _in_order(parts):

@@ -27,9 +27,9 @@ from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plai
 from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
                                           first_chain, nuts_chunk, nuts_chunk_plain,
                                           nuts_transition, nuts_transition_plain)
-from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
-                                         z_adam_chunk, z_adam_chunk_plain, z_adam_stream,
-                                         z_adam_stream_plain)
+from ggp_tpu_torch.ops.sgpr_adam import (call_sgpr_adam, sgpr_adam_chunk,
+                                         sgpr_adam_chunk_plain, z_adam_chunk, z_adam_chunk_plain,
+                                         z_adam_stream, z_adam_stream_plain)
 from ggp_tpu_torch.ops import svi
 from ggp_tpu_torch.ops.vfe_bound import neg_logpost_vg, rbf_vfe_neg_logpost_vg, vfe_potential
 from ggp_tpu_torch.ops.vfe_stats import (vfe_stats_bwd, vfe_stats_bwd_plain, vfe_stats_fwd,
@@ -381,11 +381,74 @@ def test_group_grid_that_does_not_fit_raises(dev, monkeypatch):
     launch and raises; nothing falls back to the one-block kernel."""
     from ggp_tpu_torch.ops import vfe_group
     th, X, y, Z = _problem(dev, torch.float64, n=4096, m=16, d=5, seed=11)
-    monkeypatch.setattr(vfe_group, "geometry", lambda kind, dtype, chains, device: 100000)
+    monkeypatch.setattr(vfe_group, "geometry",
+                        lambda kind, dtype, chains, device, core="vfe_group": 100000)
     before = dict(_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         vfe_potential(th, X, y, Z, 1e-6)
     assert _build.LAUNCHES == before
+
+
+def test_gpr_and_trainer_grids_that_do_not_fit_raise(dev, monkeypatch):
+    """The grouped gpr core (one chain and C chains) and the grouped
+    warm-start trainer refuse a cooperative grid larger than the card holds
+    and raise; nothing falls back to a one-block kernel."""
+    from ggp_tpu_torch.ops import vfe_group
+    th, X, y, Z = _problem(dev, torch.float64, n=2500, m=16, d=5, seed=11)
+    Ze = X.new_empty((0, X.shape[1]))
+    monkeypatch.setattr(vfe_group, "geometry",
+                        lambda kind, dtype, chains, device, core="vfe_group": 100000)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        vfe_potential(th, X[:300].contiguous(), y[:300].contiguous(), Ze, 1e-6, core="gpr")
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        mc_potential(torch.stack([th, th]), X[:300].contiguous(), y[:300].contiguous(), Ze,
+                     1e-6, core="gpr")
+    zt, zz = torch.zeros_like(th), torch.zeros_like(Z)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        sgpr_adam_chunk(th, Z, zt, zt, zz, zz, X, y, 1e-6, t0=0, num_steps=2, lr=0.01,
+                        clip_norm=10.0)
+    assert _build.LAUNCHES == before
+
+
+# -- the warm start's grouped trainer (kernel 3g, csrc/sgpr_adam.cu) ------------------
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_group_trainer_matches_plain(dev, dt):
+    """Past 2048 rows sgpr_adam_chunk runs the grouped trainer: 10 steps from
+    t0=3 against the plain version (the one-block kernel's tolerance);
+    two launches on the same inputs give the same bits. The same kernel
+    below the threshold (called directly) holds too."""
+    th, X, y, Z = _problem(dev, dt, n=2500, m=24, d=5, seed=12)
+    zt, zz = torch.zeros_like(th), torch.zeros_like(Z)
+    kw = dict(t0=3, num_steps=10, lr=0.01, clip_norm=10.0, min_noise=1e-4)
+    before = dict(_build.LAUNCHES)
+    a = sgpr_adam_chunk(th, Z, zt, zt, zz, zz, X, y, 1e-6, **kw)
+    assert _build.LAUNCHES["sgpr_adam_group"] == before["sgpr_adam_group"] + 1
+    assert _build.LAUNCHES["sgpr_adam_chunk"] == before["sgpr_adam_chunk"]
+    b = sgpr_adam_chunk_plain(th, Z, zt, zt, zz, zz, X, y, 1e-6, **kw)
+    for u, v in zip(a, b):
+        assert _rel(u, v) <= 10 * TOL[dt]
+    again = sgpr_adam_chunk(th, Z, zt, zt, zz, zz, X, y, 1e-6, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(a, again))
+    Xs, ys = X[:120].contiguous(), y[:120].contiguous()
+    a = call_sgpr_adam("group", th, Z, zt, zt, zz, zz, Xs, ys, 1e-6, **kw)
+    b = sgpr_adam_chunk_plain(th, Z, zt, zt, zz, zz, Xs, ys, 1e-6, **kw)
+    for u, v in zip(a, b):
+        assert _rel(u, v) <= 10 * TOL[dt]
+
+
+def test_trainer_scratch_fits_the_group_core(dev):
+    """The grouped trainer's scratch: the grouped core's of one chain (its
+    bytes rounded to 16), then G doubles, dU/dZ and G copies of Z."""
+    lib = _build.build()
+    for n, m, d, G in [(13279, 100, 18, 132), (2049, 24, 5, 7)]:
+        for dt in DTYPES:
+            f64 = int(dt == torch.float64)
+            item = 8 if f64 else 4
+            core = -(-lib.ggp_group_scratch_elems(n, m, d, 1, G, f64) * item // 16) * 16
+            want = -(-(core + G * 8 + m * d * (1 + G) * item) // item)
+            assert lib.ggp_sgpr_adam_group_elems(n, m, d, G, f64) == want
 
 
 def test_wrappers_raise_on_wrong_inputs(dev):
@@ -553,7 +616,8 @@ def _gpr_problem(dev, dt, n=150, d=5, seed=0):
 
 @pytest.mark.parametrize("dt", DTYPES)
 def test_gpr_potential_kernel_matches_plain(dev, dt):
-    """One row at grid 1 and C=8 rows at grid 8 against the plain version."""
+    """One row and C=8 rows (a group of blocks each) against the plain
+    version."""
     th, X, y, Z = _gpr_problem(dev, dt)
     before = _build.LAUNCHES["gpr_potential"]
     out = vfe_potential(th, X, y, Z, 1e-6, core="gpr")
@@ -606,6 +670,64 @@ def test_gpr_nuts_chunk_grid_c_equals_grid_1(dev, dt):
         for c in range(C):
             assert _agreeing_prefix(d_c[:, c], d_p[:, c], x_c[:, c], x_p[:, c],
                                     CHUNK_TOL[dt]) == K, c
+
+
+def test_gpr_scratch_layout_matches_the_kernels(dev):
+    """The C side's count of the grouped gpr core's scratch
+    (``ggp_gpr_scratch_elems``) against the layout ``GprGroupCore::work``
+    walks: per chain a 128-byte barrier line; per chain the doubles (nt (nt
+    + 1) / 2 tiles of d + 2 partials, G blocks' per-warp sums of 8 max(d +
+    2, 32), G maxima of |X|), then the elements (A and L, np x np with np =
+    32 nt; t, a and the log diagonal, np; G blocks' three 32 x 32 tiles),
+    the chain's bytes rounded up to 16."""
+    lib = _build.build()
+    for n, d, C, G in [(404, 13, 1, 132), (1279, 11, 4, 33), (20, 2, 8, 16)]:
+        nt = -(-n // 32)
+        npad = 32 * nt
+        dbl = nt * (nt + 1) // 2 * (d + 2) + G * 8 * max(d + 2, 32) + G
+        for dt in DTYPES:
+            item = torch.empty(0, dtype=dt).element_size()
+            chain = -(-(dbl * 8 + (2 * npad * npad + 3 * npad + 3 * G * 1024) * item) // 16) * 16
+            want = -(-(C * (128 + chain)) // item)
+            assert lib.ggp_gpr_scratch_elems(n, d, C, G, int(item == 8)) == want
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n,d", [(1279, 11), (33, 3)])
+def test_gpr_potential_at_winered_and_one_row_past_a_tile(dev, dt, n, d):
+    """The grouped gpr core at bench.py's winered shape (40 tiles a side) and
+    at n = 33 (a second tile of one row): one row and three rows against the
+    plain version; two launches give the same bits, and a chain of the
+    three-row launch the bits of the one-row launch (every sum runs over
+    tiles, so the result does not depend on G)."""
+    th, X, y, Z = _gpr_problem(dev, dt, n=n, d=d, seed=13)
+    out = vfe_potential(th, X, y, Z, 1e-6, core="gpr")
+    ref = gpr_neg_logpost_vg(th, X, y, 1e-6)
+    for a, b in zip(out, ref):
+        assert _rel(a, b) <= TOL[dt]
+    again = vfe_potential(th, X, y, Z, 1e-6, core="gpr")
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    rows = torch.stack([th, th + 0.1, th - 0.1])
+    three = mc_potential(rows, X, y, Z, 1e-6, core="gpr")
+    assert torch.equal(three[0][0], out[0]) and torch.equal(three[1][0], out[1])
+    for a, b in zip(three, mc_potential_plain(rows, X, y, Z, 1e-6, core="gpr")):
+        assert _rel(a, b) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gpr_potential_non_pd_gives_nan(dev, dt):
+    """A negative jitter that makes K indefinite: a non-positive pivot in a
+    diagonal tile gives NaN value and gradient for one row and for each of
+    C rows (the samplers' divergence), as the plain version does; the
+    launch does not raise or hang."""
+    th, X, y, Z = _gpr_problem(dev, dt, n=150, seed=14)
+    th = th.clone()
+    th[-2], th[-1] = -3.0, 0.0
+    U0, _ = gpr_neg_logpost_vg(th, X, y, -1.5)
+    U, g = vfe_potential(th, X, y, Z, -1.5, core="gpr")
+    Uc, gc = mc_potential(torch.stack([th, th]), X, y, Z, -1.5, core="gpr")
+    assert torch.isnan(U0) and torch.isnan(U) and torch.isnan(g).all()
+    assert torch.isnan(Uc).all() and torch.isnan(gc).all()
 
 
 @pytest.mark.parametrize("num_chains", [1, 3])
@@ -798,12 +920,13 @@ def test_vfe_stats_kernels_beyond_one_tile_and_bf16(dev, dt):
 
 
 def test_sghmc_experiment_runs_on_the_card(dev):
-    """The SGHMC experiment at a small size on the card: warm start on
-    sgpr_adam_chunk, SGHMC with the anchor on the statistics kernels."""
+    """The SGHMC experiment at a small size on the card: warm start on 4096
+    rows, which sgpr_adam_chunk runs on the grouped trainer (past 2048
+    rows), SGHMC with the anchor on the statistics kernels."""
     before = dict(_build.LAUNCHES)
     out = sghmc_main(n_rows=None, M=16, warm_iters=20, num_steps=40, control_variate=True)
     assert out["finite"] and np.isfinite(out["rmse"]) and np.isfinite(out["nlpd"])
-    for k in ("sgpr_adam_chunk", "vfe_stats_fwd", "vfe_stats_bwd"):
+    for k in ("sgpr_adam_group", "vfe_stats_fwd", "vfe_stats_bwd"):
         assert _build.LAUNCHES[k] > before[k], k
 
 

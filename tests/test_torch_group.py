@@ -92,6 +92,10 @@ class _CountingLib:
         self.calls.append(("group", n, m, d, C, G, f64))
         return 1000 + n + m + d + C + G + f64
 
+    def ggp_gpr_scratch_elems(self, n, d, C, G, f64):
+        self.calls.append(("gpr", n, d, C, G, f64))
+        return 2000 + n + d + C + G + f64
+
     def ggp_scratch_elems(self, core_id, n, m, d):
         self.calls.append(("core", core_id, n, m, d))
         return 500 + n + m + d + core_id
@@ -100,26 +104,32 @@ class _CountingLib:
 @pytest.mark.parametrize("dt", [torch.float32, F64])
 @pytest.mark.parametrize("kind,core,n,m,d,C", [
     ("potential", "vfe_group", 13279, 100, 18, 1), ("nuts_chunk", "vfe_group", 1025, 24, 5, 8),
-    ("potential", "vfe", 404, 100, 2, 2), ("nuts_chunk", "sgpmc", 3000, 7, 13, 4)])
+    ("potential", "vfe", 404, 100, 2, 2), ("nuts_chunk", "sgpmc", 3000, 7, 13, 4),
+    ("potential", "gpr", 404, 0, 13, 1), ("nuts_chunk", "gpr", 1279, 0, 11, 4)])
 def test_launch_work(kind, core, n, m, d, C, dt, monkeypatch):
-    """A grouped launch takes G from the geometry of its kernel kind and the
+    """A grouped launch (the vfe core past its threshold, the gpr core at
+    every n) takes G from the geometry of its core's kernel kind and the
     chain count, passes it as cfg GROUP, and sizes its scratch by the C
-    side's count with each chain's 128-byte barrier zeroed; any other core
-    takes one evaluation's area per chain and no GROUP."""
+    side's count for that core with each chain's 128-byte barrier zeroed;
+    any other core takes one evaluation's area per chain and no GROUP."""
     lib = _CountingLib()
     monkeypatch.setattr(_build, "build", lambda: lib)
     seen = []
-    monkeypatch.setattr(vfe_group, "geometry",
-                        lambda k, t, chains, device: seen.append((k, t, chains)) or 7 * chains)
+    monkeypatch.setattr(vfe_group, "geometry", lambda k, t, chains, device, core:
+                        seen.append((k, t, chains, core)) or 7 * chains)
     like = torch.ones(3, dtype=dt)
     work, cfg = vfe_group.launch_work(kind, core, n, m, d, C, like)
     assert work.dtype == dt and work.device == like.device
     f64 = int(dt == F64)
-    if core == "vfe_group":
+    if core in ("vfe_group", "gpr"):
         G = 7 * C
-        assert seen == [(kind, dt, C)] and cfg == {"GROUP": G}
-        assert lib.calls == [("group", n, m, d, C, G, f64)]
-        assert work.numel() == lib.ggp_group_scratch_elems(n, m, d, C, G, f64)
+        assert seen == [(kind, dt, C, core)] and cfg == {"GROUP": G}
+        if core == "gpr":
+            assert lib.calls == [("gpr", n, d, C, G, f64)]
+            assert work.numel() == lib.ggp_gpr_scratch_elems(n, d, C, G, f64)
+        else:
+            assert lib.calls == [("group", n, m, d, C, G, f64)]
+            assert work.numel() == lib.ggp_group_scratch_elems(n, m, d, C, G, f64)
         assert torch.equal(work[:C * 128 // like.element_size()],
                            torch.zeros(C * 128 // like.element_size(), dtype=dt))
     else:

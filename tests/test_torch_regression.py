@@ -8,7 +8,10 @@ against ``fused_bound._rbf_vfe_neg_logpost_vg_streaming`` driven by a host
 ``loop_blocks``; ``_rbf_vfe_batched_vg_streaming`` and
 ``_sgpmc_neg_logpost_vg_streaming`` against the port's plain potentials; the
 driver ``experiments/regression.py`` ``single_run`` on synthetic-small; the
-summary table. The interpret-mode streamed Pallas chunk is ``slow``.
+summary table; the grouped warm-start trainer's plain model
+(``sgpr_adam_group_plain``, kernel 3g's order) against the one-block
+trainer's plain version and its routing at 2048 / 2049 rows. The
+interpret-mode streamed Pallas chunks are ``slow``.
 """
 
 import subprocess
@@ -34,7 +37,9 @@ from ggp_tpu_torch.inference.diagnostics import summary, summary_to_csv, trace_t
 from ggp_tpu_torch.ops import _build, sgpr_adam
 from ggp_tpu_torch.ops.multichain import mc_potential_plain
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
-from ggp_tpu_torch.ops.sgpr_adam import (stream_neg_elbo_vg, z_adam_chunk, z_adam_chunk_plain,
+from ggp_tpu_torch.ops.sgpr_adam import (sgpr_adam_chunk, sgpr_adam_chunk_plain,
+                                         sgpr_adam_group_plain, stream_neg_elbo_vg,
+                                         trainer_route, z_adam_chunk, z_adam_chunk_plain,
                                          z_adam_stream_plain)
 from ggp_tpu_torch.utils import experiment_tools
 from ggp_tpu_torch.utils.datasets import DataNotInRepository
@@ -49,6 +54,10 @@ N, M, D, S, NB = 200, 8, 3, 3, 64
 TOL_CORE = 1e-10
 RTOL_ADAM = 1e-7
 TOL_TWIN = 1e-12
+# The grouped trainer's model against the one-block trainer's plain version:
+# the same function summed over row blocks and slices (~1e-15 per
+# evaluation), carried through 20 Adam steps.
+TOL_ADAM_GROUP = 1e-9
 
 
 def _rel(a, b):
@@ -133,6 +142,83 @@ def test_z_adam_chunk_routes_by_size():
     a = z_adam_chunk(Zt, zz, zz, tt, Xt, yt, JITTER, t0=0, num_steps=1, lr=LR)
     b = z_adam_stream_plain(Zt, zz, zz, tt, Xt, yt, JITTER, t0=0, num_steps=1, lr=LR)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+# -- the warm start's grouped trainer (kernel 3g) ----------------------------------
+
+@pytest.mark.parametrize("G", [1, 5, 66])
+def test_group_trainer_model_matches_the_one_block_trainer(G):
+    """20 float64 Adam steps of the grouped trainer's plain model (each
+    evaluation over G row blocks, the norm's squares summed per slice of
+    dU/dZ and then over slices) against ``sgpr_adam_chunk_plain``: every
+    output within TOL_ADAM_GROUP."""
+    X, y, Z, _ = _problem(seed=7, n=300, m=12, d=4)
+    Xt, yt, Zt = (torch.tensor(a) for a in (X, y, Z))
+    th = torch.zeros(6, dtype=torch.float64)
+    zt, zz = torch.zeros_like(th), torch.zeros_like(Zt)
+    kw = dict(t0=0, num_steps=20, lr=0.02, clip_norm=100.0, min_noise=1e-4)
+    a = sgpr_adam_chunk_plain(th, Zt, zt, zt, zz, zz, Xt, yt, 1e-6, **kw)
+    b = sgpr_adam_group_plain(th, Zt, zt, zt, zz, zz, Xt, yt, 1e-6, G, **kw)
+    for u, v in zip(b, a):
+        assert _rel(u, v) <= TOL_ADAM_GROUP
+
+
+@pytest.mark.parametrize("n,want", [(404, "block"), (2048, "block"), (2049, "group"),
+                                    (13279, "group")])
+def test_sgpr_adam_chunk_routes_at_2048_rows(n, want, monkeypatch):
+    """Off the CPU sgpr_adam_chunk takes kernel 3 (one block) up to 2048
+    rows and kernel 3g (the grouped vfe core) past them, the JAX package's
+    streaming threshold, and counts the launch under that kernel's name; on
+    the CPU it runs the plain version and launches nothing."""
+    assert sgpr_adam.GROUP_MIN_N == 2048 and trainer_route(n) == want
+    calls = []
+    monkeypatch.setattr(sgpr_adam, "call_sgpr_adam",
+                        lambda kernel, *a, **kw: calls.append(kernel) or a[:6])
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    meta = dict(device="meta", dtype=torch.float64)
+    Z, X, y = torch.zeros((4, 2), **meta), torch.zeros((n, 2), **meta), torch.zeros(n, **meta)
+    th = torch.zeros(4, **meta)
+    kw = dict(t0=0, num_steps=1, lr=0.01, clip_norm=10.0)
+    before = dict(_build.LAUNCHES)
+    sgpr_adam_chunk(th, Z, th, th, Z, Z, X, y, JITTER, **kw)
+    key = "sgpr_adam_group" if want == "group" else "sgpr_adam_chunk"
+    assert calls == [want] and _build.LAUNCHES[key] == before[key] + 1
+    Xc, yc, Zc, _ = (torch.tensor(a) for a in _problem(seed=8, n=n, m=4, d=2))
+    tc = torch.zeros(4, dtype=torch.float64)
+    zz = torch.zeros_like(Zc)
+    before = dict(_build.LAUNCHES)
+    out = sgpr_adam_chunk(tc, Zc, tc, tc, zz, zz, Xc, yc, JITTER, **kw)
+    ref = sgpr_adam_chunk_plain(tc, Zc, tc, tc, zz, zz, Xc, yc, JITTER, **kw)
+    assert _build.LAUNCHES == before and all(torch.equal(u, v) for u, v in zip(out, ref))
+
+
+@pytest.mark.slow
+def test_group_trainer_model_matches_interpret_streamed_chunk():
+    """The interpret-mode streamed ``make_fused_sgpr`` at n=2304 (past its
+    resident cap), float32, 2 steps of (theta, Z) against the grouped
+    trainer's plain model at G = 9: losses, theta and Z to 1e-3 (float32
+    blocked factorisations against LAPACK)."""
+    from ggp_tpu.ops.fused_sgpr import make_fused_sgpr
+
+    n, m, d, K = 2304, 16, 4, 2
+    X, y, Z, _ = _problem(seed=9, n=n, m=m, d=d)
+    f32 = jnp.float32
+    chunk = make_fused_sgpr(n, m, d, 1e-5, steps_per_call=K, lr=LR, min_noise=1e-4,
+                            clip_norm=10.0, interpret=True, data_scale=float(np.abs(X).max()))
+    tp = jnp.zeros((1, 128), f32)
+    Zp = jnp.zeros((128, 128), f32).at[:m, :d].set(Z)
+    Xp = jnp.zeros((n, 128), f32).at[:, :d].set(X)
+    yp = jnp.asarray(y, f32)[:, None]
+    zero = {"theta": jnp.zeros((1, 128), f32), "Z": jnp.zeros((128, 128), f32)}
+    th_j, Z_j, _, _, l_j = chunk(tp, Zp, zero, zero, Xp, yp, 0.0)
+    Xt, yt, Zt = (torch.tensor(a, dtype=torch.float32) for a in (X, y, Z))
+    th = torch.zeros(d + 2)
+    zt, zz = torch.zeros_like(th), torch.zeros_like(Zt)
+    out = sgpr_adam_group_plain(th, Zt, zt, zt, zz, zz, Xt, yt, 1e-5, 9, t0=0, num_steps=K,
+                                lr=LR, clip_norm=10.0, min_noise=1e-4)
+    np.testing.assert_allclose(out[6].numpy(), np.asarray(l_j), rtol=1e-3)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(th_j)[0, :d + 2], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(Z_j)[:m, :d], rtol=1e-3, atol=1e-3)
 
 
 # -- the streamed cores' pass structure ---------------------------------------------
