@@ -37,10 +37,14 @@ non-zero exit:
    trace rows, 20 steps; in float64 also against the JAX package's Z
    steps, REGRESSION_REF); at that n the grouped vfe core (vfe_potential
    at one chain, mc_potential and an mc_nuts_chunk pair at C=2, each also
-   launched twice for bit-identical outputs), the one-block sgpmc core
-   (sgpmc_potential, sgpmc_mc_potential), a scaling line of both vfe
+   launched twice for bit-identical outputs), a scaling line of both vfe
    designs at n = 1279, 4096, 13,279, and the grouped trainer's 20 steps
-   from the path's start, with both trainers' time a step;
+   from the path's start, with both trainers' time a step; the grouped
+   sgpmc core (sgpmc_group_potential at one chain and C=2, NUTS chunk pairs
+   at one chain and C=2, HMC chunk pairs at one chain and C=2) and the
+   grouped vfe HMC chunk (C=2 and 8), each launched twice for bit-identical
+   outputs, the warm start's one-block kernel at that n, and a scaling line
+   of both sgpmc designs at n = 404, 1279, 4096, 13,279;
    the co2 cores
    (co2_potential, co2_nuts_chunk) and the one-transition kernel
    (nuts_transition, vfe and co2) at the Mauna Loa experiment's shape
@@ -99,6 +103,15 @@ non-zero exit:
       the grouped vfe core, 500 Z steps after each on kernel 12, the
       mixture predictive), held to health gates and to the JAX package's
       CPU run (regression_reference.py, REGRESSION_REF);
+   s. joint-large: the same regression driver's JointHMC protocol (``single_run(
+      "synthetic-large", 0, "JointHMC")``: warm start 100 steps, one chain
+      of NUTS on the grouped sgpmc core, cut to 50 + 25, the 50-component
+      predictive), held to health gates and to the JAX package's CPU run
+      of the same cut (joint_reference.py, JOINT_REF_FILE);
+   t. joint-large-c2: train_sgp_hmc on the same data, 2 chains of HMC
+      (L=10), 50 + 50, on the grouped HMC chunk;
+   u. hmc-large: bench.py's ``cell_hmc_throughput`` on the same data (8
+      chains of HMC, L=10, 50 + 50) on the grouped vfe HMC chunk;
 5. mc_potential's time at C = 1, 8 and 32 chains (do blocks slow each
    other?); where one gpr evaluation's time goes (its six parts, timed as
    prefixes), beside cholesky_ex + cholesky_inverse of the same K;
@@ -117,17 +130,21 @@ happens to do.
     python3 chip_smoke.py co2
     python3 chip_smoke.py reg-large
     python3 chip_smoke.py gpr
+    python3 chip_smoke.py joint-large
 
 run only the build, the co2 parity and the three co2 paths; or the build,
 the parity at the reg-large shape (the grouped trainer held there among
 them) and the reg-large path; or the build, the gpr core's parity, the
-gpr-hmc and gpr-c4 paths and the gpr core's parts.
+gpr-hmc and gpr-c4 paths and the gpr core's parts; or the build, the
+grouped sgpmc and HMC kernels' parity at the reg-large shape and the
+joint-large, joint-large-c2 and hmc-large paths.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
                                     [gpr-hmc] [gpr-c4] [svgp] [svgp-probit]
                                     [svgp-poisson] [svgp-softmax] [bsvgp]
                                     [sghmc-1m] [sghmc-exp] [co2] [co2-f32]
-                                    [co2-alt] [reg-large]
+                                    [co2-alt] [reg-large] [joint-large]
+                                    [joint-large-c2] [hmc-large]
 
 runs the named main paths instead (default: all) once each under
 ``torch.profiler`` after a short warm-up, and prints where the device time
@@ -136,6 +153,7 @@ goes: time and launches by kernel, and the device busy share.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -152,6 +170,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ggp_tpu_torch import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC,
                            BayesianStochasticVariationalGP, StochasticVariationalGP)
+from ggp_tpu_torch.models import train_sgp_hmc
 from ggp_tpu_torch.experiments.co2_bayesian_sgpr_hmc import (co2_model, extrapolation,
                                                              init_co2_params)
 from ggp_tpu_torch.experiments.co2_data import load_co2_dataset
@@ -269,17 +288,42 @@ KERNELS = {
                              "ggp_tpu/ops/fused_multichain.py:1954",
                              ("ggp_tpu/ops/fused_multichain.py:1966",
                               "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792")),
+    "vfe_group_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
+                            "ggp_tpu/ops/fused_multichain.py:1985",
+                            ("ggp_tpu/ops/fused_multichain.py:1997",)),
+    # the sgpmc core on a group of blocks per chain (csrc/sgpmc_group.cuh), where
+    # the JAX package streams it (fused_bound.py:1577, fused_multichain.py:907):
+    # past 1024 rows for C >= 2 chains, past 2048 for one
+    "sgpmc_group_potential": ("ggp_tpu_torch/csrc/sgpmc_group.cu",
+                              "ggp_tpu/ops/fused_nuts.py:807",
+                              ("ggp_tpu/ops/fused_multichain.py:1933",)),
+    "sgpmc_group_nuts_chunk": ("ggp_tpu_torch/csrc/sgpmc_group.cu",
+                               "ggp_tpu/ops/fused_nuts.py:780",
+                               ("ggp_tpu/ops/fused_nuts.py:792",
+                                "ggp_tpu/ops/fused_multichain.py:1954",
+                                "ggp_tpu/ops/fused_multichain.py:1966")),
+    "sgpmc_group_hmc_chunk": ("ggp_tpu_torch/csrc/sgpmc_group.cu",
+                              "ggp_tpu/ops/fused_multichain.py:1985",
+                              ("ggp_tpu/ops/fused_multichain.py:1997",
+                               "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792")),
 }
 # a KERNELS entry whose launches are the sum of several counters (one per
 # core, or per wrapper of one kernel)
 LAUNCH_SUMS = {"nuts_transition": ("nuts_transition_vfe", "nuts_transition_co2"),
                "z_adam_chunk": ("z_adam_stream",),
                "vfe_group_potential": ("vfe_group_potential", "vfe_group_mc_potential"),
-               "vfe_group_nuts_chunk": ("vfe_group_nuts_chunk", "vfe_group_mc_nuts_chunk")}
+               "vfe_group_nuts_chunk": ("vfe_group_nuts_chunk", "vfe_group_mc_nuts_chunk"),
+               "vfe_group_hmc_chunk": ("vfe_group_hmc_chunk", "vfe_group_mc_hmc_chunk"),
+               **{f"sgpmc_group_{k}": (f"sgpmc_group_{k}", f"sgpmc_group_mc_{k}")
+                  for k in ("potential", "nuts_chunk", "hmc_chunk")}}
 CO2_KERNELS = ("co2_potential", "co2_nuts_chunk", "nuts_transition")
 GPR_KERNELS = ("gpr_potential", "gpr_nuts_chunk", "gpr_mc_potential", "gpr_mc_nuts_chunk")
 # the kernels the reg-large path launches
 REG_KERNELS = ("sgpr_adam_group", "z_adam_chunk", "vfe_group_potential", "vfe_group_nuts_chunk")
+# the kernels the joint-large, joint-large-c2 and hmc-large paths launch
+JOINT_KERNELS = ("sgpmc_warm_chunk", "sgpmc_group_potential", "sgpmc_group_nuts_chunk",
+                 "sgpmc_group_hmc_chunk", "sgpr_adam_group", "vfe_group_potential",
+                 "vfe_group_hmc_chunk")
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
 # algebra, another summation order and factorisation, ~1e-13 in float64 and
 # ~1e-6 in float32.
@@ -450,6 +494,31 @@ REG_WARM_TOL = 1e-3
 REG_ZSTEP_TOL = 1e-6
 REG_METRIC_TOL = 0.05
 REG_SDS = 4
+# The joint-large path: the regression driver's JointHMC protocol on
+# synthetic-large (experiments/regression.py single_run, 13,279 train rows,
+# D=18, M=100, one chain of NUTS), held to the JAX package's CPU run in
+# float64 (joint_reference.py, which writes JOINT_REF_FILE beside this
+# script, its cut included): (1) the warm start's final loss, within
+# JOINT_WARM_TOL relative (a deterministic 100-step Adam run on the same
+# rows; the path runs float32 at jitter 1e-5 against 1e-8, and on the
+# one-block warm-start kernel with the trainers' pivot floor, where the JAX
+# package runs its XLA scan); (2) the test RMSE and NLPD, within
+# JOINT_METRIC_TOL + JOINT_SDS standard deviations of the JAX run's eight
+# keys; (3) each of the d + 2 hyper lanes' trace means, within
+# JOINT_LANE_TOL + JOINT_SDS SDs. On synthetic-large both packages fit y
+# as little better than noise, so (2) is a sanity gate, and the lengthscale
+# lanes are prior-dominated: their chain means move ~1 log unit from the
+# warm state over the cut and spread ~0.1-0.3 from key to key, which three
+# keys estimate too poorly for a 4 SD gate (Student t of 2 degrees of
+# freedom: 5.7 % a lane beyond 4; of 7, 0.5 %). The sampler's cut,
+# 50 warmup + 25 draws (joint-nuts' depth) from the regression driver's 500 + 100: a
+# NUTS transition at this n takes up to 2^8 - 1 leapfrogs, ~0.2 s each in
+# the JAX package's CPU run.
+JOINT_REF_FILE = "joint_reference.json"
+JOINT_WARM_TOL = 1e-3
+JOINT_METRIC_TOL = 0.05
+JOINT_LANE_TOL = 0.1
+JOINT_SDS = 4
 # NVIDIA H100 SXM data sheet (at 700 W): float32 and float64 outside the
 # tensor cores, float64 on the tensor cores (DMMA, full IEEE double: the
 # matrix products of a float64 bound can run there), and HBM3 bandwidth.
@@ -1898,10 +1967,12 @@ def phase_rounds(Xd, yd, Zd, num_chains, label, z_steps):
     return launches
 
 
-def phase_hmc_c8(Xd, yd, Zd, C=8, T=250):
+def phase_hmc_c8(Xd, yd, Zd, C=8, T=250, label="hmc-c8",
+                 kernels=("sgpr_adam_chunk", "mc_potential", "mc_hmc_chunk"), absent=()):
     """bench.py ``cell_hmc_throughput`` (bench.py:261-284) through the
     port, float32, timed once: warm start 500 steps, then C chains of HMC
-    (L=10) with T warmup and T draws each (bench.py: 500)."""
+    (L=10) with T warmup and T draws each (bench.py: 500). The run must
+    launch ``kernels`` and none of ``absent``."""
     X, y, Z = (a.to(torch.float32) for a in (Xd, yd, Zd))
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -1921,16 +1992,17 @@ def phase_hmc_c8(Xd, yd, Zd, C=8, T=250):
     chains = trace.reshape(C, -1, dim)
     rhat = max(split_rhat(chains[:, :, j]) for j in range(dim))
     ess = min_ess_per_s(trace, secs)
-    print(f"hmc-c8 warm_start: {t_warm / 1e3:.3f} s; sampling ({C} chains x ({T} warmup "
+    print(f"{label} warm_start: {t_warm / 1e3:.3f} s; sampling on {CARD} ({C} chains x ({T} warmup "
           f"+ {T} draws), L=10): {secs:.3f} s; divergence fraction {div:.4f}; mean accept "
           f"{acc:.4f}; min-ESS/s (pooled trace {trace.shape[0]} x {dim}) {ess:.3f}; max "
           f"split-R-hat {rhat:.4f}; step sizes "
           f"{', '.join(f'{e:.4g}' for e in st['step_size'].tolist())}; "
           f"{ms / (20 * T):.3f} ms per leapfrog of a chain ({2 * T} transitions x 10)")
-    check_launches("hmc-c8", launches, ["sgpr_adam_chunk", "mc_potential", "mc_hmc_chunk"])
+    check_launches(label, launches, list(kernels))
+    assert not any(launches[k] for k in absent), f"{label} launched one of {absent}"
     assert trace.shape == (C * T, dim) and np.isfinite(trace).all()
-    assert div <= 0.1, f"hmc-c8 divergence fraction {div}"
-    assert acc >= 0.5, f"hmc-c8 mean accept {acc}"
+    assert div <= 0.1, f"{label} divergence fraction {div}"
+    assert acc >= 0.5, f"{label} mean accept {acc}"
     assert math.isfinite(rhat), rhat
     return launches
 
@@ -2166,7 +2238,7 @@ def profile_paths(X, y, Z, Xte, yte, names):
     activities), after a warm-up of the kernels and library handles."""
     paths = {**flagship_paths(X, y, Z), **joint_paths(X, y, Z, Xte, yte),
              **gpr_paths(X, y, Xte, yte), **svi_paths(X, y, Xte, yte), **co2_paths(),
-             "reg-large": phase_reg_large}
+             "reg-large": phase_reg_large, **joint_large_paths()}
     if not names or any(k.startswith("sghmc") for k in names):
         paths.update(sghmc_paths(big_data()))
     Xf, yf, Zf = (a.float() for a in (X, y, Z))
@@ -2425,16 +2497,6 @@ def large_inputs(dt, ref):
                                            trace)]
 
 
-def record_large(res, name, tmp, tag, f32):
-    """Move a parity record made at the path's shape (``tmp``) into the
-    extras of ``res[name]`` (n13279_*), keeping its N=404 row."""
-    r = tmp[name]
-    res[name]["rel"][tag] = max(res[name]["rel"].get(tag, 0.0), r["rel"][tag])
-    if f32:
-        res[name]["extra"].update(n13279_ms=r["ms"], n13279_plain_ms=r["plain_ms"],
-                                  n13279_bound_ms=r["bound"][0])
-
-
 def take_row(res, name, tmp, src, tag, f32):
     """Move the parity record ``tmp[src]`` (made through a wrapper that
     routed to kernel ``name``) into the row of ``res[name]``."""
@@ -2470,9 +2532,9 @@ def phase_parity_large(res, steps=20):
     wrappers route the vfe core past 2048 rows (one chain) and 1024 (C >= 2),
     as the JAX package streams it: vfe_potential at one chain, mc_potential
     and one NUTS chunk pair (warm, sample) at C=2, each against its plain
-    version, and each launched twice on the same inputs (bit-identical). The
-    one-block sgpmc core held at this n: sgpmc_potential and
-    sgpmc_mc_potential (state d+2+M = 120). Each with its time and bound.
+    version, and each launched twice on the same inputs (bit-identical).
+    Each with its time and bound (the grouped sgpmc core at this n:
+    :func:`phase_parity_joint_large`).
     Then :func:`phase_group_scaling` and :func:`phase_trainer_large` (the
     warm start's grouped trainer held at this n)."""
     ref = regression_ref()
@@ -2561,26 +2623,6 @@ def phase_parity_large(res, steps=20):
             res["vfe_group_nuts_chunk"]["extra"]["group"] = vfe_group.geometry(
                 "nuts_chunk", dt, 2, X.device)
 
-        # the sgpmc core at this n (one block)
-        zs0 = torch.cat([th, torch.zeros(m, dtype=dt, device="cuda")])
-        st0, gen = mc_start(X, y, Zi, jit, 2, seed=19, core="sgpmc", z0=zs0)
-        row = st0.z[0].contiguous()
-        out_s = vfe_potential(row, X, y, Zi, jit, core="sgpmc")
-        es = max(rel(a, b) for a, b in zip(out_s, sgpmc_neg_logpost_vg(row, X, y, Zi, jit)))
-        sms = cuda_ms(lambda: vfe_potential(row, X, y, Zi, jit, core="sgpmc"), 5)
-        spms = cuda_ms(lambda: sgpmc_neg_logpost_vg(row, X, y, Zi, jit), 3)
-        sb = roofline(1, n, m, d, xyz + nbytes(row), (row.numel() + 1) * X.element_size(),
-                      core="sgpmc")
-        print(f"parity sgpmc_potential {tag} at n={n}, state {row.numel()}: max rel err "
-              f"{es:.3e}; kernel {sms:.4f} ms, plain {spms:.4f} ms, bound {sb[0]:.6f} ms")
-        assert es <= TOL[dt], f"sgpmc_potential {tag} n={n} rel err {es}"
-        tmp["sgpmc_potential"].update(rel={tag: es}, ms=sms, plain_ms=spms, bound=sb)
-        record_large(res, "sgpmc_potential", tmp, tag, f32)
-        potential_parity(
-            "sgpmc_mc_potential", lambda r: mc_potential(r, X, y, Zi, jit, core="sgpmc"),
-            lambda r: mc_potential_plain(r, X, y, Zi, jit, core="sgpmc"), st0.z, tmp, 3,
-            lambda o: (2, n, m, d, xyz + nbytes(st0.z), nbytes(*o), False, "sgpmc"))
-        record_large(res, "sgpmc_mc_potential", tmp, tag, f32)
     # the kernel in float64 against the JAX package's Z steps (REGRESSION_REF)
     e_l = rel(out64[3].cpu(), torch.tensor(ref["zstep_losses"], dtype=torch.float64))
     e_z = rel(out64[0].cpu(), torch.tensor(ref["zstep_Z"], dtype=torch.float64))
@@ -2691,6 +2733,199 @@ def phase_trainer_large(ref, res, steps=20):
         r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
 
 
+def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
+    """The grouped kernels of the joint-large paths at their shape
+    (synthetic-large: n=13,279, D=18, M=100; the sgpmc state d+2+M = 120),
+    float64 and float32, each against its plain version, from the regression driver's
+    Z_init and REGRESSION_REF's warm hypers with v = 0 (chains at + 0.1
+    N(0, 1), step sizes from the batched search): the grouped sgpmc core
+    (csrc/sgpmc_group.cuh), where the wrappers route the sgpmc core past 2048
+    rows (one chain) and 1024 (C >= 2), as the JAX package streams it,
+    under vfe_potential (one chain) and mc_potential (C chains); a NUTS
+    chunk pair (warm, sample; K=2, max depth ``md``: the plain chunk is
+    host-bound at this n) at one chain (nuts_chunk) and C (mc_nuts_chunk);
+    HMC chunk pairs (K transitions of L leapfrogs) at one chain (hmc_chunk)
+    and C, and for the grouped vfe core at C and at hmc-large's 8 chains
+    (mc_hmc_chunk). Every grouped kernel is launched twice on the same
+    inputs (bit-identical). Then the warm start's one-block kernel
+    (sgpmc_warm_chunk, which joint-large runs at this n outside the JAX
+    package's fused envelope), ``warm_steps`` steps from the chains' state
+    (the warm hypers, v = 0) against its plain version (float32 as the
+    grouped trainer is held at reg-large's shape). Not from the path's
+    start: at log-lengthscales 0 in 18 dimensions Knm is ~1e-8 and dU/dZ
+    lies at Adam's epsilon, where two float64 summation orders of the plain
+    version alone part by ~4e-9 in Z's moments. Each line with the
+    kernel's time, bound and plain time. Then :func:`phase_sgpmc_scaling`."""
+    ref = regression_ref()
+    for dt in (torch.float64, torch.float32):
+        tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+        X, y, Zi, th, _, _ = large_inputs(dt, ref)
+        n, d = X.shape
+        m = Zi.shape[0]
+        jit = 1e-5 if f32 else 1e-8
+        xyz = nbytes(X, y, Zi)
+        tmp = new_res()
+        zs0 = torch.cat([th, torch.zeros(m, dtype=dt, device="cuda")])
+        st0, gen = mc_start(X, y, Zi, jit, C, seed=19, core="sgpmc", z0=zs0)
+        row = st0.z[0].contiguous()
+
+        # the potential: one chain, and C chains
+        gp = res["sgpmc_group_potential"]
+        before = _build.LAUNCHES["sgpmc_group_potential"]
+        out = vfe_potential(row, X, y, Zi, jit, core="sgpmc")
+        assert _build.LAUNCHES["sgpmc_group_potential"] == before + 1, \
+            "vfe_potential(core='sgpmc') at this n did not run the grouped core"
+        ref_p = sgpmc_neg_logpost_vg(row, X, y, Zi, jit)
+        e = max(rel(a, b) for a, b in zip(out, ref_p))
+        check_repeat(f"vfe_potential {tag} (grouped sgpmc core, one chain)",
+                     lambda: vfe_potential(row, X, y, Zi, jit, core="sgpmc"))
+        ms = cuda_ms(lambda: vfe_potential(row, X, y, Zi, jit, core="sgpmc"), 20)
+        pms = cuda_ms(lambda: sgpmc_neg_logpost_vg(row, X, y, Zi, jit), 5)
+        bound = roofline(1, n, m, d, xyz + nbytes(row), (row.numel() + 1) * X.element_size(),
+                         core="sgpmc")
+        G1 = vfe_group.geometry("potential", dt, 1, X.device, core="sgpmc_group")
+        print(f"parity sgpmc_group_potential {tag} at n={n}, D={d}, M={m} (one chain, G={G1}): "
+              f"max rel err {e:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bound[0]:.6f} ms")
+        assert e <= TOL[dt], f"sgpmc_group_potential {tag} n={n} rel err {e}"
+        gp["rel"][tag] = e
+        if f32:
+            gp.update(abs32=max(abs_err(a, b) for a, b in zip(out, ref_p)), ms=ms, plain_ms=pms,
+                      bound=bound)
+            gp["extra"]["group"] = G1
+        before = _build.LAUNCHES["sgpmc_group_mc_potential"]
+        potential_parity("sgpmc_mc_potential",
+                         lambda r: mc_potential(r, X, y, Zi, jit, core="sgpmc"),
+                         lambda r: mc_potential_plain(r, X, y, Zi, jit, core="sgpmc"), st0.z,
+                         tmp, 3, lambda o: (C, n, m, d, xyz + nbytes(st0.z), nbytes(*o), False,
+                                            "sgpmc"))
+        assert _build.LAUNCHES["sgpmc_group_mc_potential"] > before, \
+            "mc_potential(core='sgpmc') at this n did not run the grouped core"
+        check_repeat(f"mc_potential {tag} (grouped sgpmc core, C={C})",
+                     lambda: mc_potential(st0.z, X, y, Zi, jit, core="sgpmc"))
+        gp["rel"][tag] = max(gp["rel"][tag], tmp["sgpmc_mc_potential"]["rel"][tag])
+        if f32:
+            r = tmp["sgpmc_mc_potential"]
+            gp["extra"].update(c2_ms=r["ms"], c2_plain_ms=r["plain_ms"], c2_bound_ms=r["bound"][0],
+                               c2_group=vfe_group.geometry("potential", dt, C, X.device,
+                                                           core="sgpmc_group"))
+
+        # the chunks: (algorithm, chains, wrapper's key, the grouped row, main row or extra)
+        st_v, gen_v = mc_start(X, y, Zi, jit, C, seed=21, z0=th)
+        st_v8, _ = mc_start(X, y, Zi, jit, 8, seed=23, z0=th)
+        cases = [("nuts", 1, "sgpmc", "sgpmc_group_nuts_chunk", ""),
+                 ("nuts", C, "sgpmc", "sgpmc_group_nuts_chunk", f"c{C}_"),
+                 ("hmc", C, "sgpmc", "sgpmc_group_hmc_chunk", ""),
+                 ("hmc", 1, "sgpmc", "sgpmc_group_hmc_chunk", "c1_"),
+                 ("hmc", C, "vfe", "vfe_group_hmc_chunk", ""),
+                 ("hmc", 8, "vfe", "vfe_group_hmc_chunk", "c8_")]
+        for algo, grid, core, row_name, pre in cases:
+            st = {"sgpmc": st0, "vfe": st_v8 if grid == 8 else st_v}[core]
+            st = as_batch(first_chain(st)) if grid == 1 else st
+            kind = ("" if grid == 1 else "mc_") + f"{algo}_chunk"
+            key = _build.launch_key(vfe_group.route(core, n, grid), kind)
+            before = _build.LAUNCHES[key]
+            chunk_parity(X, y, Zi, jit, st, gen if core == "sgpmc" else gen_v, tmp, core=core,
+                         algo=algo, grid=grid, K=2 if algo == "nuts" else K, L=L, md=md)
+            assert key == f"{core}_group_{kind}" and _build.LAUNCHES[key] == before + 2, \
+                f"{core} {kind} at n={n}, C={grid} did not run the grouped core"
+            src = _build.launch_key(core, kind)
+            r = tmp[src]
+            res[row_name]["rel"][tag] = max(res[row_name]["rel"].get(tag, 0.0), r["rel"][tag])
+            if f32 and not pre:
+                res[row_name].update(abs32=r["abs32"], ms=r["ms"], plain_ms=r["plain_ms"],
+                                     bound=r["bound"])
+                res[row_name]["extra"]["group"] = vfe_group.geometry(
+                    algo + "_chunk", dt, grid, X.device, core=f"{core}_group")
+            elif f32:
+                res[row_name]["extra"].update({pre + "ms": r["ms"], pre + "plain_ms": r["plain_ms"],
+                                               pre + "bound_ms": r["bound"][0]})
+            if grid != 8:
+                sl = draw_mc_slabs(2, grid, st.z.shape[1], algorithm=algo, max_depth=md,
+                                   generator=gen, dtype=dt, device="cuda")
+                no = torch.zeros(2, dtype=torch.bool, device="cuda")
+                kw = dict(n_active=2, adapt=True, in_window=no, window_end=no, core=core,
+                          **({"num_leapfrog": L} if algo == "hmc" else {"max_depth": md}))
+                if grid == 1:
+                    fn = nuts_chunk if algo == "nuts" else hmc_chunk
+                    one = {k: v[:, 0] for k, v in sl.items()}
+                    check_repeat(f"{kind} {tag} (grouped {core} core, one chain)",
+                                 lambda: fn(first_chain(st), X, y, Zi, jit, **one, **kw))
+                else:
+                    fn = mc_nuts_chunk if algo == "nuts" else mc_hmc_chunk
+                    check_repeat(f"{kind} {tag} (grouped {core} core, C={grid})",
+                                 lambda: fn(st, X, y, Zi, jit, **sl, **kw))
+
+        # the warm start's kernel (site 9, one block) at this n, from the chains' state
+        wr = res["sgpmc_warm_chunk"]
+        st_w = zs0
+        zs, zz = torch.zeros_like(st_w), torch.zeros_like(Zi)
+        args = (st_w, Zi, zs, zs, zz, zz, X, y)
+        akw = dict(t0=0, num_steps=warm_steps, lr=0.01)
+        out, wms = once_ms(lambda: sgpmc_warm_chunk(*args, jit, **akw))
+        ref_w, wpms = once_ms(lambda: sgpmc_warm_chunk_plain(*args, jit, **akw))
+        e = max(rel(a, b) for a, b in zip(out, ref_w))
+        ok, txt = e <= (ADAM_TOL if f32 else TOL)[dt], ""
+        if f32:
+            r64 = sgpmc_warm_chunk_plain(*(a.double() for a in args), jit, **akw)
+            ek = max(rel(a, b) for a, b in zip(out, r64))
+            ep = max(rel(a, b) for a, b in zip(ref_w, r64))
+            txt = f"; against float64 from the same inputs: kernel {ek:.3e}, plain {ep:.3e}"
+            if not ok and ep > F32_RESOLVES:
+                ok = ek <= F32_AS_ACCURATE * ep
+            wb = roofline(warm_steps, n, m, d, xyz + 3 * nbytes(st_w, Zi), nbytes(*out),
+                          want_z=True, core="sgpmc")
+            wr["extra"].update(n13279_ms_per_step=wms / warm_steps,
+                               n13279_plain_ms_per_step=wpms / warm_steps,
+                               n13279_bound_ms_per_step=wb[0] / warm_steps)
+            txt += f", bound {wb[0] / warm_steps:.6f} ms a step"
+        print(f"parity sgpmc_warm_chunk {tag} at n={n} ({warm_steps} steps, one block): max "
+              f"rel err {e:.3e}; kernel {wms / warm_steps:.3f} ms a step, "
+              f"plain {wpms / warm_steps:.3f} ms a step{txt}")
+        assert ok, f"sgpmc_warm_chunk {tag} n={n} rel err {e}"
+        wr["rel"][tag] = max(wr["rel"].get(tag, 0.0), e)
+    phase_sgpmc_scaling(ref, res)
+
+
+def phase_sgpmc_scaling(ref, res, sizes=(404, 1279, 4096, 13279)):
+    """Milliseconds per float32 evaluation of the sgpmc core on both
+    designs, one block per chain (``call_potential("sgpmc", ...)``) and a
+    group of blocks per chain (``"sgpmc_group"``), at C = 1 and 2 chains on
+    the first n rows of synthetic-large (calls of the kernels, not of the
+    wrappers: they count no launch); both designs must agree to TOL. The
+    routing thresholds stand in for the crossover this line measures."""
+    X, y, Zi, th, _, _ = large_inputs(torch.float32, ref)
+    jit = 1e-5
+    m = Zi.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    z0 = torch.cat([th, torch.zeros(m, device="cuda")])
+    rows = z0 + 0.05 * torch.randn((2, z0.numel()), generator=gen, device="cuda")
+    parts, table = [], {}
+    for C in (1, 2):
+        r = rows[:C].contiguous()
+        G = vfe_group.geometry("potential", torch.float32, C, X.device, core="sgpmc_group")
+        for n in sizes:
+            Xn, yn = X[:n].contiguous(), y[:n].contiguous()
+            one = call_potential("sgpmc", r, Xn, yn, Zi, jit)
+            grp = call_potential("sgpmc_group", r, Xn, yn, Zi, jit)
+            e = max(rel(a, b) for a, b in zip(grp, one))
+            assert e <= TOL[torch.float32], f"the two sgpmc designs at C={C}, n={n}: {e}"
+            t1 = cuda_ms(lambda: call_potential("sgpmc", r, Xn, yn, Zi, jit), 3)
+            tg = cuda_ms(lambda: call_potential("sgpmc_group", r, Xn, yn, Zi, jit), 10)
+            table[f"c{C}_n{n}"] = [t1, tg]
+            parts.append(f"C={C} n={n}: one block {t1:.4f} ms, group of {G} {tg:.4f} ms "
+                         f"({t1 / tg:.2f}x, {e:.1e} apart)")
+    occ = {f"{k} {t}": vfe_group.blocks_per_sm(k, dt, core="sgpmc_group")
+           for k in ("potential", "nuts_chunk", "hmc_chunk")
+           for t, dt in (("f32", torch.float32), ("f64", torch.float64))}
+    occ.update({f"vfe_group hmc_chunk {t}": vfe_group.blocks_per_sm("hmc_chunk", dt)
+                for t, dt in (("f32", torch.float32), ("f64", torch.float64))})
+    print("scaling sgpmc core f32 per evaluation, one block per chain against a group: "
+          + "; ".join(parts) + f" ({CARD})")
+    print(f"sgpmc_group occupancy, blocks per SM: {json.dumps(occ)}")
+    res["sgpmc_group_potential"]["extra"].update(scaling_ms=table, blocks_per_sm=occ)
+
+
 def phase_reg_large():
     """The reg-large path: the port's regression driver
     (experiments/regression.py ``single_run("synthetic-large", 0,
@@ -2776,6 +3011,178 @@ def phase_reg_large():
         assert math.isfinite(got) and abs(got - ref[k]) <= margin, \
             f"reg-large test {k} {got} vs {ref[k]} +- {margin}"
     return launches
+
+
+def joint_ref():
+    """JOINT_REF: the JAX package's CPU run of the joint-large path
+    (joint_reference.py), read from JOINT_REF_FILE beside this script."""
+    with open(Path(__file__).resolve().with_name(JOINT_REF_FILE)) as f:
+        return json.load(f)
+
+
+def large_data():
+    """synthetic-large (split 0) on the card in float32: X, y, the regression driver's
+    Z_init, X_test, y_test, and the data's y standard deviation."""
+    data, Zi = run_data("synthetic-large", 0)
+    f = dict(dtype=torch.float32, device="cuda")
+    return ([torch.tensor(a, **f) for a in (data.X_train, data.Y_train, Zi, data.X_test,
+                                             data.Y_test)] + [data.Y_std])
+
+
+@contextlib.contextmanager
+def record_methods(cls, names, rec):
+    """Wrap methods of ``cls`` for one run: each call's milliseconds, its
+    model and its result go to ``rec[name]``."""
+    orig = {k: getattr(cls, k) for k in names}
+
+    def wrapped(name, fn):
+        def run(model, *a, **kw):
+            out, ms = once_ms(lambda: fn(model, *a, **kw))
+            rec.setdefault(name, []).append({"model": model, "out": out, "ms": ms})
+            return out
+        return run
+
+    try:
+        for name, fn in orig.items():
+            setattr(cls, name, wrapped(name, fn))
+        yield rec
+    finally:
+        for name, fn in orig.items():
+            setattr(cls, name, fn)
+
+
+def sampler_line(label, model, ms, chains, algorithm, d):
+    """The health of a JointHMC run (divergence fraction, mean accept) and
+    what it printed; returns (div, acc)."""
+    st = model.stats
+    div = float(st["diverging"].float().mean())
+    acc = float(st["accept_prob"].mean())
+    nl = float(st["n_leapfrog"].float().mean())
+    leapfrogs = float(st["n_leapfrog"].float().sum() + st["warmup_n_leapfrog"].float().sum())
+    rhat = ""
+    if chains > 1:
+        tr = model.trace.double().cpu().numpy().reshape(chains, -1, model.trace.shape[1])
+        rhat = (f"; max split-R-hat over the hypers "
+                f"{max(split_rhat(tr[:, :, j]) for j in range(d + 2)):.4f}")
+    print(f"{label} sampling on {CARD} ({chains} chain(s), {algorithm}): {ms / 1e3:.3f} s; "
+          f"divergence fraction {div:.4f}; mean accept {acc:.4f}; mean leapfrogs/draw {nl:.1f}, "
+          f"{leapfrogs:.0f} leapfrogs in all ({ms / leapfrogs:.4f} ms each, the chains' "
+          f"leapfrogs summed); step size "
+          f"{', '.join(f'{e:.4g}' for e in st['step_size'].reshape(-1).tolist())}{rhat}")
+    return div, acc
+
+
+def phase_joint_large():
+    """The joint-large path: the port's regression driver
+    (experiments/regression.py ``single_run("synthetic-large", 0,
+    "JointHMC")``) in float32: 13,279 train rows, D=18, M=100, train_sgp_hmc's
+    100-step warm start (sgpmc_warm_chunk, one block: the JAX package runs
+    its XLA scan at this n), one chain of NUTS on the grouped sgpmc core
+    (vfe_potential and nuts_chunk route there past 2048 rows), cut to
+    JOINT_REF's warmup and draws, the 50-component observation-space
+    mixture predictive on the 3,320 test rows. Held to the health gates and
+    to JOINT_REF (joint_reference.py, the JAX package's CPU run of the same
+    cut): the warm start's final loss within JOINT_WARM_TOL relative; the
+    test RMSE and NLPD within JOINT_METRIC_TOL + JOINT_SDS SDs; each of the
+    d + 2 hyper lanes' trace means within JOINT_LANE_TOL + JOINT_SDS SDs.
+    Returns the launch counts of the run."""
+    ref = joint_ref()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with record_methods(SGPMC, ("warm_start", "train_model"), {}) as rec:
+        metrics, ms = once_ms(lambda: single_run("synthetic-large", 0, "JointHMC",
+                                                 tune=ref["tune"], num_samples=ref["draws"],
+                                                 device="cuda"))
+    launches = dict(_build.LAUNCHES)
+    (w,), (t,) = rec["warm_start"], rec["train_model"]
+    model, losses = t["model"], w["out"]
+    d = model.train_x.shape[1]
+    print(f"joint-large warm_start: {w['ms'] / 1e3:.3f} s, {losses.numel()} steps, loss "
+          f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f} (JAX CPU float64 run "
+          f"{ref['warm_loss']:.4f})")
+    div, acc = sampler_line(f"joint-large ({ref['tune']} warmup + {ref['draws']} draws)",
+                            model, t["ms"], 1, "nuts", d)
+    lanes = model.trace[:, :d + 2].double().mean(0).cpu()
+    lane_ref, lane_sd = torch.tensor(ref["lane_means"]), torch.tensor(ref["lane_sd"])
+    lane_gap = (lanes - lane_ref).abs()
+    used = float((lane_gap / (JOINT_LANE_TOL + JOINT_SDS * lane_sd)).max())   # of the margin
+    print(f"joint-large seconds: warm start {w['ms'] / 1e3:.3f}, sampling {t['ms'] / 1e3:.3f}, "
+          f"driver total {ms / 1e3:.3f} ({CARD}); test RMSE {metrics['test_rmse']:.4f}, NLPD "
+          f"{metrics['test_nlpd']:.4f} (JAX CPU keys: RMSE {ref['rmse']:.4f} +- "
+          f"{ref['rmse_sd']:.4f}, NLPD {ref['nlpd']:.4f} +- {ref['nlpd_sd']:.4f}); hyper lane "
+          f"means, max |port - JAX| {float(lane_gap.max()):.4f}, largest margin used {used:.3f}")
+    check_launches("joint-large", launches, ["sgpmc_warm_chunk", "sgpmc_group_potential",
+                                             "sgpmc_group_nuts_chunk"])
+    assert launches["sgpmc_potential"] == launches["sgpmc_nuts_chunk"] == 0, \
+        "joint-large ran a one-block sgpmc kernel where the grouped one belongs"
+    assert torch.isfinite(losses).all() and torch.isfinite(model.trace).all()
+    assert div <= 0.1, f"joint-large divergence fraction {div}"
+    assert acc >= 0.5, f"joint-large mean accept {acc}"
+    e_w = abs(float(losses[-1]) - ref["warm_loss"]) / abs(ref["warm_loss"])
+    assert e_w <= JOINT_WARM_TOL, f"joint-large warm-start loss {float(losses[-1])} vs " \
+                                  f"{ref['warm_loss']}"
+    for k in ("rmse", "nlpd"):
+        got = metrics[f"test_{k}"]
+        margin = JOINT_METRIC_TOL + JOINT_SDS * ref[f"{k}_sd"]
+        assert math.isfinite(got) and abs(got - ref[k]) <= margin, \
+            f"joint-large test {k} {got} vs {ref[k]} +- {margin}"
+    assert used <= 1.0, f"joint-large hyper lane means {lanes.tolist()}"
+    return launches
+
+
+def phase_joint_large_c2(C=2, T=50):
+    """The joint-large-c2 path: ``train_sgp_hmc`` on synthetic-large (as
+    joint-large) with C chains of the reference gpflow protocol's
+    fixed-leapfrog HMC (``algorithm="hmc"``, L=10; experiments/
+    regression_sgpmc.py's 2 chains), T warmup and T draws each (500 + 500
+    cut), float32: mc_potential and mc_hmc_chunk on the grouped sgpmc core,
+    then the 50-component predictive. Health gates and finite outputs.
+    Returns the launch counts of the run."""
+    X, y, Z, Xt, yt, y_std = large_data()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with record_methods(SGPMC, ("warm_start", "train_model"), {}) as rec:
+        model, ms = once_ms(lambda: train_sgp_hmc(
+            (X, y), Z, num_warmup=T, num_samples=T, generator=gen, num_chains=C,
+            algorithm="hmc", num_leapfrog=10, device="cuda"))
+    (means, vars_), t_pred = once_ms(lambda: model.mixture_posterior_predictive_y(Xt, 50))
+    launches = dict(_build.LAUNCHES)
+    (w,), (t,) = rec["warm_start"], rec["train_model"]
+    d = X.shape[1]
+    div, acc = sampler_line(f"joint-large-c2 ({T} warmup + {T} draws, L=10)", model, t["ms"],
+                            C, "hmc", d)
+    r = float(rmse(means.mean(0), yt, y_std))
+    nl = float(nlpd_mixture(means, vars_, yt, y_std))
+    print(f"joint-large-c2 seconds: warm start {w['ms'] / 1e3:.3f}, sampling "
+          f"{t['ms'] / 1e3:.3f} ({t['ms'] / (2 * T * 10):.4f} ms a leapfrog of the {C} chains), "
+          f"predictive {t_pred / 1e3:.3f}, total {ms / 1e3:.3f} ({CARD}); test RMSE {r:.4f}, "
+          f"NLPD {nl:.4f} ({means.shape[0]} components)")
+    check_launches("joint-large-c2", launches, ["sgpmc_warm_chunk", "sgpmc_group_mc_potential",
+                                                "sgpmc_group_mc_hmc_chunk"])
+    assert launches["sgpmc_mc_potential"] == launches["sgpmc_mc_hmc_chunk"] == 0, \
+        "joint-large-c2 ran a one-block sgpmc kernel where the grouped one belongs"
+    assert model.trace.shape == (C * T, d + 2 + Z.shape[0])
+    assert torch.isfinite(model.trace).all()
+    assert div <= 0.1, f"joint-large-c2 divergence fraction {div}"
+    assert acc >= 0.5, f"joint-large-c2 mean accept {acc}"
+    assert torch.isfinite(means).all() and torch.isfinite(vars_).all()
+    assert math.isfinite(r) and math.isfinite(nl), (r, nl)
+    return launches
+
+
+def joint_large_paths():
+    """The paths at synthetic-large's full width (13,279 rows, D=18, M=100)
+    on the grouped sgpmc and vfe HMC kernels, by name (depths cut: PERF.md
+    section 4)."""
+    def hmc_large():
+        X, y, Z = large_data()[:3]
+        return phase_hmc_c8(X, y, Z, T=50, label="hmc-large",
+                            kernels=("sgpr_adam_group", "vfe_group_mc_potential",
+                                     "vfe_group_mc_hmc_chunk"),
+                            absent=("sgpr_adam_chunk", "mc_potential", "mc_hmc_chunk"))
+    return {"joint-large": phase_joint_large, "joint-large-c2": phase_joint_large_c2,
+            "hmc-large": hmc_large}
 
 
 def hyper_means(samples):
@@ -2969,7 +3376,7 @@ def main(argv):
         return
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
-    only = argv[0] if argv[:1] in (["co2"], ["reg-large"], ["gpr"]) else None
+    only = argv[0] if argv[:1] in (["co2"], ["reg-large"], ["gpr"], ["joint-large"]) else None
     res = new_res()
     if only is None:
         phase_parity(X, y, Zd, res)
@@ -2983,10 +3390,13 @@ def main(argv):
         phase_parity_stats(big[0], big[1], res)
     if only in (None, "reg-large"):
         phase_parity_large(res)
+    if only in (None, "joint-large"):
+        phase_parity_joint_large(res)
     if only in (None, "co2"):
         phase_parity_co2(X, y, Zd, res)
     print(f"parity done at {time.perf_counter() - T_START:.1f} s")
-    subset = {"co2": CO2_KERNELS, "reg-large": REG_KERNELS, "gpr": GPR_KERNELS}.get(only, KERNELS)
+    subset = {"co2": CO2_KERNELS, "reg-large": REG_KERNELS, "gpr": GPR_KERNELS,
+              "joint-large": JOINT_KERNELS}.get(only, KERNELS)
     names = [k for k in KERNELS if k in subset]
     launches = {k: 0 for k in names}
     paths = [] if only else [
@@ -2999,6 +3409,8 @@ def main(argv):
         paths += list(gpr_paths(X, y, Xte, yte).values())
     if only in (None, "reg-large"):
         paths.append(phase_reg_large)
+    if only in (None, "joint-large"):
+        paths += list(joint_large_paths().values())
     if only in (None, "co2"):
         paths += list(co2_paths().values())
     for run in paths:

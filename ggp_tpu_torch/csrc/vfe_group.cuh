@@ -137,6 +137,34 @@ __device__ inline void group_sync(unsigned* bar, int G, int p) {
   __syncthreads();
 }
 
+// max |X| over the n rows of a chain, formed once per launch by its G
+// blocks: block p takes the max over its nr rows from row0 and writes it to
+// slot[p * stride] (a double of its partials area); after the chain's
+// barrier every block reduces the G values (a max is exact in any order, so
+// every block gets the same bits). Every thread calls it; returns to all.
+template <typename T>
+__device__ T group_xmax(const T* X, int d, int row0, int nr, double* slot, long stride,
+                        unsigned* bar, int G, int p, BoundShared<T>& sh) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  T mx = T(0);
+  for (long i = tid; i < (long)nr * d; i += nt) mx = jmax(mx, gabs(X[(long)row0 * d + i]));
+  mx = block_max(mx, sh.red);
+  if (tid == 0) slot[(long)p * stride] = double(mx);
+  group_sync(bar, G, p);
+  if (tid == 0) {
+    T top = T(0);
+    for (int q = 0; q < G; ++q) {
+      const T v = T(__ldcg(slot + (long)q * stride));
+      top = v > top ? v : top;
+    }
+    sh.red[0] = top;
+  }
+  __syncthreads();
+  const T out = sh.red[0];
+  __syncthreads();
+  return out;
+}
+
 // What one block of a group works on.
 template <typename T>
 struct GroupWork {
@@ -153,10 +181,11 @@ struct GroupWork {
 };
 
 // gw.cap from gw.xmax and the max of |Z| (md entries, read by every block
-// itself: a max is exact in any order, so every block gets the same cap).
-// Every thread calls it.
-template <typename T>
-__device__ void group_cap(GroupWork<T>& gw, const T* Z, int md, BoundShared<T>& sh) {
+// itself: a max is exact in any order, so every block gets the same cap), for
+// the work of any grouped core (GroupWork, SgpmcGroupWork). Every thread
+// calls it.
+template <typename GW, typename T>
+__device__ void group_cap(GW& gw, const T* Z, int md, BoundShared<T>& sh) {
   T mz = T(0);
   for (int i = threadIdx.x; i < md; i += blockDim.x) mz = jmax(mz, gabs(Z[i]));
   mz = block_max(mz, sh.red);
@@ -410,7 +439,6 @@ struct VfeGroupCore {
   // exact in any order), then takes |Z| in (group_cap).
   static __device__ WorkT work(T* scratch, const BoundCfg& cf, const T* X, const T* Z,
                                BoundShared<T>& sh) {
-    const int tid = threadIdx.x, nt = blockDim.x;
     const int G = cf.group, C = gridDim.x / G, c = blockIdx.x / G, p = blockIdx.x % G;
     const int n = cf.n, m = cf.m, d = cf.d;
     const GroupShape s = group_shape(n, m, d, G);
@@ -434,22 +462,7 @@ struct VfeGroupCore {
     gw.row0 = row_begin(n, G, p);
     gw.nr = row_begin(n, G, p + 1) - gw.row0;
 
-    T mx = T(0);
-    for (long i = tid; i < (long)gw.nr * d; i += nt) mx = jmax(mx, gabs(X[(long)gw.row0 * d + i]));
-    mx = block_max(mx, sh.red);
-    if (tid == 0) gw.part[(long)p * s.pe + s.p1] = double(mx);
-    group_sync(gw.bar, G, p);
-    if (tid == 0) {
-      T top = T(0);
-      for (int q = 0; q < G; ++q) {
-        const T v = T(__ldcg(gw.part + (long)q * s.pe + s.p1));
-        top = v > top ? v : top;
-      }
-      sh.red[0] = top;
-    }
-    __syncthreads();
-    gw.xmax = sh.red[0];
-    __syncthreads();
+    gw.xmax = group_xmax(X, d, gw.row0, gw.nr, gw.part + s.p1, s.pe, gw.bar, G, p, sh);
     group_cap(gw, Z, m * d, sh);
     return gw;
   }

@@ -17,7 +17,10 @@ package runs them); their counters name the core (:func:`launch_key`). The
 ``"vfe_group"`` entries are the vfe core spread over a group of blocks per
 chain (``csrc/vfe_group.cuh``, ``ops/vfe_group.py``), which the vfe wrappers
 route to at large n and launch cooperatively; the ``"gpr"`` entries run the
-dense core on a group of blocks per chain at every n (``csrc/gpr_bound.cuh``).
+dense core on a group of blocks per chain at every n (``csrc/gpr_bound.cuh``);
+the ``"sgpmc_group"`` entries the whitened JointHMC core on a group of blocks
+per chain (``csrc/sgpmc_group.cuh``, built in ``csrc/sgpmc_group.cu``), which
+the sgpmc wrappers route to at large n.
 The grouped trainer ``ggp_sgpr_adam_group`` runs the warm start's Adam steps
 on the grouped vfe core (``csrc/sgpr_adam.cu``). Each source is
 compiled with ``-Xptxas -v``;
@@ -48,11 +51,13 @@ _CO2_KINDS = ("potential", "nuts_chunk", "nuts_transition")
 _NUTS_KINDS = ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk")
 CORE_KINDS = {"vfe": _SAMPLER_KINDS + ("nuts_transition",), "sgpmc": _SAMPLER_KINDS,
               "gpr": _NUTS_KINDS, "co2_m32": _CO2_KINDS, "co2_rbf": _CO2_KINDS,
-              "vfe_group": _NUTS_KINDS}
+              "vfe_group": _SAMPLER_KINDS, "sgpmc_group": _SAMPLER_KINDS}
 # csrc vfe_potential.cu ggp_scratch_elems (the one-block cores)
 _CORE_ID = {"vfe": 0, "sgpmc": 1, "co2_m32": 3, "co2_rbf": 4}
 # the cores that run a chain on a group of blocks, launched cooperatively
-GROUPED = ("vfe_group", "gpr")
+GROUPED = ("vfe_group", "sgpmc_group", "gpr")
+# the grouped kernels' occupancy queries, ggp_{kind}_{core}_occupancy
+_OCCUPANCY_KINDS = ("potential", "nuts_chunk", "hmc_chunk")
 
 
 def launch_key(core: str, kind: str) -> str:
@@ -196,14 +201,16 @@ def _load(path: str) -> ctypes.CDLL:
     lib_.ggp_svi_scratch_elems.restype = ctypes.c_long
     lib_.ggp_z_adam_stream_elems.argtypes = [ctypes.c_int] * 6
     lib_.ggp_z_adam_stream_elems.restype = ctypes.c_long
-    lib_.ggp_group_scratch_elems.argtypes = [ctypes.c_int] * 6
-    lib_.ggp_group_scratch_elems.restype = ctypes.c_long
+    for name in ("ggp_group_scratch_elems", "ggp_sgpmc_group_scratch_elems"):
+        getattr(lib_, name).argtypes = [ctypes.c_int] * 6
+        getattr(lib_, name).restype = ctypes.c_long
     lib_.ggp_gpr_scratch_elems.argtypes = [ctypes.c_int] * 5
     lib_.ggp_gpr_scratch_elems.restype = ctypes.c_long
     lib_.ggp_sgpr_adam_group_elems.argtypes = [ctypes.c_int] * 5
     lib_.ggp_sgpr_adam_group_elems.restype = ctypes.c_long
-    for name in [f"ggp_{kind}_{core}_occupancy" for kind in ("potential", "nuts_chunk")
-                 for core in GROUPED] + ["ggp_sgpr_adam_vfe_group_occupancy"]:
+    for name in [f"ggp_{kind}_{core}_occupancy" for core in GROUPED
+                 for kind in _OCCUPANCY_KINDS if kind in CORE_KINDS[core]] \
+            + ["ggp_sgpr_adam_vfe_group_occupancy"]:
         fn = getattr(lib_, name)
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_int

@@ -3,7 +3,9 @@ bound, ``"sgpmc"``, the whitened JointHMC target, or ``"gpr"``, the dense
 GP marginal, which has no HMC chunk): plain PyTorch beside
 the CUDA kernels ``mc_potential`` (kernel 1 at grid C), ``mc_hmc_chunk``
 (kernel 5, ``csrc/mc_hmc_chunk.cu``) and ``mc_nuts_chunk`` (kernel 2 at
-grid C, ``csrc/nuts_chunk.cu``), one thread block per chain on the card;
+grid C, ``csrc/nuts_chunk.cu``), one thread block per chain on the card (a
+group of blocks per chain where ``vfe_group.route`` sends the vfe and sgpmc
+cores);
 and :func:`hmc_chunk`, one chain of fixed-leapfrog HMC on kernel 5 at
 grid 1.
 
@@ -92,10 +94,10 @@ def mc_potential_plain(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
 
 def mc_potential(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
     """:func:`mc_potential_plain` on CPU tensors; on CUDA tensors one launch
-    of kernel 1 (``csrc/vfe_potential.cu``) with one block per row, or for
-    the vfe core where :func:`~ggp_tpu_torch.ops.vfe_group.route` sends it
-    (past 1024 rows for C >= 2 rows) a group of blocks per row; or a
-    raise."""
+    of kernel 1 (``csrc/potential_kernel.cuh``) with one block per row, or
+    for the vfe and sgpmc cores where :func:`~ggp_tpu_torch.ops.vfe_group.
+    route` sends them (past 1024 rows for C >= 2 rows) a group of blocks per
+    row; or a raise."""
     if thetas.ndim != 2:
         raise ValueError("mc_potential: thetas must be (C, dim)")
     _check_shapes(f"{core} mc_potential", thetas[0], X, y, Z, core)
@@ -281,16 +283,20 @@ def _state_tensors(state):
     return [getattr(state, f.name) for f in dataclasses.fields(state)]
 
 
-def _hmc_launch(key, state, X, y, Z, jitter, *, mom, mh, num_leapfrog,
-                target_accept, adapt_mass, prior_spec, core, **kw):
-    """Kernel 5 on the C chains of ``state``, counted under ``key``."""
+def _hmc_launch(kind, state, X, y, Z, jitter, *, mom, mh, num_leapfrog,
+                target_accept, adapt_mass, prior_spec, core, chains, **kw):
+    """Kernel 5 on the C chains of ``state``: one block per chain, or for
+    the vfe and sgpmc cores where :func:`~ggp_tpu_torch.ops.vfe_group.route`
+    sends ``chains`` chains of n rows a group of blocks per chain; counted
+    under ``kind`` ("hmc_chunk" or "mc_hmc_chunk") of the core it ran."""
     _build.require_cuda("hmc_chunk", X.dtype, *_state_tensors(state), X, y, Z,
                         mom, mh)
-    out = launch_chunk("hmc_chunk", core, state, X, y, Z, jitter, (mom, mh),
+    kernel = vfe_group.route(core, X.shape[0], chains)
+    out = launch_chunk("hmc_chunk", kernel, state, X, y, Z, jitter, (mom, mh),
                        prior_spec=prior_spec, stream=_build.stream_ptr(X.device),
                        LEAPFROG=num_leapfrog, TARGET=target_accept,
                        ADAPT_MASS=int(adapt_mass), **kw)
-    _build.LAUNCHES[key] += 1
+    _build.LAUNCHES[_build.launch_key(kernel, kind)] += 1
     return out
 
 
@@ -299,9 +305,10 @@ def mc_hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active,
                  num_leapfrog=10, target_accept=0.8, adapt_mass=True,
                  prior_spec=None, core="vfe"):
     """:func:`mc_hmc_chunk_plain` on CPU tensors; on CUDA tensors kernel 5
-    (``csrc/mc_hmc_chunk.cu``, the whole chunk of all C chains in one
-    launch, one block per chain), or a raise. ``eps`` (C,) is the fixed
-    per-chain step size of a sample chunk."""
+    (``csrc/hmc_chunk.cuh``, the whole chunk of all C chains in one
+    launch, one block per chain, or past 1024 rows for C >= 2 a group of
+    blocks per chain), or a raise. ``eps`` (C,) is the fixed per-chain step
+    size of a sample chunk."""
     _build.require_kind(core, "mc_hmc_chunk")
     _check_chunk(f"{core} mc_hmc_chunk", state, X, y, Z, mom, adapt, adapt_mass,
                  in_window, window_end, eps, core)
@@ -313,8 +320,8 @@ def mc_hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active,
               prior_spec=prior_spec, core=core)
     if X.device.type == "cpu":
         return mc_hmc_chunk_plain(state, X, y, Z, jitter, **kw)
-    return _hmc_launch(_build.launch_key(core, "mc_hmc_chunk"), state, X, y, Z,
-                       jitter, **kw)
+    return _hmc_launch("mc_hmc_chunk", state, X, y, Z, jitter,
+                       chains=mom.shape[1], **kw)
 
 
 def hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active, adapt,
@@ -324,8 +331,8 @@ def hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active, adapt,
     ``fused_nuts.make_fused_nuts(algorithm="hmc")``): ``state`` without a
     chain axis, ``mom`` (K, dim), Metropolis uniforms ``mh`` (K,), ``eps``
     a scalar. :func:`mc_hmc_chunk_plain` on a batch of one for CPU tensors;
-    kernel 5 at grid 1 for CUDA tensors. Returns (state, draws (K, dim),
-    stats (K, 6))."""
+    kernel 5 at grid 1, or past 2048 rows on one group of blocks, for CUDA
+    tensors. Returns (state, draws (K, dim), stats (K, 6))."""
     _build.require_kind(core, "hmc_chunk")
     _check_shapes(f"{core} hmc_chunk", state.z, X, y, Z, core)
     if mom.shape[1:] != state.z.shape or mh.shape != mom.shape[:1]:
@@ -341,8 +348,8 @@ def hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active, adapt,
     if X.device.type == "cpu":
         new, draws, stats = mc_hmc_chunk_plain(as_batch(state), X, y, Z, jitter, **kw)
     else:
-        new, draws, stats = _hmc_launch(_build.launch_key(core, "hmc_chunk"),
-                                        as_batch(state), X, y, Z, jitter, **kw)
+        new, draws, stats = _hmc_launch("hmc_chunk", as_batch(state), X, y, Z, jitter,
+                                        chains=1, **kw)
     return first_chain(new), draws[:, 0], stats[:, 0]
 
 
@@ -351,8 +358,9 @@ def mc_nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                   max_depth=8, target_accept=0.8, adapt_mass=True,
                   prior_spec=None, core="vfe"):
     """:func:`mc_nuts_chunk_plain` on CPU tensors; on CUDA tensors kernel 2
-    (``csrc/nuts_chunk.cu``) at grid C, one block per chain, or for the vfe
-    core past 1024 rows (C >= 2) a group of blocks per chain; or a raise."""
+    (``csrc/nuts_chunk.cuh``) at grid C, one block per chain, or for the vfe
+    and sgpmc cores past 1024 rows (C >= 2) a group of blocks per chain; or
+    a raise."""
     _check_chunk(f"{core} mc_nuts_chunk", state, X, y, Z, mom, adapt, adapt_mass,
                  in_window, window_end, eps, core)
     K, C, _ = mom.shape

@@ -233,9 +233,10 @@ S_LEN = 11                   # per-chain scalar state (csrc/stan_adapt.cuh S_LEN
 def launch_chunk(kind, core, state, X, y, Z, jitter, slabs, *, n_active, adapt,
                  eps, in_window, window_end, prior_spec, stream, **cfg_extra):
     """One launch of the sampler chunk kernel ``kind`` ("nuts_chunk",
-    ``csrc/nuts_chunk.cu``, or "hmc_chunk", ``csrc/mc_hmc_chunk.cu``) of
-    ``core`` on C chains, one block each (for ``core="vfe_group"``, the NUTS
-    chunk on a group of blocks per chain, launched cooperatively): every
+    ``csrc/nuts_chunk.cuh``, or "hmc_chunk", ``csrc/hmc_chunk.cuh``) of
+    ``core`` on C chains, one block each (for a grouped core, ``"vfe_group"``,
+    ``"sgpmc_group"`` or ``"gpr"``, a group of blocks per chain, launched
+    cooperatively): every
     field of ``state`` has a leading chain axis, ``slabs`` are the random
     slabs in the kernel's argument order, each (K, C, ...). Returns (new
     state, draws (K, C, dim), stats (K, C, 6)); ``state`` is not modified."""
@@ -281,9 +282,9 @@ def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                max_depth=8, target_accept=0.8, adapt_mass=True,
                prior_spec=None, core="vfe"):
     """:func:`nuts_chunk_plain` on CPU tensors; kernel 2
-    (``csrc/nuts_chunk.cu``, the whole chunk in one launch, grid 1; for the
-    vfe core past ``vfe_group.GROUP_MIN_N`` rows, one group of blocks) on
-    CUDA tensors. ``state`` is not modified."""
+    (``csrc/nuts_chunk.cuh``, the whole chunk in one launch, grid 1; for the
+    vfe and sgpmc cores past ``vfe_group.GROUP_MIN_N`` rows, one group of
+    blocks) on CUDA tensors. ``state`` is not modified."""
     K, dim = mom.shape
     _check_shapes(f"{core} nuts_chunk", state.z, X, y, Z, core)
     if dim != state.z.shape[0] or treeu.shape != (K, max_depth, 2) \

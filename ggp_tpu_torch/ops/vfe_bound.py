@@ -320,12 +320,17 @@ def _check_shapes(name, z, X, y, Z, core="vfe"):
 def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
                    want_prior=True, pivot_floor=None, prior_spec=None, stages=0):
     """One launch of the potential kernel of ``core`` (``csrc/vfe_potential.cu``)
-    on the C rows of ``zs`` (C, dim): one block each, or for ``core=
-    "vfe_group"`` (the vfe core on a group of blocks per row,
-    ``ops/vfe_group.py``) G blocks each, launched cooperatively. Returns (U
-    (C,), g (C, dim)[, dU/dZ (C, m, d)]). ``stages`` > 0 stops the gpr core
-    after that many of its six parts (``csrc/gpr_bound.cuh``), whose outputs
-    are then not filled: it exists to time where one evaluation's time goes."""
+    on the C rows of ``zs`` (C, dim): one block each, or for a grouped core
+    (``"vfe_group"``, ``"sgpmc_group"``: the vfe or sgpmc core on a group of
+    blocks per row, ``ops/vfe_group.py``; ``"gpr"``) G blocks each, launched
+    cooperatively. Returns (U (C,), g (C, dim)[, dU/dZ (C, m, d)]); the
+    grouped sgpmc core has no dU/dZ and raises for it. ``stages`` > 0 stops
+    the gpr core after that many of its six parts (``csrc/gpr_bound.cuh``),
+    whose outputs are then not filled: it exists to time where one
+    evaluation's time goes."""
+    if core == "sgpmc_group" and want_z_grad:
+        raise ValueError("the grouped sgpmc core has no dU/dZ (nor has the JAX package's "
+                         "streamed sgpmc core)")
     n, d = X.shape
     m = Z.shape[0]
     C, dim = zs.shape
@@ -352,8 +357,9 @@ def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
     of ``core`` (the potential kernel, site 1, of each core).
 
     CPU tensors run the plain version; CUDA tensors launch the potential
-    kernel (``csrc/vfe_potential.cu``) at grid 1, or, for the vfe core past
-    ``vfe_group.GROUP_MIN_N`` rows, on one group of blocks; or raise."""
+    kernel (``csrc/vfe_potential.cu``) at grid 1, or, for the vfe and sgpmc
+    cores past ``vfe_group.GROUP_MIN_N`` rows, on one group of blocks (the
+    sgpmc group has no dU/dZ: ``want_z_grad`` raises there); or raise."""
     _check_shapes(f"{core} potential", theta, X, y, Z, core)
     if core == "gpr":
         _check_gpr_options(want_z_grad, want_prior, pivot_floor)

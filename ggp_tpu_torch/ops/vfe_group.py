@@ -1,21 +1,23 @@
 """The grouped cores: one evaluation spread over a group of G thread blocks
 per chain, in one cooperative launch. The grouped vfe core
-(``csrc/vfe_group.cuh``, ``VfeGroupCore``) computes the collapsed bound;
-the potential kernel and the NUTS chunk kernel run it where the JAX package
-streams the vfe core: past 1024 rows for C >= 2 chains
-(``fused_multichain.MAX_N_MULTICHAIN``), past 2048 for one chain
-(``fused_nuts.MAX_N_RESIDENT``); below that the one-block core runs. The
-grouped trainer (``csrc/sgpr_adam.cu``, ``ops/sgpr_adam.py``) runs it past
-2048 rows too. The dense gpr core (``csrc/gpr_bound.cuh``, ``GprGroupCore``)
-runs on a group at every n.
+(``csrc/vfe_group.cuh``, ``VfeGroupCore``) computes the collapsed bound,
+the grouped sgpmc core (``csrc/sgpmc_group.cuh``, ``SgpmcGroupCore``) the
+whitened JointHMC potential; the potential kernel, the NUTS chunk kernel
+and the HMC chunk kernel run each where the JAX package streams its core:
+past 1024 rows for C >= 2 chains (``fused_multichain.MAX_N_MULTICHAIN``),
+past 2048 for one chain (``fused_nuts.MAX_N_RESIDENT``); below that the
+one-block cores run. The grouped trainer (``csrc/sgpr_adam.cu``,
+``ops/sgpr_adam.py``) runs the vfe group past 2048 rows too. The dense gpr
+core (``csrc/gpr_bound.cuh``, ``GprGroupCore``) runs on a group at every n.
 
 Here is what a launch needs and the CPU can check: the routing rule
 (:func:`route`), the launch geometry (:func:`group_size`, :func:`row_blocks`,
 :func:`geometry`), the scratch of a launch (:func:`launch_work`,
-:func:`group_scratch`, sized by the C side), and a plain model of the vfe
-kernel's summation order (:func:`group_neg_logpost_vg`: row-block partials
-summed p = 0 .. G-1, then the M x M part), which computes the function of
-``vfe_bound.rbf_vfe_neg_logpost_vg``. The gpr core's plain model is
+:func:`group_scratch`, sized by the C side), and plain models of the
+kernels' summation order (row-block partials summed p = 0 .. G-1, then the
+M x M part): :func:`group_neg_logpost_vg`, the function of
+``vfe_bound.rbf_vfe_neg_logpost_vg``, and :func:`sgpmc_group_neg_logpost_vg`,
+that of ``sgpmc_bound.sgpmc_neg_logpost_vg``. The gpr core's plain model is
 ``ops.gpr_bound.gpr_group_neg_logpost_vg``.
 """
 
@@ -29,23 +31,28 @@ from . import _build
 from .linalg import capped_inv_ls, chol_upper
 
 __all__ = ["route", "group_size", "row_blocks", "blocks_per_sm", "geometry", "group_scratch",
-           "launch_work", "group_neg_logpost_vg", "GROUP_MIN_N", "GROUP_MIN_N_MC"]
+           "launch_work", "group_neg_logpost_vg", "sgpmc_group_neg_logpost_vg",
+           "GROUP_MIN_N", "GROUP_MIN_N_MC"]
 
 # The JAX package's streaming thresholds, kept as the switch between the two
-# designs; where the two cross over on the card is not measured.
+# designs; per evaluation the groups are faster at every n measured (404 to
+# 13,279, PERF.md), the sampler chunks' crossover is not measured.
 GROUP_MIN_N = 2048            # one chain: the grouped core past this many rows
 GROUP_MIN_N_MC = 1024         # C >= 2 chains
 _BAR_WORDS = 32               # csrc/vfe_group.cuh kBarWords: one chain's barrier
 _OCCUPANCY: dict = {}
+# the grouped core of each core the JAX package streams
+_GROUPS = {"vfe": "vfe_group", "sgpmc": "sgpmc_group"}
 
 
 def route(core: str, n: int, chains: int) -> str:
     """The core whose kernel runs ``core`` on n rows for ``chains`` chains:
-    ``"vfe_group"`` where the JAX package streams the vfe core (n > 1024
-    with C >= 2 chains, n > 2048 with one), else ``core`` itself (the gpr
-    core is grouped at every n)."""
-    if core == "vfe" and n > (GROUP_MIN_N_MC if chains >= 2 else GROUP_MIN_N):
-        return "vfe_group"
+    ``"vfe_group"`` or ``"sgpmc_group"`` where the JAX package streams the
+    vfe or the sgpmc core (n > 1024 with C >= 2 chains, n > 2048 with one),
+    for every sampler kernel (potential, NUTS and HMC chunks), else ``core``
+    itself (the gpr core is grouped at every n)."""
+    if core in _GROUPS and n > (GROUP_MIN_N_MC if chains >= 2 else GROUP_MIN_N):
+        return _GROUPS[core]
     return core
 
 
@@ -70,8 +77,8 @@ def row_blocks(n: int, G: int) -> list[tuple[int, int]]:
 
 
 def blocks_per_sm(kind: str, dtype: torch.dtype, core: str = "vfe_group") -> int:
-    """Blocks of the grouped ``kind`` kernel ("potential", "nuts_chunk"; or
-    "sgpr_adam" for the grouped trainer) of ``core`` that one SM holds at
+    """Blocks of the grouped ``kind`` kernel ("potential", "nuts_chunk",
+    "hmc_chunk"; or "sgpr_adam" for the grouped trainer) of ``core`` that one SM holds at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its block
     size; registers and shared memory decide it)."""
     key = (kind, dtype, core)
@@ -98,8 +105,13 @@ def group_scratch(n: int, m: int, d: int, C: int, G: int, like: torch.Tensor,
     its C barriers zeroed, the rest uninitialised."""
     f64 = int(like.dtype == torch.float64)
     lib = _build.build()
-    elems = int(lib.ggp_gpr_scratch_elems(n, d, C, G, f64) if core == "gpr"
-                else lib.ggp_group_scratch_elems(n, m, d, C, G, f64))
+    if core == "gpr":
+        elems = lib.ggp_gpr_scratch_elems(n, d, C, G, f64)
+    elif core == "sgpmc_group":         # with G full M x M partials a chain
+        elems = lib.ggp_sgpmc_group_scratch_elems(n, m, d, C, G, f64)
+    else:
+        elems = lib.ggp_group_scratch_elems(n, m, d, C, G, f64)
+    elems = int(elems)
     work = torch.empty(elems, dtype=like.dtype, device=like.device)
     work[:C * _BAR_WORDS * 4 // like.element_size()].zero_()
     return work
@@ -207,3 +219,75 @@ def group_neg_logpost_vg(theta, X, y, Z, jitter, G, *, want_z_grad=False, want_p
     if not want_z_grad:
         return -F, -g
     return -F, -g, (2.0 * GmmZ + GnmZ) * inv_ls
+
+
+def sgpmc_group_neg_logpost_vg(state, X, y, Z, jitter, G, *, want_prior=True, pivot_floor=None):
+    """The grouped sgpmc core's evaluation in its own order, plain PyTorch:
+    V = L^-T from the factor of Kmm; the rows cut by :func:`row_blocks` into
+    G blocks, each giving, from At_b = Knm_b V, e_b, the clamped variance and
+    its mask, Abar_b^T and Pms_b^T = (Abar_b^T V^T) o Knm_b, its partials in
+    float64 (see, svar, sum msk, sum Pms, A e, T = Abar A^T in full, the
+    column sums of Pms^T, cs^T Xs^2, Pms Xs); the partials summed p = 0 ..
+    G-1 and cast to the working type; then the M x M epilogue (Phi = T o
+    (strict lower + I / 2), Kmm_b = -V Phi V^T symmetrised). Returns U and
+    dU/dstate as ``sgpmc_neg_logpost_vg`` does (no dU/dZ: the grouped core,
+    like the JAX package's streamed one, has none)."""
+    n, d = X.shape
+    m = Z.shape[0]
+    dt, f64 = X.dtype, torch.float64
+    eye = torch.eye(m, dtype=dt, device=X.device)
+    v = state[d + 2:]
+    inv_ls = capped_inv_ls(state[:d], X, Z)
+    sf2, s2 = torch.exp(state[d]), torch.exp(state[d + 1])
+    js = torch.clamp(sf2, min=1.0)
+    Zs = Z * inv_ls
+    zn = (Zs * Zs).sum(1)
+    Kmm = sf2 * torch.exp(-0.5 * torch.clamp(zn[:, None] + zn[None] - 2.0 * Zs @ Zs.T, min=0.0))
+    U = chol_upper(Kmm + (jitter * js) * eye, None if pivot_floor is None else pivot_floor * js)
+    V = torch.linalg.solve_triangular(U, eye, upper=True)                 # L^-T
+
+    def wide(a):
+        return a.to(f64)
+
+    parts = []
+    for r0, nr in row_blocks(n, G):
+        Xs = X[r0:r0 + nr] * inv_ls
+        xn = (Xs * Xs).sum(1)
+        Knm = sf2 * torch.exp(-0.5 * torch.clamp(xn[:, None] + zn[None] - 2.0 * Xs @ Zs.T,
+                                                 min=0.0))
+        At = Knm @ V
+        e = y[r0:r0 + nr] - At @ v
+        var_raw = sf2 - (At * At).sum(1)
+        msk = (var_raw > 1e-12).to(dt)
+        var = torch.clamp(var_raw, min=1e-12)
+        Ab = (e[:, None] * v[None] + At * msk[:, None]) / s2
+        Pms = (Ab @ V.T) * Knm
+        cs = Pms.sum(1)
+        parts.append(torch.cat([
+            torch.stack([(wide(e) ** 2).sum(), wide(var).sum(), wide(msk).sum(), wide(cs).sum()]),
+            wide(At).T @ wide(e), (wide(Ab).T @ wide(At)).reshape(-1), wide(Pms).sum(0),
+            wide(cs) @ wide(Xs) ** 2, (wide(Pms).T @ wide(Xs)).reshape(-1)]))
+    tot = _in_order(parts).to(dt)
+    see, svar, smsk, spms = tot[:4]
+    ae, T = tot[4:4 + m], tot[4 + m:4 + m + m * m].reshape(m, m)
+    o = 4 + m + m * m
+    rs_ms, csX2, PmsX = tot[o:o + m], tot[o + m:o + m + d], tot[o + m + d:].reshape(m, d)
+
+    F = -0.5 * n * torch.log(2.0 * math.pi * s2) - 0.5 * (see + svar) / s2 - 0.5 * (v * v).sum()
+    pr = 1.0 if want_prior else 0.0
+    if want_prior:
+        hyp = state[:d + 2]
+        F = F + (2.0 * hyp - torch.exp(hyp)).sum()
+    g_v = ae / s2 - v
+    Phi = torch.tril(T, -1) + 0.5 * torch.diag(torch.diagonal(T))
+    Kb = -(V @ Phi) @ V.T
+    Kb = 0.5 * (Kb + Kb.T)
+    Pmm = Kb * Kmm
+    dF_ds2 = -0.5 * n / s2 + 0.5 * (see + svar) / (s2 * s2)
+    dlog_noise = dF_ds2 * s2 + pr * (2.0 - s2)
+    dlog_os = (Pmm.sum() + spms + jitter * sf2 * (sf2 > 1.0).to(dt) * torch.diagonal(Kb).sum()
+               - 0.5 * smsk * sf2 / s2 + pr * (2.0 - sf2))
+    dls = ((2.0 * Pmm.sum(1) + rs_ms) @ (Zs * Zs) + csX2
+           - 2.0 * (Zs * (Pmm @ Zs + PmsX)).sum(0))
+    g_ls = dls + pr * (2.0 - torch.exp(state[:d]))
+    return -F, -torch.cat([g_ls, dlog_os[None], dlog_noise[None], g_v])

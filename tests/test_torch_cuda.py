@@ -606,6 +606,175 @@ def test_sgpmc_model_runs_on_the_card(dev, num_chains, algorithm):
     assert torch.isfinite(means).all() and (vars_ > 0).all()
 
 
+# -- the grouped sgpmc core (csrc/sgpmc_group.cuh) and the grouped HMC chunk ------
+
+def _group_start(dev, dt, core, C, n=2500, m=24, d=5, seed=30, log_eps=-3.5):
+    """C chains past both thresholds (n > 2048): the sgpmc state [theta, v]
+    or the vfe theta, around a common point."""
+    st0, X, y, Z = _sgpmc_problem(dev, dt, n=n, m=m, d=d, seed=seed)
+    if core == "vfe":
+        st0 = st0[:d + 2].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = st0 + 0.05 * torch.randn((C, st0.shape[0]), generator=gen, dtype=dt, device=dev)
+    U, g = mc_potential_plain(z, X, y, Z, 1e-6, core=core)
+    le = log_eps + 0.1 * torch.arange(C, dtype=dt, device=dev)
+    zc, zv = torch.zeros(C, dtype=dt, device=dev), torch.zeros_like(z)
+    st = ChainState(z=z, U=U, g=g, inv_mass=torch.ones_like(z), log_eps=le, log_eps_avg=le,
+                    h_avg=zc, mu=le + np.log(10.0), t_da=zc, wf_mean=zv, wf_m2=zv, wf_count=zc)
+    return st, X, y, Z, gen
+
+
+def test_sgpmc_group_scratch_layout_matches_the_kernels(dev):
+    """The C side's count of a grouped sgpmc launch's scratch
+    (``ggp_sgpmc_group_scratch_elems``) against the layout the kernel's
+    pointers walk (``SgpmcGroupCore::work``): per chain a 128-byte barrier
+    line; per chain the G blocks' double partials (see, svar, sum msk, sum
+    Pms, A e, the full M x M T, colsum Pms, cs Xs^2, Pms Xs, the max |X|)
+    then the T area (Kmm, W, U, V, T1, Kb; rs_mm, Pmm Zs; the summed
+    entries; U and 128 gradient entries; G block areas of Knm, At, Abar
+    (nb x m), xn, e, msk, cs (nb) and zn (m)), its bytes rounded up to 16."""
+    lib = _build.build()
+    for n, m, d, C, G in [(13279, 100, 18, 1, 264), (13279, 100, 18, 2, 66), (2500, 7, 13, 8, 33)]:
+        nb = -(-n // G)
+        E = 4 + m + m * m + m + d + m * d
+        t_area = 6 * m * m + m + m * d + E + 1 + 128 + G * (3 * nb * m + 4 * nb + m)
+        for dt in DTYPES:
+            itemsize = torch.empty(0, dtype=dt).element_size()
+            chain = G * (E + 1) * 8 + -(-t_area * itemsize // 16) * 16
+            want = -(-(C * 128 + C * chain) // itemsize)
+            assert lib.ggp_sgpmc_group_scratch_elems(n, m, d, C, G,
+                                                     int(dt == torch.float64)) == want
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_sgpmc_group_potential_matches_plain(dev, dt):
+    """Past both thresholds the sgpmc potential runs on the grouped core, at
+    one chain (vfe_potential) and two (mc_potential): U and dU/dstate
+    against the plain version; two launches on the same inputs give the
+    same bits; the one-block kernels are not launched."""
+    st, X, y, Z, _ = _group_start(dev, dt, "sgpmc", 2)
+    before = dict(_build.LAUNCHES)
+    one = vfe_potential(st.z[0].contiguous(), X, y, Z, 1e-6, core="sgpmc")
+    two = mc_potential(st.z, X, y, Z, 1e-6, core="sgpmc")
+    assert _build.LAUNCHES["sgpmc_group_potential"] == before["sgpmc_group_potential"] + 1
+    assert _build.LAUNCHES["sgpmc_group_mc_potential"] == before["sgpmc_group_mc_potential"] + 1
+    assert _build.LAUNCHES["sgpmc_potential"] == before["sgpmc_potential"]
+    assert _build.LAUNCHES["sgpmc_mc_potential"] == before["sgpmc_mc_potential"]
+    for a, b in zip(two, (st.U, st.g)):
+        assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
+    for a, b in zip(one, (st.U[0], st.g[0])):
+        assert _rel(a, b) <= TOL[dt]
+    again = mc_potential(st.z, X, y, Z, 1e-6, core="sgpmc")
+    assert all(torch.equal(a, b) for a, b in zip(two, again))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("core", ["sgpmc", "vfe"])
+@pytest.mark.parametrize("C", [1, 2])
+def test_group_hmc_chunk_matches_plain(dev, dt, core, C):
+    """The HMC chunk on a grouped core past both thresholds: K=6 steps (5
+    active) of L=4 at one chain (``hmc_chunk``) and C=2 (``mc_hmc_chunk``):
+    identical accept decisions, draws within the chunk tolerance, two
+    launches on the same inputs bit-identical."""
+    st, X, y, Z, gen = _group_start(dev, dt, core, C)
+    dim, K = st.z.shape[1], 6
+    sl = draw_mc_slabs(K, C, dim, algorithm="hmc", max_depth=0, generator=gen, dtype=dt,
+                       device=dev)
+    kw = dict(n_active=5, adapt=True, num_leapfrog=4, core=core,
+              in_window=torch.arange(K, device=dev) >= 1,
+              window_end=torch.arange(K, device=dev) == 3)
+    key = f"{core}_group_{'' if C == 1 else 'mc_'}hmc_chunk"
+    before = dict(_build.LAUNCHES)
+
+    def run():
+        if C == 1:
+            s1, d1, x1 = hmc_chunk(first_chain(st), X, y, Z, 1e-6, mom=sl["mom"][:, 0],
+                                   mh=sl["mh"][:, 0], **kw)
+            return as_batch(s1), d1[:, None], x1[:, None]
+        return mc_hmc_chunk(st, X, y, Z, 1e-6, **sl, **kw)
+
+    s_k, d_k, x_k = run()
+    assert _build.LAUNCHES[key] == before[key] + 1
+    assert sum(_build.LAUNCHES[k] - before[k] for k in before) == 1
+    s_p, d_p, x_p = mc_hmc_chunk_plain(st, X, y, Z, 1e-6, **kw, **sl)
+    mh = sl["mh"][:5]
+    assert torch.equal(mh < x_k[:5, :, 1], mh < x_p[:5, :, 1])
+    assert _rel(d_k, d_p) <= CHUNK_TOL[dt]
+    for f in ("z", "U", "inv_mass", "log_eps"):
+        assert _rel(getattr(s_k, f), getattr(s_p, f)) <= CHUNK_TOL[dt], f
+    s_2, d_2, x_2 = run()
+    assert torch.equal(d_k, d_2) and torch.equal(x_k, x_2) and torch.equal(s_k.z, s_2.z)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("C", [1, 2])
+def test_sgpmc_group_nuts_chunk_matches_plain(dev, dt, C):
+    """NUTS on the grouped sgpmc core past both thresholds (K=3 warm steps,
+    max depth 5) at one chain (``nuts_chunk``) and C=2 (``mc_nuts_chunk``):
+    per chain, f64 on one path for the whole chunk, f32 at least for its
+    first transition; two launches bit-identical."""
+    st, X, y, Z, gen = _group_start(dev, dt, "sgpmc", C, seed=31)
+    dim, K, md = st.z.shape[1], 3, 5
+    sl = draw_mc_slabs(K, C, dim, algorithm="nuts", max_depth=md, generator=gen, dtype=dt,
+                       device=dev)
+    kw = dict(n_active=K, adapt=True, max_depth=md, core="sgpmc",
+              in_window=torch.arange(K, device=dev) >= 1,
+              window_end=torch.arange(K, device=dev) == 1)
+    key = f"sgpmc_group_{'' if C == 1 else 'mc_'}nuts_chunk"
+    before = _build.LAUNCHES[key]
+
+    def run():
+        if C == 1:
+            one = {k: v[:, 0] for k, v in sl.items()}
+            s1, d1, x1 = nuts_chunk(first_chain(st), X, y, Z, 1e-6, **one, **kw)
+            return as_batch(s1), d1[:, None], x1[:, None]
+        return mc_nuts_chunk(st, X, y, Z, 1e-6, **kw, **sl)
+
+    _, d_k, x_k = run()
+    assert _build.LAUNCHES[key] == before + 1
+    _, d_p, x_p = mc_nuts_chunk_plain(st, X, y, Z, 1e-6, **kw, **sl)
+    for c in range(C):
+        p = _agreeing_prefix(d_k[:, c], d_p[:, c], x_k[:, c], x_p[:, c], CHUNK_TOL[dt])
+        assert p == K if dt == torch.float64 else p >= 1, (c, p)
+    _, d_2, x_2 = run()
+    assert torch.equal(d_k, d_2) and torch.equal(x_k, x_2)
+
+
+def test_grouped_hmc_grid_that_does_not_fit_raises(dev, monkeypatch):
+    """A grouped HMC chunk whose cooperative grid the card cannot hold is
+    refused and raises; nothing falls back to the one-block kernel."""
+    from ggp_tpu_torch.ops import vfe_group
+    st, X, y, Z, gen = _group_start(dev, torch.float64, "sgpmc", 2)
+    sl = draw_mc_slabs(2, 2, st.z.shape[1], algorithm="hmc", max_depth=0, generator=gen,
+                       dtype=torch.float64, device=dev)
+    monkeypatch.setattr(vfe_group, "geometry",
+                        lambda kind, dtype, chains, device, core="vfe_group": 100000)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        mc_hmc_chunk(st, X, y, Z, 1e-6, n_active=2, adapt=False, eps=torch.exp(st.log_eps),
+                     num_leapfrog=2, core="sgpmc", **sl)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("num_chains,algorithm", [(1, "nuts"), (2, "hmc")])
+def test_sgpmc_model_runs_on_the_grouped_core(dev, num_chains, algorithm):
+    """The model past both thresholds: warm start (one block), then the
+    sampler's potential and chunks on the grouped sgpmc core."""
+    st, X, y, Z = _sgpmc_problem(dev, torch.float32, n=2500, seed=32)
+    model = SGPMC(X, y, Z_init=Z)
+    before = dict(_build.LAUNCHES)
+    model.warm_start(num_steps=10)
+    tr = model.train_model(20, 10, num_chains=num_chains, algorithm=algorithm,
+                           num_leapfrog=5)
+    assert tr.shape == (10 * num_chains, st.shape[0]) and torch.isfinite(tr).all()
+    pre = "" if num_chains == 1 else "mc_"
+    for k in ("sgpmc_warm_chunk", f"sgpmc_group_{pre}{algorithm}_chunk",
+              f"sgpmc_group_{pre}potential"):
+        assert _build.LAUNCHES[k] > before[k], k
+    for k in (f"sgpmc_{pre}{algorithm}_chunk", f"sgpmc_{pre}potential"):
+        assert _build.LAUNCHES[k] == before[k], k
+
+
 # -- the gpr core: the dense GP marginal over d+2 --------------------------------
 
 def _gpr_problem(dev, dt, n=150, d=5, seed=0):

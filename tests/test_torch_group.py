@@ -23,6 +23,7 @@ from ggp_tpu.ops.fused_bound import _default_chol_inv, _rbf_vfe_neg_logpost_vg
 from ggp_tpu.ops.fused_multichain import _rbf_vfe_batched_vg_streaming
 from ggp_tpu_torch.ops import _build, sgpr_adam, vfe_group
 from ggp_tpu_torch.ops.multichain import mc_potential
+from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.vfe_bound import rbf_vfe_neg_logpost_vg, vfe_potential
 from ggp_tpu_torch.ops.vfe_group import group_neg_logpost_vg, group_size, route, row_blocks
 
@@ -92,6 +93,10 @@ class _CountingLib:
         self.calls.append(("group", n, m, d, C, G, f64))
         return 1000 + n + m + d + C + G + f64
 
+    def ggp_sgpmc_group_scratch_elems(self, n, m, d, C, G, f64):
+        self.calls.append(("sgpmc_group", n, m, d, C, G, f64))
+        return 4000 + n + m + d + C + G + f64
+
     def ggp_gpr_scratch_elems(self, n, d, C, G, f64):
         self.calls.append(("gpr", n, d, C, G, f64))
         return 2000 + n + d + C + G + f64
@@ -105,13 +110,16 @@ class _CountingLib:
 @pytest.mark.parametrize("kind,core,n,m,d,C", [
     ("potential", "vfe_group", 13279, 100, 18, 1), ("nuts_chunk", "vfe_group", 1025, 24, 5, 8),
     ("potential", "vfe", 404, 100, 2, 2), ("nuts_chunk", "sgpmc", 3000, 7, 13, 4),
-    ("potential", "gpr", 404, 0, 13, 1), ("nuts_chunk", "gpr", 1279, 0, 11, 4)])
+    ("potential", "gpr", 404, 0, 13, 1), ("nuts_chunk", "gpr", 1279, 0, 11, 4),
+    ("potential", "sgpmc_group", 13279, 100, 18, 1), ("nuts_chunk", "sgpmc_group", 2049, 24, 5, 2),
+    ("hmc_chunk", "sgpmc_group", 13279, 100, 18, 8), ("hmc_chunk", "vfe_group", 1025, 24, 5, 8)])
 def test_launch_work(kind, core, n, m, d, C, dt, monkeypatch):
-    """A grouped launch (the vfe core past its threshold, the gpr core at
-    every n) takes G from the geometry of its core's kernel kind and the
-    chain count, passes it as cfg GROUP, and sizes its scratch by the C
-    side's count for that core with each chain's 128-byte barrier zeroed;
-    any other core takes one evaluation's area per chain and no GROUP."""
+    """A grouped launch (the vfe and sgpmc cores past their threshold, the
+    gpr core at every n) takes G from the geometry of its core's kernel
+    kind and the chain count, passes it as cfg GROUP, and sizes its scratch
+    by the C side's count for that core (for the sgpmc group, with G full
+    M x M partials a chain) with each chain's 128-byte barrier zeroed; any
+    other core takes one evaluation's area per chain and no GROUP."""
     lib = _CountingLib()
     monkeypatch.setattr(_build, "build", lambda: lib)
     seen = []
@@ -121,12 +129,15 @@ def test_launch_work(kind, core, n, m, d, C, dt, monkeypatch):
     work, cfg = vfe_group.launch_work(kind, core, n, m, d, C, like)
     assert work.dtype == dt and work.device == like.device
     f64 = int(dt == F64)
-    if core in ("vfe_group", "gpr"):
+    if core in ("vfe_group", "sgpmc_group", "gpr"):
         G = 7 * C
         assert seen == [(kind, dt, C, core)] and cfg == {"GROUP": G}
         if core == "gpr":
             assert lib.calls == [("gpr", n, d, C, G, f64)]
             assert work.numel() == lib.ggp_gpr_scratch_elems(n, d, C, G, f64)
+        elif core == "sgpmc_group":
+            assert lib.calls == [("sgpmc_group", n, m, d, C, G, f64)]
+            assert work.numel() == lib.ggp_sgpmc_group_scratch_elems(n, m, d, C, G, f64)
         else:
             assert lib.calls == [("group", n, m, d, C, G, f64)]
             assert work.numel() == lib.ggp_group_scratch_elems(n, m, d, C, G, f64)
@@ -144,25 +155,32 @@ def test_launch_work(kind, core, n, m, d, C, dt, monkeypatch):
 @pytest.mark.parametrize("core,n,C,want", [
     ("vfe", 404, 1, "vfe"), ("vfe", 2048, 1, "vfe"), ("vfe", 2049, 1, "vfe_group"),
     ("vfe", 1024, 2, "vfe"), ("vfe", 1025, 2, "vfe_group"), ("vfe", 1025, 8, "vfe_group"),
-    ("vfe", 13279, 2, "vfe_group"), ("sgpmc", 13279, 2, "sgpmc"), ("gpr", 1279, 4, "gpr"),
-    ("co2_m32", 4096, 1, "co2_m32")])
+    ("vfe", 13279, 2, "vfe_group"), ("sgpmc", 13279, 2, "sgpmc_group"), ("gpr", 1279, 4, "gpr"),
+    ("co2_m32", 4096, 1, "co2_m32"), ("sgpmc", 2048, 1, "sgpmc"), ("sgpmc", 2049, 1, "sgpmc_group"),
+    ("sgpmc", 1024, 2, "sgpmc"), ("sgpmc", 1025, 2, "sgpmc_group"), ("sgpmc", 1025, 1, "sgpmc"),
+    ("sgpmc", 13279, 8, "sgpmc_group")])
 def test_route(core, n, C, want):
-    """The grouped core where the JAX package streams the vfe core: past
-    1024 rows for C >= 2 chains (MAX_N_MULTICHAIN), past 2048 for one
-    (MAX_N_RESIDENT); every other core keeps its one-block kernels."""
+    """The grouped core where the JAX package streams the vfe and sgpmc
+    cores: past 1024 rows for C >= 2 chains (MAX_N_MULTICHAIN), past 2048
+    for one (MAX_N_RESIDENT); the co2 cores keep their one-block kernels,
+    the gpr core is grouped at every n under its own name."""
     assert route(core, n, C) == want
 
 
-def test_cpu_wrappers_above_the_threshold_run_plain():
+@pytest.mark.parametrize("core", ["vfe", "sgpmc"])
+def test_cpu_wrappers_above_the_threshold_run_plain(core):
     """On CPU tensors the routed wrappers run the plain versions and
     launch nothing, at n past both thresholds."""
     X, y, Z, thetas = _problem(seed=1, n=2100, m=6, d=3)
+    if core == "sgpmc":
+        thetas = np.c_[thetas, 0.3 * np.random.default_rng(1).normal(size=(2, 6))]
     Xt, yt, Zt, tt = (torch.tensor(a) for a in (X, y, Z, thetas))
     before = dict(_build.LAUNCHES)
-    U, g = mc_potential(tt, Xt, yt, Zt, JITTER)
-    U1, g1 = vfe_potential(tt[0], Xt, yt, Zt, JITTER)
+    U, g = mc_potential(tt, Xt, yt, Zt, JITTER, core=core)
+    U1, g1 = vfe_potential(tt[0], Xt, yt, Zt, JITTER, core=core)
     assert _build.LAUNCHES == before
-    ref = rbf_vfe_neg_logpost_vg(tt[0], Xt, yt, Zt, JITTER)
+    ref = (rbf_vfe_neg_logpost_vg if core == "vfe" else sgpmc_neg_logpost_vg)(
+        tt[0], Xt, yt, Zt, JITTER)
     assert torch.equal(U[0], ref[0]) and torch.equal(U1, ref[0]) and torch.equal(g1, ref[1])
 
 
