@@ -194,8 +194,9 @@ from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
                                           first_chain, nuts_chunk, nuts_chunk_plain,
                                           nuts_transition, nuts_transition_plain)
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
-from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
-from ggp_tpu_torch.ops.sgpr_adam import (call_sgpr_adam, sgpr_adam_chunk,
+from ggp_tpu_torch.ops.sgpmc_warm import (CLIP_NORM, sgpmc_warm_chunk,
+                                          sgpmc_warm_chunk_plain)
+from ggp_tpu_torch.ops.sgpr_adam import (PIVOT_FLOOR, call_sgpr_adam, sgpr_adam_chunk,
                                          sgpr_adam_chunk_plain, z_adam_chunk, z_adam_chunk_plain,
                                          z_adam_stream, z_adam_stream_plain)
 from ggp_tpu_torch.ops.svi import (bsvgp_chunk, bsvgp_chunk_plain, svi_chunk, svi_chunk_plain,
@@ -513,7 +514,10 @@ REG_SDS = 4
 # freedom: 5.7 % a lane beyond 4; of 7, 0.5 %). The sampler's cut,
 # 50 warmup + 25 draws (joint-nuts' depth) from the regression driver's 500 + 100: a
 # NUTS transition at this n takes up to 2^8 - 1 leapfrogs, ~0.2 s each in
-# the JAX package's CPU run.
+# the JAX package's CPU run. Over this cut the chain still drifts
+# (log-outputscale from -1 to about -8), so (3) is also held for chains
+# started at the JAX run's own warm state and Z, in float32 and in float64
+# at its jitter (phase_joint_large's witnesses).
 JOINT_REF_FILE = "joint_reference.json"
 JOINT_WARM_TOL = 1e-3
 JOINT_METRIC_TOL = 0.05
@@ -2733,6 +2737,54 @@ def phase_trainer_large(ref, res, steps=20):
         r["rel"][tag] = max(r["rel"].get(tag, 0.0), e)
 
 
+def warm_parity(out, ref_w, args, jit, akw, f32):
+    """(max rel err, within tolerance, note) of a warm-start chunk against
+    its plain version from the same inputs: float64 to TOL; float32 to
+    ADAM_TOL, or, where float32 does not resolve the chunk, no further from
+    the float64 plain version than F32_AS_ACCURATE times the float32 plain
+    version is."""
+    dt = torch.float32 if f32 else torch.float64
+    e = max(rel(a, b) for a, b in zip(out, ref_w))
+    ok = e <= (ADAM_TOL if f32 else TOL)[dt]
+    if not f32:
+        return e, ok, ""
+    r64 = sgpmc_warm_chunk_plain(*(a.double() for a in args), jit, **akw)
+    ek = max(rel(a, b) for a, b in zip(out, r64))
+    ep = max(rel(a, b) for a, b in zip(ref_w, r64))
+    if not ok and ep > F32_RESOLVES:
+        ok = ek <= F32_AS_ACCURATE * ep
+    return e, ok, f"; against float64 from the same inputs: kernel {ek:.3e}, plain {ep:.3e}"
+
+
+def chunk_from_start(X, y, jit, S0, steps):
+    """Printed, float64: a chunk of ``steps`` warm-start steps from the
+    path's start in one launch, against its plain version, beside what the
+    plain version alone does there: with the rows in another order, and
+    continued from the kernel's first step. At the start the clipped
+    gradient of some Z coordinates lies below Adam's epsilon (1e-8), where
+    a step multiplies the gradient's absolute error by lr x clip scale /
+    eps, and the next gradient carries the moved Z (the float64 CPU test
+    test_warm_start_amplifies_roundoff_at_the_path_start)."""
+    akw = dict(t0=0, num_steps=steps, lr=0.01)
+    _, gs, gZ = sgpmc_neg_logpost_vg(S0[0], X, y, S0[1], jit, want_z_grad=True,
+                                     want_prior=False, pivot_floor=PIVOT_FLOOR)
+    sc = min(1.0, CLIP_NORM / float(torch.sqrt((gs * gs).sum() + (gZ * gZ).sum())))
+    below = int((sc * gZ.abs() < 1e-8).sum())
+    out = sgpmc_warm_chunk(*S0, X, y, jit, **akw)
+    ref_w = sgpmc_warm_chunk_plain(*S0, X, y, jit, **akw)
+    perm = torch.randperm(X.shape[0], generator=torch.Generator().manual_seed(1)).to(X.device)
+    ref_p = sgpmc_warm_chunk_plain(*S0, X[perm], y[perm], jit, **akw)
+    one = sgpmc_warm_chunk(*S0, X, y, jit, **dict(akw, num_steps=1))
+    cont = sgpmc_warm_chunk_plain(*one[:6], X, y, jit, **dict(akw, t0=1, num_steps=steps - 1))
+    errs = [max(rel(a, b) for a, b in zip(o[:6], ref_w[:6])) for o in (out, ref_p, cont)]
+    print(f"sgpmc_warm_chunk f64 at n={X.shape[0]}, {steps} steps from the path's start in one "
+          f"launch: kernel against plain {errs[0]:.3e}; the plain version with the rows in "
+          f"another order {errs[1]:.3e}; the plain version continued from the kernel's first "
+          f"step {errs[2]:.3e} (state, Z and Adam moments, norm-relative); at the start "
+          f"{below} of {gZ.numel()} Z coordinates have a clipped gradient below Adam's eps, "
+          f"and a step there multiplies its absolute error by {akw['lr'] * sc / 1e-8:.3g}")
+
+
 def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
     """The grouped kernels of the joint-large paths at their shape
     (synthetic-large: n=13,279, D=18, M=100; the sgpmc state d+2+M = 120),
@@ -2749,13 +2801,15 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
     (mc_hmc_chunk). Every grouped kernel is launched twice on the same
     inputs (bit-identical). Then the warm start's one-block kernel
     (sgpmc_warm_chunk, which joint-large runs at this n outside the JAX
-    package's fused envelope), ``warm_steps`` steps from the chains' state
-    (the warm hypers, v = 0) against its plain version (float32 as the
-    grouped trainer is held at reg-large's shape). Not from the path's
-    start: at log-lengthscales 0 in 18 dimensions Knm is ~1e-8 and dU/dZ
-    lies at Adam's epsilon, where two float64 summation orders of the plain
-    version alone part by ~4e-9 in Z's moments. Each line with the
-    kernel's time, bound and plain time. Then :func:`phase_sgpmc_scaling`."""
+    package's fused envelope) against its plain version (float32 as the
+    grouped trainer is held at reg-large's shape): from the path's start
+    (SGPMC's initial state at the driver's Z_init) one step at a time for
+    ``warm_steps`` steps, each from the plain version's state; in float64
+    also a chunk of those steps in one launch, printed beside the plain
+    version's own spread there (:func:`chunk_from_start`); then a chunk of
+    ``warm_steps`` steps from the chains' state (the warm hypers, v = 0),
+    timed. Each line with the kernel's time, bound and plain time. Then
+    :func:`phase_sgpmc_scaling`."""
     ref = regression_ref()
     for dt in (torch.float64, torch.float32):
         tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
@@ -2856,34 +2910,47 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
                     check_repeat(f"{kind} {tag} (grouped {core} core, C={grid})",
                                  lambda: fn(st, X, y, Zi, jit, **sl, **kw))
 
-        # the warm start's kernel (site 9, one block) at this n, from the chains' state
+        # the warm start's kernel (site 9, one block) at this n: from the path's start one
+        # step at a time along the plain version's trajectory, then a chunk of warm_steps
+        # from the chains' state
         wr = res["sgpmc_warm_chunk"]
+        zz = torch.zeros_like(Zi)
+        start = SGPMC(X, y, Z_init=Zi, jitter=jit, dtype=dt, device="cuda").flat
+        S = (start, Zi, torch.zeros_like(start), torch.zeros_like(start), zz, zz)
+        worst = 0.0
+        for t in range(warm_steps):
+            akw = dict(t0=t, num_steps=1, lr=0.01)
+            out = sgpmc_warm_chunk(*S, X, y, jit, **akw)
+            ref_w = sgpmc_warm_chunk_plain(*S, X, y, jit, **akw)
+            e, ok, txt = warm_parity(out, ref_w, S + (X, y), jit, akw, f32)
+            assert ok, f"sgpmc_warm_chunk {tag} n={n} step {t + 1} from the path's start: " \
+                       f"rel err {e}{txt}"
+            worst, S = max(worst, e), ref_w[:6]
+        wr["rel"][tag] = max(wr["rel"].get(tag, 0.0), worst)
+        print(f"parity sgpmc_warm_chunk {tag} at n={n} from the path's start, {warm_steps} "
+              f"single steps along the plain version's trajectory: max rel err {worst:.3e}")
+        if not f32:
+            z0 = torch.zeros_like(start)
+            chunk_from_start(X, y, jit, (start, Zi, z0, z0, zz, zz), warm_steps)
         st_w = zs0
-        zs, zz = torch.zeros_like(st_w), torch.zeros_like(Zi)
+        zs = torch.zeros_like(st_w)
         args = (st_w, Zi, zs, zs, zz, zz, X, y)
         akw = dict(t0=0, num_steps=warm_steps, lr=0.01)
         out, wms = once_ms(lambda: sgpmc_warm_chunk(*args, jit, **akw))
         ref_w, wpms = once_ms(lambda: sgpmc_warm_chunk_plain(*args, jit, **akw))
-        e = max(rel(a, b) for a, b in zip(out, ref_w))
-        ok, txt = e <= (ADAM_TOL if f32 else TOL)[dt], ""
+        e, ok, txt = warm_parity(out, ref_w, args, jit, akw, f32)
         if f32:
-            r64 = sgpmc_warm_chunk_plain(*(a.double() for a in args), jit, **akw)
-            ek = max(rel(a, b) for a, b in zip(out, r64))
-            ep = max(rel(a, b) for a, b in zip(ref_w, r64))
-            txt = f"; against float64 from the same inputs: kernel {ek:.3e}, plain {ep:.3e}"
-            if not ok and ep > F32_RESOLVES:
-                ok = ek <= F32_AS_ACCURATE * ep
             wb = roofline(warm_steps, n, m, d, xyz + 3 * nbytes(st_w, Zi), nbytes(*out),
                           want_z=True, core="sgpmc")
             wr["extra"].update(n13279_ms_per_step=wms / warm_steps,
                                n13279_plain_ms_per_step=wpms / warm_steps,
                                n13279_bound_ms_per_step=wb[0] / warm_steps)
             txt += f", bound {wb[0] / warm_steps:.6f} ms a step"
-        print(f"parity sgpmc_warm_chunk {tag} at n={n} ({warm_steps} steps, one block): max "
-              f"rel err {e:.3e}; kernel {wms / warm_steps:.3f} ms a step, "
+        print(f"parity sgpmc_warm_chunk {tag} at n={n} ({warm_steps} steps from the chains' "
+              f"state, one block): max rel err {e:.3e}; kernel {wms / warm_steps:.3f} ms a step, "
               f"plain {wpms / warm_steps:.3f} ms a step{txt}")
         assert ok, f"sgpmc_warm_chunk {tag} n={n} rel err {e}"
-        wr["rel"][tag] = max(wr["rel"].get(tag, 0.0), e)
+        wr["rel"][tag] = max(wr["rel"][tag], e)
     phase_sgpmc_scaling(ref, res)
 
 
@@ -3085,6 +3152,14 @@ def phase_joint_large():
     cut): the warm start's final loss within JOINT_WARM_TOL relative; the
     test RMSE and NLPD within JOINT_METRIC_TOL + JOINT_SDS SDs; each of the
     d + 2 hyper lanes' trace means within JOINT_LANE_TOL + JOINT_SDS SDs.
+    Then three witnesses of the lane gate (after the launch counts are
+    read), each a chain of the same cut: from the port's own warm state
+    with another seed (printed), and from the JAX run's warm state and Z
+    (JOINT_REF's warm_state, warm_Z) in float32 and in float64 at the JAX
+    run's jitter, both held to the same margin. Over this cut the chain
+    still drifts (log-outputscale from -1 to about -8), so one chain's
+    lane means spread with its seed and start, and float32's jitter
+    (1e-5 against sf2 ~ 2e-4 there) is part of the model it samples.
     Returns the launch counts of the run."""
     ref = joint_ref()
     torch.cuda.synchronize()
@@ -3127,6 +3202,38 @@ def phase_joint_large():
         assert math.isfinite(got) and abs(got - ref[k]) <= margin, \
             f"joint-large test {k} {got} vs {ref[k]} +- {margin}"
     assert used <= 1.0, f"joint-large hyper lane means {lanes.tolist()}"
+    warm_state = torch.tensor(ref["warm_state"], dtype=model.flat.dtype, device="cuda")
+    warm_Z = torch.tensor(ref["warm_Z"], dtype=model.Z.dtype, device="cuda")
+    gap = (model.flat - warm_state).abs()
+    worst = [int(j) for j in (lane_gap / (JOINT_LANE_TOL + JOINT_SDS * lane_sd)).argsort()[-3:]]
+    print(f"joint-large warm state, port's float32 run against the JAX float64 run: max |diff| "
+          f"over the hyper lanes {float(gap[:d + 2].max()):.4f} (lanes {worst}, the three that "
+          f"use most of the sampler gate's margin: "
+          f"{[round(float(gap[j]), 4) for j in worst]}), over v {float(gap[d + 2:].max()):.4f}, "
+          f"over Z {float((model.Z - warm_Z).abs().max()):.4f}")
+    f64 = SGPMC(model.train_x.double(), model.train_y.double(), Z_init=warm_Z.double(),
+                dtype=torch.float64, device="cuda")
+    witnesses = [("port's warm state, float32, generator seed 46", model, model.flat.clone(),
+                  model.Z, 46, False),
+                 ("JAX run's warm state and Z, float32, generator seed 45", model, warm_state,
+                  warm_Z, 45, True),
+                 (f"JAX run's warm state and Z, float64 at jitter {f64.jitter:g}, generator seed "
+                  f"45", f64, warm_state.double(), f64.Z, 45, True)]
+    for label, mod, flat, Z, seed, held in witnesses:
+        mod.flat, mod.Z = flat, Z
+        mod.train_model(num_warmup=ref["tune"], num_samples=ref["draws"],
+                        generator=torch.Generator(device="cuda").manual_seed(seed))
+        got = mod.trace[:, :d + 2].double().mean(0).cpu()
+        share = (got - lane_ref).abs() / (JOINT_LANE_TOL + JOINT_SDS * lane_sd)
+        print(f"joint-large witness from the {label}: lanes {worst} at "
+              f"{[round(float(got[j]), 4) for j in worst]} (JAX keys "
+              f"{[round(float(lane_ref[j]), 4) for j in worst]} +- "
+              f"{[round(float(lane_sd[j]), 4) for j in worst]}); largest margin used "
+              f"{float(share.max()):.3f} (lane {int(share.argmax())}); mean accept "
+              f"{float(mod.stats['accept_prob'].mean()):.4f}{'' if held else ' (printed)'}")
+        assert torch.isfinite(mod.trace).all()
+        assert not held or float(share.max()) <= 1.0, \
+            f"joint-large lanes from the {label}: {got.tolist()}"
     return launches
 
 

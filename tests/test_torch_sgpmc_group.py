@@ -14,7 +14,8 @@ replace) and ``jax.value_and_grad`` of ``SGPMC._logpost``, at n=300, d=4,
 m=16 (state dim 22). Every sampler wrapper's routing of both cores is
 checked on the ``meta`` device (not the CPU) with the launches stubbed. The regression driver's
 JointHMC branch runs on the CPU at synthetic-small, its warm start held to
-the JAX package's.
+the JAX package's; and the warm start's float64 sensitivity at the path's
+start, on a cut of synthetic-large, is shown in both packages.
 """
 
 import jax
@@ -33,7 +34,10 @@ from ggp_tpu_torch.experiments import regression
 from ggp_tpu_torch.ops import _build, multichain, nuts_chunk, vfe_bound
 from ggp_tpu_torch.ops.nuts_chunk import ChainState
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
+from ggp_tpu_torch.ops.sgpmc_warm import CLIP_NORM
+from ggp_tpu_torch.ops.sgpr_adam import PIVOT_FLOOR
 from ggp_tpu_torch.ops.vfe_group import sgpmc_group_neg_logpost_vg
+from ggp_tpu_torch.utils.datasets import get_regression_data
 
 F32, F64 = torch.float32, torch.float64
 N, D, M, JITTER = 300, 4, 16, 1e-6
@@ -46,6 +50,7 @@ DIM = D + 2 + M
 TOL64 = 1e-12
 TOL32 = 1e-5
 GS = [1, 2, 5, 13]
+D_LARGE = 18                    # synthetic-large's width
 
 
 def _rel(a, b):
@@ -291,3 +296,48 @@ def test_driver_jointhmc_warm_start_matches_jax(monkeypatch, tmp_path):
     losses_j = jm.warm_start(num_steps=100)
     assert rec["losses"].shape == (100,)
     assert _rel(rec["losses"], losses_j) <= 1e-9
+
+
+def test_warm_start_amplifies_roundoff_at_the_path_start():
+    """The JointHMC warm start in float64 on the first 300 rows of
+    synthetic-large (D=18) with 16 Z rows drawn from them (the driver's
+    RandomState(45) rule), from SGPMC's initial state. There the clipped
+    gradient of many Z coordinates lies below Adam's eps (1e-8), where a
+    step multiplies the gradient's absolute error by lr x clip scale / eps
+    (> 1e4 here), and the next gradient carries the moved Z. So the port's
+    plain warm start and the JAX package's (XLA autodiff, optax) agree to
+    ~1e-11 after one step and part by ~1e-8 after five, while five steps
+    from the state 100 steps on agree to ~1e-15. This is why the warm-start
+    kernel is held to its plain version one step at a time from the path's
+    start, and over a chunk only away from it (chip_smoke.py)."""
+    n, m, steps = 300, 16, 5
+    data = get_regression_data("synthetic-large", 0, 0.8)
+    X, y = data.X_train[:n].astype(np.float64), data.Y_train[:n].astype(np.float64)
+    Zi = X[np.random.RandomState(45).randint(0, n, m)]
+
+    def port(Z, steps, flat=None):
+        mod = SGPMC(X, y, Z_init=Z, dtype=F64, device="cpu")
+        if flat is not None:
+            mod.flat = torch.tensor(flat)
+        mod.warm_start(num_steps=steps)
+        return np.concatenate([mod.flat.numpy(), mod.Z.numpy().ravel()])
+
+    def jax_run(Z, steps, flat=None):
+        jm = JaxSGPMC(jnp.asarray(X), jnp.asarray(y), Z_init=jnp.asarray(Z))
+        if flat is not None:
+            jm.state = ravel_pytree(jm.state)[1](jnp.asarray(flat))
+        jm.warm_start(num_steps=steps)
+        return np.concatenate([np.asarray(ravel_pytree(jm.state)[0]), np.asarray(jm.Z).ravel()])
+
+    start = SGPMC(X, y, Z_init=Zi, dtype=F64, device="cpu")
+    _, gs, gZ = sgpmc_neg_logpost_vg(start.flat, start.train_x, start.train_y, start.Z,
+                                     start.jitter, want_z_grad=True, want_prior=False,
+                                     pivot_floor=PIVOT_FLOOR)
+    sc = min(1.0, CLIP_NORM / float(torch.sqrt((gs * gs).sum() + (gZ * gZ).sum())))
+    assert int((sc * gZ.abs() < 1e-8).sum()) > 0 and 0.01 * sc / 1e-8 > 1e4
+    one = _rel(port(Zi, 1), jax_run(Zi, 1))
+    five = _rel(port(Zi, steps), jax_run(Zi, steps))
+    assert one <= 1e-9 and 1e-9 < five <= 1e-6 and five >= 100 * one, (one, five)
+    later = jax_run(Zi, 100)
+    flat, Z100 = later[:D_LARGE + 2 + m], later[D_LARGE + 2 + m:].reshape(m, D_LARGE)
+    assert _rel(port(Z100, steps, flat), jax_run(Z100, steps, flat)) <= 1e-12
