@@ -191,10 +191,11 @@ from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk
                                           mc_potential_plain)
 from ggp_tpu_torch.ops.co2_bound import co2_potential, co2_vfe_neg_logpost_vg
 from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
-                                          first_chain, nuts_chunk, nuts_chunk_plain,
+                                          first_chain, launch_chunk, nuts_chunk,
+                                          nuts_chunk_plain,
                                           nuts_transition, nuts_transition_plain)
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
-from ggp_tpu_torch.ops.sgpmc_warm import (CLIP_NORM, sgpmc_warm_chunk,
+from ggp_tpu_torch.ops.sgpmc_warm import (CLIP_NORM, call_sgpmc_warm, sgpmc_warm_chunk,
                                           sgpmc_warm_chunk_plain)
 from ggp_tpu_torch.ops.sgpr_adam import (PIVOT_FLOOR, call_sgpr_adam, sgpr_adam_chunk,
                                          sgpr_adam_chunk_plain, z_adam_chunk, z_adam_chunk_plain,
@@ -2993,6 +2994,140 @@ def phase_sgpmc_scaling(ref, res, sizes=(404, 1279, 4096, 13279)):
     res["sgpmc_group_potential"]["extra"].update(scaling_ms=table, blocks_per_sm=occ)
 
 
+def sweep_values(G_max):
+    """The G of a sweep: 8, 16, 33, 66, 132, 264 up to ``G_max`` (the most the
+    card holds for the launch), and ``G_max`` itself."""
+    return sorted({g for g in (8, 16, 33, 66, 132, 264) if g < G_max} | {G_max})
+
+
+def phase_sgpmc_crossover(Xd, yd, Zd, res, K=8, L=10, md=8, warm_steps=20, large_steps=5):
+    """Where the sgpmc designs cross, float32 at bench.py's shape (N=404,
+    D=13, M=100; the sgpmc state 115), through the kernels' launchers (they
+    count no launch): ms per leapfrog of a chain of the sampler chunks the
+    paths run, on one block per chain and on a group of G blocks per chain,
+    G swept over :func:`sweep_values` (the NUTS chunk, max depth ``md``, at
+    C = 1 and 4; the HMC chunk, L leapfrogs, at C = 1 and 4; K warmup
+    transitions from the same state and slabs for every design); the
+    potential at C = 8 rows (``phase_parity_sgpmc``'s call); the warm start
+    (site 9) over ``warm_steps`` steps at N=404 and ``large_steps`` at
+    n=13,279 (synthetic-large, the driver's Z_init from the path's start),
+    one block against the grouped trainer. The grouped potential and warm
+    start are held to the one-block design at each G (TOL, ADAM_TOL).
+    Prints one line per kernel and records the table in the kernels' rows."""
+    sms = torch.cuda.get_device_properties(Xd.device).multi_processor_count
+
+    def gmax(kind, C, dt=torch.float32):
+        return sms * vfe_group.blocks_per_sm(kind, dt, core="sgpmc_group") // C
+
+    # float64 at every G of the warm start's sweep: the grouped potential's
+    # dU/dZ (the warm start's options) and a warm chunk against their plain
+    # versions, and a repeat bit-identical
+    X, y, Z = Xd.double(), yd.double(), Zd.double()
+    jit = 1e-5
+    row0 = mc_start(X, y, Z, jit, 1, seed=47, core="sgpmc")[0].z
+    wkw = dict(want_z_grad=True, want_prior=False, pivot_floor=PIVOT_FLOOR)
+    ref_p = sgpmc_neg_logpost_vg(row0[0], X, y, Z, jit, **wkw)
+    zs, zz = torch.zeros_like(row0[0]), torch.zeros_like(Z)
+    args = (row0[0], Z, zs, zs, zz, zz, X, y)
+    akw = dict(t0=0, num_steps=warm_steps, lr=0.01)
+    ref_w = sgpmc_warm_chunk_plain(*args, jit, **akw)
+    worst = [0.0, 0.0]
+    g64 = sweep_values(min(gmax(k, 1, torch.float64) for k in ("sgpmc_warm", "potential")))
+    for G in g64:
+        got = [a[0] for a in call_potential("sgpmc_group", row0, X, y, Z, jit, group=G, **wkw)]
+        worst[0] = max(worst[0], max(rel(a, b) for a, b in zip(got, ref_p)))
+        got = call_sgpmc_warm("group", *args, jit, group=G, **akw)
+        worst[1] = max(worst[1], max(rel(a, b) for a, b in zip(got, ref_w)))
+        check_repeat(f"the grouped warm start f64 at G={G}",
+                     lambda: call_sgpmc_warm("group", *args, jit, group=G, **akw))
+    print(f"parity f64 at G in {g64}: the "
+          f"grouped sgpmc potential with dU/dZ {worst[0]:.3e}, the grouped warm start over "
+          f"{warm_steps} steps {worst[1]:.3e} from their plain versions")
+    assert max(worst) <= TOL[torch.float64], worst
+
+    dt = torch.float32
+    X, y, Z = Xd.to(dt), yd.to(dt), Zd.to(dt)
+    n, d = X.shape
+    m = Z.shape[0]
+    table, lines = {}, []
+
+    stream = _build.stream_ptr(X.device)
+    for algo, C in (("nuts", 1), ("nuts", 4), ("hmc", 1), ("hmc", 4)):
+        st, gen = mc_start(X, y, Z, jit, C, seed=41, core="sgpmc")
+        sl = draw_mc_slabs(K, C, st.z.shape[1], algorithm=algo, max_depth=md, generator=gen,
+                           dtype=dt, device="cuda")
+        no = torch.zeros(K, dtype=torch.bool, device="cuda")
+        kind = f"{algo}_chunk"
+        extra = (dict(LEAPFROG=L, TARGET=0.8, ADAPT_MASS=0) if algo == "hmc"
+                 else dict(MAX_DEPTH=md, TARGET=0.8, ADAPT_MASS=0))
+        slabs = tuple(sl[k] for k in (("mom", "mh") if algo == "hmc"
+                                      else ("mom", "treeu", "leafu")))
+
+        def run(core, G=None):
+            return launch_chunk(kind, core, st, X, y, Z, jit, slabs, n_active=K, adapt=True,
+                                eps=None, in_window=no, window_end=no, prior_spec=None,
+                                stream=stream, group=G, **extra)
+
+        row = {}
+        for core, G in [("sgpmc", None)] + [("sgpmc_group", g)
+                                             for g in sweep_values(gmax(kind, C))]:
+            run(core, G)                                       # warm-up
+            (_, _, stats), ms = once_ms(lambda: run(core, G))
+            leaps = float(stats[..., 4].sum()) / C            # leapfrogs of a chain
+            row["one_block" if G is None else f"G{G}"] = [ms / leaps, leaps]
+        best = min((k for k in row if k != "one_block"), key=lambda k: row[k][0])
+        table[f"{algo}_c{C}"] = row
+        lines.append(f"{algo} chunk C={C} (ms a leapfrog of a chain, leapfrogs): "
+                     + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.0f})" for k, v in row.items())
+                     + f"; best {best}, {row['one_block'][0] / row[best][0]:.2f}x one block")
+
+    C = 8
+    st, gen = mc_start(X, y, Z, jit, C, seed=43, core="sgpmc")
+    rows = st.z.contiguous()
+    ref = call_potential("sgpmc", rows, X, y, Z, jit)
+    row = {"one_block": cuda_ms(lambda: call_potential("sgpmc", rows, X, y, Z, jit), 10)}
+    for G in sweep_values(gmax("potential", C)):
+        got = call_potential("sgpmc_group", rows, X, y, Z, jit, group=G)
+        e = max(rel(a, b) for a, b in zip(got, ref))
+        assert e <= TOL[dt], f"the sgpmc designs' potential at C={C}, G={G}: {e}"
+        row[f"G{G}"] = cuda_ms(lambda: call_potential("sgpmc_group", rows, X, y, Z, jit,
+                                                      group=G), 20)
+    best = min((k for k in row if k != "one_block"), key=row.get)
+    table[f"potential_c{C}"] = row
+    lines.append(f"potential C={C} (ms a call): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                            row.items())
+                 + f"; best {best}, {row['one_block'] / row[best]:.2f}x one block")
+
+    big = large_inputs(dt, regression_ref())
+    for (Xw, yw, Zw), steps, tag in (((X, y, Z), warm_steps, f"n={n}"),
+                                     (big[:3], large_steps, f"n={big[0].shape[0]}")):
+        start = SGPMC(Xw, yw, Z_init=Zw, jitter=jit, dtype=dt, device="cuda").flat
+        zs, zz = torch.zeros_like(start), torch.zeros_like(Zw)
+        args = (start, Zw, zs, zs, zz, zz, Xw, yw)
+        akw = dict(t0=0, num_steps=steps, lr=0.01)
+        ref = call_sgpmc_warm("block", *args, jit, **akw)
+        row = {"one_block": once_ms(lambda: call_sgpmc_warm("block", *args, jit, **akw))[1]
+               / steps}
+        apart = {}
+        for G in sweep_values(gmax("sgpmc_warm", 1)):
+            got = call_sgpmc_warm("group", *args, jit, group=G, **akw)
+            apart[G] = max(rel(a, b) for a, b in zip(got, ref))
+            row[f"G{G}"] = cuda_ms(lambda: call_sgpmc_warm("group", *args, jit, group=G,
+                                                           **akw), 3) / steps
+        best = min((k for k in row if k != "one_block"), key=row.get)
+        table[f"warm_{tag}"] = row
+        lines.append(f"warm start {tag}, {steps} steps from the path's start (ms a step): "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+                     + f"; best {best}, {row['one_block'] / row[best]:.2f}x one block; the "
+                     f"designs apart by {max(apart.values()):.1e} (float32 from the path's "
+                     f"start: printed, the parity phases hold each to its plain version)")
+    print(f"crossover sgpmc f32 at N={n}, D={d}, M={m}, one block per chain against a group "
+          f"of G ({CARD}):")
+    for line in lines:
+        print(f"  crossover {line}")
+    res["sgpmc_group_potential"]["extra"]["crossover"] = table
+
+
 def phase_reg_large():
     """The reg-large path: the port's regression driver
     (experiments/regression.py ``single_run("synthetic-large", 0,
@@ -3483,7 +3618,11 @@ def main(argv):
         return
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
-    only = argv[0] if argv[:1] in (["co2"], ["reg-large"], ["gpr"], ["joint-large"]) else None
+    only = argv[0] if argv[:1] in (["co2"], ["reg-large"], ["gpr"], ["joint-large"],
+                                    ["crossover"]) else None
+    if only == "crossover":
+        phase_sgpmc_crossover(X, y, Zd, new_res())
+        return
     res = new_res()
     if only is None:
         phase_parity(X, y, Zd, res)

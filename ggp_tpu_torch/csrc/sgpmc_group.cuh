@@ -11,8 +11,11 @@
 // core of sites 10-14 for C >= 2 chains past MAX_N_MULTICHAIN = 1024 rows.
 // The function is sgpmc_bound's (plain twin ops/sgpmc_bound.py); the plain
 // model of this kernel's order of summation is ops/vfe_group.py
-// `sgpmc_group_neg_logpost_vg`. There is no dU/dZ: the streamed JAX core
-// has none.
+// `sgpmc_group_neg_logpost_vg`. With cf.want_z block 0 also forms dU/dZ in
+// step D (the warm start's gradient, `_sgpmc_neg_logpost_vg` with
+// want_z_grad): for RBF it needs only sums the evaluation already forms,
+// the column sums of Pms^T and Pms Xs (step B) and Pmm's row sums and Pmm
+// Zs (step D), so it adds no pass over the rows.
 //
 // What bounds it on the card: at n = 13,279, M = 100, D = 18 an evaluation
 // is ~0.6 GFLOP of O(n M^2) row products (At = Knm V, (L^-T Abar)^T =
@@ -36,8 +39,10 @@
 //                partials, p = 0 .. G-1, into the chain's sums;
 //   D (block 0)  the M x M epilogue: Phi = T o (strict lower + I / 2),
 //                Kmm_b = -V Phi V^T symmetrised, Pmm = Kmm_b o Kmm and the
-//                d + 2 + M gradient; it writes U and g to the chain's area;
-// then every block reads U and g from there. Every block of a chain thus
+//                d + 2 + M gradient; it writes U and g to the chain's area,
+//                and with cf.want_z dU/dZ to the caller's dZ;
+// then every block reads U and g from there (and dZ, through L2, if it
+// needs it: the grouped warm start, sgpmc_warm.cu). Every block of a chain thus
 // returns the same bits, so the sampler's tree logic, which every block of
 // the group runs on its own copy, takes the same decisions everywhere; only
 // block 0 of a group writes the sampler's outputs. No float atomics: the M x
@@ -116,14 +121,16 @@ struct SgpmcGroupWork {
 enum SgpmcSum { SG_SEE = 0, SG_SVAR, SG_SMSK, SG_SPMS, SG_AE };
 
 // U_out = -(log posterior) and g_out = dU/dstate (d + 2 + m entries) of one
-// state row st: sgpmc_bound's function (no dU/dZ) on the chain's group.
-// Every block of the group calls it with the same st (visible to all its
-// threads); its outputs are visible to all threads on return. U_out is
-// written by thread 0.
+// state row st, and with cf.want_z dZ_out = dU/dZ (m x d, written by block 0
+// before the group's last barrier, when dZ_out is not null): the whitened
+// JointHMC potential on the chain's group. Every block of the group calls
+// it with the same st (visible to all its threads) and the same dZ_out; U_out
+// and g_out are visible to all threads on return. U_out is written by
+// thread 0.
 template <typename T>
 __device__ void sgpmc_group_bound(const BoundCfg& cf, const T* st, const T* X, const T* y,
                                   const T* Z, const SgpmcGroupWork<T>& gw, BoundShared<T>& sh,
-                                  T* U_out, T* g_out) {
+                                  T* U_out, T* g_out, T* dZ_out) {
   __shared__ T sA[kRowKC][kRowTR + 1];
   __shared__ T sB[kRowKC][kRowTC + 1];
   __shared__ double dred[32];
@@ -302,6 +309,15 @@ __device__ void sgpmc_group_bound(const BoundCfg& cf, const T* st, const T* X, c
       out[1 + k] = -(t + pr * (T(2) - gexp(st[k])));
     }
     for (int a = tid; a < m; a += nt) out[1 + d + 2 + a] = -(__ldcg(S + SG_AE + a) / s2 - v[a]);
+    if (cf.want_z && dZ_out != nullptr) {                 // dU/dZ
+      for (int idx = tid; idx < m * d; idx += nt) {
+        const int a = idx / d, k = idx % d;
+        const T zs = Z[idx] * il[k];
+        const T dzs = T(-2) * (gw.rs[a] * zs - gw.pz[idx])
+                      - (__ldcg(S + oR + a) * zs - __ldcg(S + oP + idx));
+        dZ_out[idx] = -(dzs * il[k]);
+      }
+    }
     if (tid == 0) {
       const T nT = T(n);
       const T see = __ldcg(S + SG_SEE), svar = __ldcg(S + SG_SVAR);
@@ -383,8 +399,8 @@ struct SgpmcGroupCore {
 
   static __device__ void eval(const BoundCfg& cf, const T* z, const T* X, const T* y,
                               const T* Z, const WorkT& w, BoundShared<T>& sh, T* U, T* g,
-                              T* /*dZ: none*/) {
-    sgpmc_group_bound(cf, z, X, y, Z, w, sh, U, g);
+                              T* dZ) {
+    sgpmc_group_bound(cf, z, X, y, Z, w, sh, U, g, dZ);
   }
 };
 

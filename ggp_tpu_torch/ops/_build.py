@@ -22,7 +22,8 @@ the ``"sgpmc_group"`` entries the whitened JointHMC core on a group of blocks
 per chain (``csrc/sgpmc_group.cuh``, built in ``csrc/sgpmc_group.cu``), which
 the sgpmc wrappers route to at large n.
 The grouped trainer ``ggp_sgpr_adam_group`` runs the warm start's Adam steps
-on the grouped vfe core (``csrc/sgpr_adam.cu``). Each source is
+on the grouped vfe core (``csrc/sgpr_adam.cu``), ``ggp_sgpmc_warm_group``
+the JointHMC warm start's on the grouped sgpmc core (``csrc/sgpmc_warm.cu``). Each source is
 compiled with ``-Xptxas -v``;
 the compiler's report of registers, shared memory and spills, and the
 seconds each source took to compile, are kept beside the library
@@ -74,7 +75,7 @@ def launch_key(core: str, kind: str) -> str:
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
             "sgpr_adam_chunk": 0, "sgpr_adam_group": 0, "z_adam_stream": 0,
-            "sgpmc_warm_chunk": 0,
+            "sgpmc_warm_chunk": 0, "sgpmc_warm_group": 0,
             "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0,
             "vfe_stats_fwd": 0, "vfe_stats_bwd": 0}
 
@@ -117,6 +118,7 @@ _SIGS = {
     "ggp_sgpr_adam_group": [_P] * 12,
     "ggp_z_adam_stream": [_P] * 11,
     "ggp_sgpmc_warm": [_P] * 12,
+    "ggp_sgpmc_warm_group": [_P] * 12,
     "ggp_svi_chunk": [_P] * 19,
     "ggp_svi_softmax_chunk": [_P] * 20,
     "ggp_bsvgp_chunk": [_P] * 23,
@@ -206,11 +208,12 @@ def _load(path: str) -> ctypes.CDLL:
         getattr(lib_, name).restype = ctypes.c_long
     lib_.ggp_gpr_scratch_elems.argtypes = [ctypes.c_int] * 5
     lib_.ggp_gpr_scratch_elems.restype = ctypes.c_long
-    lib_.ggp_sgpr_adam_group_elems.argtypes = [ctypes.c_int] * 5
-    lib_.ggp_sgpr_adam_group_elems.restype = ctypes.c_long
+    for name in ("ggp_sgpr_adam_group_elems", "ggp_sgpmc_warm_group_elems"):
+        getattr(lib_, name).argtypes = [ctypes.c_int] * 5
+        getattr(lib_, name).restype = ctypes.c_long
     for name in [f"ggp_{kind}_{core}_occupancy" for core in GROUPED
                  for kind in _OCCUPANCY_KINDS if kind in CORE_KINDS[core]] \
-            + ["ggp_sgpr_adam_vfe_group_occupancy"]:
+            + ["ggp_sgpr_adam_vfe_group_occupancy", "ggp_sgpmc_warm_sgpmc_group_occupancy"]:
         fn = getattr(lib_, name)
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_int

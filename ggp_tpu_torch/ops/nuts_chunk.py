@@ -231,14 +231,15 @@ S_LEN = 11                   # per-chain scalar state (csrc/stan_adapt.cuh S_LEN
 
 
 def launch_chunk(kind, core, state, X, y, Z, jitter, slabs, *, n_active, adapt,
-                 eps, in_window, window_end, prior_spec, stream, **cfg_extra):
+                 eps, in_window, window_end, prior_spec, stream, group=None, **cfg_extra):
     """One launch of the sampler chunk kernel ``kind`` ("nuts_chunk",
     ``csrc/nuts_chunk.cuh``, or "hmc_chunk", ``csrc/hmc_chunk.cuh``) of
     ``core`` on C chains, one block each (for a grouped core, ``"vfe_group"``,
     ``"sgpmc_group"`` or ``"gpr"``, a group of blocks per chain, launched
     cooperatively): every
     field of ``state`` has a leading chain axis, ``slabs`` are the random
-    slabs in the kernel's argument order, each (K, C, ...). Returns (new
+    slabs in the kernel's argument order, each (K, C, ...); ``group``
+    forces a grouped core's G (a sweep of the geometry). Returns (new
     state, draws (K, C, dim), stats (K, C, 6)); ``state`` is not modified."""
     n, d = X.shape
     m = Z.shape[0]
@@ -258,10 +259,10 @@ def launch_chunk(kind, core, state, X, y, Z, jitter, slabs, *, n_active, adapt,
         flags = torch.cat([in_window, window_end]).to(device=dev, dtype=torch.int32)
     draws = torch.empty((K, C, dim), dtype=dt, device=dev)
     stats = torch.empty((K, C, 6), dtype=dt, device=dev)
-    work, group = vfe_group.launch_work(kind, core, n, m, d, C, X)
+    work, geo = vfe_group.launch_work(kind, core, n, m, d, C, X, G=group)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=False, want_prior=True,
                     pivot_floor=None, prior_spec=prior_spec, core=core, DIM=dim, K=K,
-                    ADAPT=int(adapt), CHAINS=C, **cfg_extra, **group)
+                    ADAPT=int(adapt), CHAINS=C, **cfg_extra, **geo)
     P = _build.ptr
     name = f"ggp_{kind}_{core}"
     err = _build.kernel_fn(name, dt)(

@@ -318,29 +318,26 @@ def _check_shapes(name, z, X, y, Z, core="vfe"):
 
 
 def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
-                   want_prior=True, pivot_floor=None, prior_spec=None, stages=0):
+                   want_prior=True, pivot_floor=None, prior_spec=None, stages=0, group=None):
     """One launch of the potential kernel of ``core`` (``csrc/vfe_potential.cu``)
     on the C rows of ``zs`` (C, dim): one block each, or for a grouped core
     (``"vfe_group"``, ``"sgpmc_group"``: the vfe or sgpmc core on a group of
     blocks per row, ``ops/vfe_group.py``; ``"gpr"``) G blocks each, launched
-    cooperatively. Returns (U (C,), g (C, dim)[, dU/dZ (C, m, d)]); the
-    grouped sgpmc core has no dU/dZ and raises for it. ``stages`` > 0 stops
+    cooperatively. Returns (U (C,), g (C, dim)[, dU/dZ (C, m, d)]). ``stages`` > 0 stops
     the gpr core after that many of its six parts (``csrc/gpr_bound.cuh``),
     whose outputs are then not filled: it exists to time where one
-    evaluation's time goes."""
-    if core == "sgpmc_group" and want_z_grad:
-        raise ValueError("the grouped sgpmc core has no dU/dZ (nor has the JAX package's "
-                         "streamed sgpmc core)")
+    evaluation's time goes. ``group`` forces a grouped core's G (a sweep
+    of the geometry); by default ``vfe_group.geometry`` sets it."""
     n, d = X.shape
     m = Z.shape[0]
     C, dim = zs.shape
     out = torch.empty((C, dim + 1), dtype=X.dtype, device=X.device)
     dZ = (torch.empty((C, m, d), dtype=X.dtype, device=X.device)
           if want_z_grad else None)
-    work, group = vfe_group.launch_work("potential", core, n, m, d, C, X)
+    work, geo = vfe_group.launch_work("potential", core, n, m, d, C, X, G=group)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=want_z_grad,
                     want_prior=want_prior, pivot_floor=pivot_floor,
-                    prior_spec=prior_spec, core=core, CHAINS=C, STAGES=stages, **group)
+                    prior_spec=prior_spec, core=core, CHAINS=C, STAGES=stages, **geo)
     P = _build.ptr
     err = _build.kernel_fn(f"ggp_potential_{core}", X.dtype)(
         ctypes.cast(cfg, ctypes.c_void_p), P(zs), P(X), P(y), P(Z), P(out),

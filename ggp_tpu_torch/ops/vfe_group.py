@@ -118,15 +118,16 @@ def group_scratch(n: int, m: int, d: int, C: int, G: int, like: torch.Tensor,
 
 
 def launch_work(kind: str, core: str, n: int, m: int, d: int, C: int,
-                like: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                like: torch.Tensor, G: int | None = None) -> tuple[torch.Tensor, dict]:
     """The scratch of one launch of the ``kind`` kernel of ``core`` on C
     chains, and the cfg entries its geometry adds: for a grouped core
-    (``_build.GROUPED``) G (cfg slot GROUP, :func:`geometry`) and
-    :func:`group_scratch`; for any other core one evaluation's area per
-    chain (``_build.scratch``) and none."""
+    (``_build.GROUPED``) G (cfg slot GROUP: ``G`` where the caller forces
+    one, else :func:`geometry`) and :func:`group_scratch`; for any other
+    core one evaluation's area per chain (``_build.scratch``) and none."""
     if core not in _build.GROUPED:
         return _build.scratch(n, m, d, 0, like, chains=C, core=core), {}
-    G = geometry(kind, like.dtype, C, like.device, core=core)
+    if G is None:
+        G = geometry(kind, like.dtype, C, like.device, core=core)
     return group_scratch(n, m, d, C, G, like, core=core), {"GROUP": G}
 
 
@@ -221,7 +222,8 @@ def group_neg_logpost_vg(theta, X, y, Z, jitter, G, *, want_z_grad=False, want_p
     return -F, -g, (2.0 * GmmZ + GnmZ) * inv_ls
 
 
-def sgpmc_group_neg_logpost_vg(state, X, y, Z, jitter, G, *, want_prior=True, pivot_floor=None):
+def sgpmc_group_neg_logpost_vg(state, X, y, Z, jitter, G, *, want_z_grad=False, want_prior=True,
+                               pivot_floor=None):
     """The grouped sgpmc core's evaluation in its own order, plain PyTorch:
     V = L^-T from the factor of Kmm; the rows cut by :func:`row_blocks` into
     G blocks, each giving, from At_b = Knm_b V, e_b, the clamped variance and
@@ -229,9 +231,10 @@ def sgpmc_group_neg_logpost_vg(state, X, y, Z, jitter, G, *, want_prior=True, pi
     float64 (see, svar, sum msk, sum Pms, A e, T = Abar A^T in full, the
     column sums of Pms^T, cs^T Xs^2, Pms Xs); the partials summed p = 0 ..
     G-1 and cast to the working type; then the M x M epilogue (Phi = T o
-    (strict lower + I / 2), Kmm_b = -V Phi V^T symmetrised). Returns U and
-    dU/dstate as ``sgpmc_neg_logpost_vg`` does (no dU/dZ: the grouped core,
-    like the JAX package's streamed one, has none)."""
+    (strict lower + I / 2), Kmm_b = -V Phi V^T symmetrised) and, with
+    ``want_z_grad``, dU/dZ from Pmm's row sums, Pmm Zs and the summed column
+    sums of Pms^T and Pms Xs. Returns U and dU/dstate (, dU/dZ) as
+    ``sgpmc_neg_logpost_vg`` does."""
     n, d = X.shape
     m = Z.shape[0]
     dt, f64 = X.dtype, torch.float64
@@ -290,4 +293,8 @@ def sgpmc_group_neg_logpost_vg(state, X, y, Z, jitter, G, *, want_prior=True, pi
     dls = ((2.0 * Pmm.sum(1) + rs_ms) @ (Zs * Zs) + csX2
            - 2.0 * (Zs * (Pmm @ Zs + PmsX)).sum(0))
     g_ls = dls + pr * (2.0 - torch.exp(state[:d]))
-    return -F, -torch.cat([g_ls, dlog_os[None], dlog_noise[None], g_v])
+    out = (-F, -torch.cat([g_ls, dlog_os[None], dlog_noise[None], g_v]))
+    if not want_z_grad:
+        return out
+    dzs = -2.0 * (Pmm.sum(1)[:, None] * Zs - Pmm @ Zs) - (rs_ms[:, None] * Zs - PmsX)
+    return out + (-(dzs * inv_ls),)
