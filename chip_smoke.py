@@ -12,9 +12,13 @@ non-zero exit:
    card, at the shapes of the flagship path (bench.py's boston-shaped data:
    N=404 train rows, D=13, M=100; the chain-batched kernels at C=8 chains),
    in float64 and float32, with the time per call of both;
-   The JointHMC (SGPMC) kernels, the "sgpmc" core of the sampler kernels
-   and the warm start, are held the same way at the same shape (state row
-   d+2+M = 115), at grid 1 and grid 8; and the GPR+HMC kernels, the dense
+   The JointHMC (SGPMC) kernels, the grouped sgpmc core of the sampler
+   kernels and of the warm start (csrc/sgpmc_group.cuh, at every n), are
+   held the same way at the same shape (state row d+2+M = 115), at one
+   chain and 8, the warm start also one step at a time from SGPMC's
+   initial state, with a sweep of the group's size G there (the chunks at
+   C = 1 and 4, the potential at C = 8, the warm start; in float64 the
+   potential's dU/dZ and the warm start at every G); and the GPR+HMC kernels, the dense
    "gpr" core of the potential and NUTS kernels (a group of blocks per
    chain), at N=404, D=13 (state row d+2 = 15), for one chain and for 8,
    each launched twice for bit-identical outputs, and the potential at
@@ -43,8 +47,9 @@ non-zero exit:
    sgpmc core (sgpmc_group_potential at one chain and C=2, NUTS chunk pairs
    at one chain and C=2, HMC chunk pairs at one chain and C=2) and the
    grouped vfe HMC chunk (C=2 and 8), each launched twice for bit-identical
-   outputs, the warm start's one-block kernel at that n, and a scaling line
-   of both sgpmc designs at n = 404, 1279, 4096, 13,279;
+   outputs, the warm start at that n (from the path's start one step at a
+   time, and a chunk from the chains' state), and a scaling line of the
+   grouped sgpmc core at n = 404, 1279, 4096, 13,279;
    the co2 cores
    (co2_potential, co2_nuts_chunk) and the one-transition kernel
    (nuts_transition, vfe and co2) at the Mauna Loa experiment's shape
@@ -131,13 +136,15 @@ happens to do.
     python3 chip_smoke.py reg-large
     python3 chip_smoke.py gpr
     python3 chip_smoke.py joint-large
+    python3 chip_smoke.py sweep
 
 run only the build, the co2 parity and the three co2 paths; or the build,
 the parity at the reg-large shape (the grouped trainer held there among
 them) and the reg-large path; or the build, the gpr core's parity, the
 gpr-hmc and gpr-c4 paths and the gpr core's parts; or the build, the
 grouped sgpmc and HMC kernels' parity at the reg-large shape and the
-joint-large, joint-large-c2 and hmc-large paths.
+joint-large, joint-large-c2 and hmc-large paths; or the build and the sweep
+of the grouped sgpmc core's G at N=404.
 
     python3 chip_smoke.py --profile [slice] [hmc-c8] [mc-nuts] [joint-hmc] ...
                                     [gpr-hmc] [gpr-c4] [svgp] [svgp-probit]
@@ -153,6 +160,7 @@ goes: time and launches by kernel, and the device busy share.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -236,22 +244,8 @@ KERNELS = {
     "mc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
                       "ggp_tpu/ops/fused_multichain.py:1954",
                       "ggp_tpu/ops/fused_multichain.py:1966"),
-    # the "sgpmc" core (csrc/sgpmc_bound.cuh) of the same kernels
-    "sgpmc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
-                        "ggp_tpu/ops/fused_nuts.py:807", None),
-    "sgpmc_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
-                        "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
-    "sgpmc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
-                         "ggp_tpu/ops/fused_nuts.py:780", "ggp_tpu/ops/fused_nuts.py:792"),
-    "sgpmc_mc_potential": ("ggp_tpu_torch/csrc/vfe_potential.cu",
-                           "ggp_tpu/ops/fused_multichain.py:1933", None),
-    "sgpmc_mc_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
-                           "ggp_tpu/ops/fused_multichain.py:1985",
-                           "ggp_tpu/ops/fused_multichain.py:1997"),
-    "sgpmc_mc_nuts_chunk": ("ggp_tpu_torch/csrc/nuts_chunk.cu",
-                            "ggp_tpu/ops/fused_multichain.py:1954",
-                            "ggp_tpu/ops/fused_multichain.py:1966"),
-    "sgpmc_warm_chunk": ("ggp_tpu_torch/csrc/sgpmc_warm.cu",
+    # the JointHMC warm start on the grouped sgpmc core, at every n
+    "sgpmc_warm_group": ("ggp_tpu_torch/csrc/sgpmc_warm.cu",
                          "ggp_tpu/ops/fused_sgpmc.py:131", None),
     # the "gpr" core (csrc/gpr_bound.cuh: a group of blocks per chain, a
     # blocked factorisation); the JAX package ran C chains of GPR on its XLA
@@ -293,9 +287,9 @@ KERNELS = {
     "vfe_group_hmc_chunk": ("ggp_tpu_torch/csrc/mc_hmc_chunk.cu",
                             "ggp_tpu/ops/fused_multichain.py:1985",
                             ("ggp_tpu/ops/fused_multichain.py:1997",)),
-    # the sgpmc core on a group of blocks per chain (csrc/sgpmc_group.cuh), where
-    # the JAX package streams it (fused_bound.py:1577, fused_multichain.py:907):
-    # past 1024 rows for C >= 2 chains, past 2048 for one
+    # the sgpmc core on a group of blocks per chain (csrc/sgpmc_group.cuh) at
+    # every n: the JAX package's resident core (fused_bound.py:1435) and its
+    # streamed cores (fused_bound.py:1577, fused_multichain.py:907)
     "sgpmc_group_potential": ("ggp_tpu_torch/csrc/sgpmc_group.cu",
                               "ggp_tpu/ops/fused_nuts.py:807",
                               ("ggp_tpu/ops/fused_multichain.py:1933",)),
@@ -323,7 +317,7 @@ GPR_KERNELS = ("gpr_potential", "gpr_nuts_chunk", "gpr_mc_potential", "gpr_mc_nu
 # the kernels the reg-large path launches
 REG_KERNELS = ("sgpr_adam_group", "z_adam_chunk", "vfe_group_potential", "vfe_group_nuts_chunk")
 # the kernels the joint-large, joint-large-c2 and hmc-large paths launch
-JOINT_KERNELS = ("sgpmc_warm_chunk", "sgpmc_group_potential", "sgpmc_group_nuts_chunk",
+JOINT_KERNELS = ("sgpmc_warm_group", "sgpmc_group_potential", "sgpmc_group_nuts_chunk",
                  "sgpmc_group_hmc_chunk", "sgpr_adam_group", "vfe_group_potential",
                  "vfe_group_hmc_chunk")
 # Max relative error (norm-relative, see ``rel``). One evaluation: same
@@ -851,8 +845,28 @@ def state_tensors(s):
 
 
 def new_res():
-    return {k: {"rel": {}, "abs32": 0.0, "ms": None, "plain_ms": None,
-                "bound": (None, None), "library_ms": None, "extra": {}} for k in KERNELS}
+    """A parity record per kernel of KERNELS, and one for any other name on
+    first use (a wrapper's counter whose record is folded into a kernel's
+    row)."""
+    res = collections.defaultdict(lambda: {"rel": {}, "abs32": 0.0, "ms": None, "plain_ms": None,
+                                           "bound": (None, None), "library_ms": None,
+                                           "extra": {}})
+    for k in KERNELS:
+        res[k]
+    return res
+
+
+def fold_row(res, src, dst, pre):
+    """Fold the parity record ``res[src]`` into kernel ``dst``'s row: its
+    errors into the row's, its float32 time, plain time and bound as the
+    row's extras prefixed ``pre``."""
+    r = res.pop(src)
+    for tag, e in r["rel"].items():
+        res[dst]["rel"][tag] = max(res[dst]["rel"].get(tag, 0.0), e)
+    res[dst]["abs32"] = max(res[dst]["abs32"], r["abs32"])
+    if r["ms"] is not None:
+        res[dst]["extra"].update({pre + "ms": r["ms"], pre + "plain_ms": r["plain_ms"],
+                                  pre + "bound_ms": r["bound"][0]})
 
 
 def phase_parity(Xd, yd, Zd, res):
@@ -1108,7 +1122,8 @@ def chunk_parity(X, y, Z, jit, st0, gen, res, *, core, algo, grid, K, L=10, md=8
     tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
     n, d = X.shape
     m, dim = Z.shape[0], st0.z.shape[1]
-    name = _build.launch_key(core, ("" if grid == 1 else "mc_") + f"{algo}_chunk")
+    name = _build.launch_key(vfe_group.route(core, n, grid),
+                             ("" if grid == 1 else "mc_") + f"{algo}_chunk")
     xyz = nbytes(X, y, Z)
     in_w = torch.arange(K, device="cuda") >= 2
     w_end = torch.arange(K, device="cuda") == 5
@@ -1241,11 +1256,15 @@ def phase_parity_mc(Xd, yd, Zd, res, C=8, K=8, L=10, md=8):
 
 
 def phase_parity_sgpmc(Xd, yd, Zd, res, C=8, L=10, md=8):
-    """The sgpmc core of every kernel against its plain version at bench.py's
-    shape (state row d+2+M = 115): the potential at grid 1 (sampler and
-    warm-start options) and grid C; the warm start over 20 steps; the HMC
-    chunk (L leapfrogs) at grid 1 (K=16) and grid C (K=8) and the NUTS
-    chunk (max depth md) at grid 1 and grid C (K=8)."""
+    """The grouped sgpmc core (csrc/sgpmc_group.cuh), which runs the sgpmc
+    core of every kernel at every n, against the plain versions at bench.py's
+    shape (state row d+2+M = 115): the potential at one row (sampler and
+    warm-start options: dU/dZ too) and C rows; the warm start
+    (:func:`warm_start_parity`: one step at a time from SGPMC's initial
+    state, then 20 steps from a chain's state, repeats bit-identical); the
+    HMC chunk (L leapfrogs) at one chain (K=16) and C (K=8) and the NUTS
+    chunk (max depth md) at one chain and C (K=8). The C-chain records are
+    the extras ``c8_*`` of the kernels' rows."""
     for dt in (torch.float64, torch.float32):
         tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
         X, y, Z = Xd.to(dt), yd.to(dt), Zd.to(dt)
@@ -1264,51 +1283,93 @@ def phase_parity_sgpmc(Xd, yd, Zd, res, C=8, L=10, md=8):
         e = max(errs)
         ms = cuda_ms(lambda: vfe_potential(row, X, y, Z, jit, core="sgpmc"), 20)
         pms = cuda_ms(lambda: sgpmc_neg_logpost_vg(row, X, y, Z, jit), 20)
-        print(f"parity sgpmc_potential {tag}: max rel err {e:.3e}; kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms")
-        assert e <= TOL[dt], f"sgpmc_potential {tag} rel err {e}"
-        res["sgpmc_potential"]["rel"][tag] = e
+        G1 = vfe_group.geometry("potential", dt, 1, X.device, core="sgpmc_group", n=n)
+        print(f"parity sgpmc_group_potential {tag} (one row, G={G1}; with and without dU/dZ): "
+              f"max rel err {e:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        assert e <= TOL[dt], f"sgpmc_group_potential {tag} rel err {e}"
+        gp = res["sgpmc_group_potential"]
+        gp["rel"][tag] = max(gp["rel"].get(tag, 0.0), e)
         if f32:
-            res["sgpmc_potential"].update(
-                abs32=max(aerr), ms=ms, plain_ms=pms,
-                bound=roofline(1, n, m, d, xyz + nbytes(row), (row.numel() + 1) * 4,
-                               core="sgpmc"))
+            gp.update(abs32=max(aerr), ms=ms, plain_ms=pms,
+                      bound=roofline(1, n, m, d, xyz + nbytes(row), (row.numel() + 1) * 4,
+                                     core="sgpmc"))
+            gp["extra"]["group"] = G1
         rows = st0.z + 0.3 * torch.randn(st0.z.shape, generator=gen, dtype=dt, device="cuda")
         potential_parity(
-            "sgpmc_mc_potential", lambda r: mc_potential(r, X, y, Z, jit, core="sgpmc"),
+            "sgpmc_group_mc_potential", lambda r: mc_potential(r, X, y, Z, jit, core="sgpmc"),
             lambda r: mc_potential_plain(r, X, y, Z, jit, core="sgpmc"), rows, res, 5,
             lambda out: (C, n, m, d, xyz + nbytes(rows), nbytes(*out), False, "sgpmc"))
+        check_repeat(f"mc_potential {tag} (grouped sgpmc core, C={C}, n={n})",
+                     lambda: mc_potential(rows, X, y, Z, jit, core="sgpmc"))
+        fold_row(res, "sgpmc_group_mc_potential", "sgpmc_group_potential", f"c{C}_")
 
-        zs, zz = torch.zeros_like(row), torch.zeros_like(Z)
-        args = (row, Z, zs, zs, zz, zz, X, y)
-        akw = dict(t0=0, num_steps=20, lr=0.01)
-        out = sgpmc_warm_chunk(*args, jit, **akw)
-        ref = sgpmc_warm_chunk_plain(*args, jit, **akw)
-        e = max(rel(a, b) for a, b in zip(out, ref))
-        ms = cuda_ms(lambda: sgpmc_warm_chunk(*args, jit, **akw), 3)
-        pms = cuda_ms(lambda: sgpmc_warm_chunk_plain(*args, jit, **akw), 1)
-        txt = ""
-        if f32:     # both float32 versions against the float64 run from the same inputs
-            r64 = sgpmc_warm_chunk_plain(*(a.double() for a in args), jit, **akw)
-            txt = (f"; against float64 from the same inputs: kernel "
-                   f"{max(rel(a, b) for a, b in zip(out, r64)):.3e}, plain "
-                   f"{max(rel(a, b) for a, b in zip(ref, r64)):.3e}")
-        print(f"parity sgpmc_warm_chunk {tag} (20 steps): max rel err {e:.3e}{txt}; kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms")
-        # float64 to one evaluation's tolerance; float32 to Adam's (ADAM_TOL)
-        tol = ADAM_TOL[dt] if f32 else TOL[dt]
-        assert e <= tol, f"sgpmc_warm_chunk {tag} rel err {e}"
-        res["sgpmc_warm_chunk"]["rel"][tag] = e
-        if f32:
-            res["sgpmc_warm_chunk"].update(
-                abs32=max(abs_err(a, b) for a, b in zip(out, ref)), ms=ms, plain_ms=pms,
-                bound=roofline(20, n, m, d, xyz + 3 * nbytes(row, Z), nbytes(*out),
-                               want_z=True, core="sgpmc"))
+        warm_start_parity(X, y, Z, jit, res, from_start=5, state=row, steps=20, pre="")
 
         for algo, grid in (("hmc", 1), ("hmc", C), ("nuts", 1), ("nuts", C)):
             st = as_batch(first_chain(st0)) if grid == 1 else st0
             chunk_parity(X, y, Z, jit, st, gen, res, core="sgpmc", algo=algo, grid=grid,
                          K=16 if (algo, grid) == ("hmc", 1) else 8, L=L, md=md)
+        for algo in ("hmc", "nuts"):
+            fold_row(res, f"sgpmc_group_mc_{algo}_chunk", f"sgpmc_group_{algo}_chunk", f"c{C}_")
+
+
+def warm_start_parity(X, y, Z, jit, res, *, from_start, state, steps, pre):
+    """The warm start's kernel (sgpmc_warm_chunk: the grouped sgpmc core)
+    against its plain version at (X, y, Z): from the path's start (SGPMC's
+    initial state at Z) ``from_start`` single steps, each from the plain
+    version's state; then ``steps`` steps in one launch from ``state`` (a
+    chain's state: v = 0 or near it), timed against the plain version,
+    launched twice for bit-identical outputs. Float64 to TOL, float32 to
+    ADAM_TOL (:func:`warm_parity`). Records the kernel's row (its extras
+    prefixed ``pre`` when ``pre`` is set)."""
+    dt = X.dtype
+    tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
+    n, d = X.shape
+    m = Z.shape[0]
+    wr = res["sgpmc_warm_group"]
+    zz = torch.zeros_like(Z)
+    start = SGPMC(X, y, Z_init=Z, jitter=jit, dtype=dt, device="cuda").flat
+    S = (start, Z, torch.zeros_like(start), torch.zeros_like(start), zz, zz)
+    worst = 0.0
+    for t in range(from_start):
+        akw = dict(t0=t, num_steps=1, lr=0.01)
+        out = sgpmc_warm_chunk(*S, X, y, jit, **akw)
+        ref_w = sgpmc_warm_chunk_plain(*S, X, y, jit, **akw)
+        e, ok, txt = warm_parity(out, ref_w, S + (X, y), jit, akw, f32)
+        assert ok, f"sgpmc_warm_group {tag} n={n} step {t + 1} from the path's start: " \
+                   f"rel err {e}{txt}"
+        worst, S = max(worst, e), ref_w[:6]
+    wr["rel"][tag] = max(wr["rel"].get(tag, 0.0), worst)
+    G = vfe_group.geometry("sgpmc_warm", dt, 1, X.device, core="sgpmc_group", n=n)
+    print(f"parity sgpmc_warm_group {tag} at n={n} (G={G}) from the path's start, {from_start} "
+          f"single steps along the plain version's trajectory: max rel err {worst:.3e}")
+    zs = torch.zeros_like(state)
+    args = (state, Z, zs, zs, zz, zz, X, y)
+    akw = dict(t0=0, num_steps=steps, lr=0.01)
+    out = sgpmc_warm_chunk(*args, jit, **akw)
+    ref_w = sgpmc_warm_chunk_plain(*args, jit, **akw)
+    e, ok, txt = warm_parity(out, ref_w, args, jit, akw, f32)
+    ms = cuda_ms(lambda: sgpmc_warm_chunk(*args, jit, **akw), 3)
+    pms = cuda_ms(lambda: sgpmc_warm_chunk_plain(*args, jit, **akw), 1)
+    bound = roofline(steps, n, m, d, nbytes(X, y, Z) + 3 * nbytes(state, Z), nbytes(*out),
+                     want_z=True, core="sgpmc")
+    print(f"parity sgpmc_warm_group {tag} at n={n} ({steps} steps from a chain's state): max "
+          f"rel err {e:.3e}{txt}; kernel {ms / steps:.4f} ms a step, plain {pms / steps:.4f} ms "
+          f"a step, bound {bound[0] / steps:.6f} ms a step")
+    assert ok, f"sgpmc_warm_group {tag} n={n} rel err {e}"
+    check_repeat(f"sgpmc_warm_chunk {tag} (grouped warm start, n={n})",
+                 lambda: sgpmc_warm_chunk(*args, jit, **akw))
+    wr["rel"][tag] = max(wr["rel"][tag], e)
+    if not f32:
+        return
+    if pre:
+        wr["extra"].update({pre + "ms_per_step": ms / steps, pre + "plain_ms_per_step":
+                            pms / steps, pre + "bound_ms_per_step": bound[0] / steps,
+                            pre + "group": G})
+    else:
+        wr.update(abs32=max(abs_err(a, b) for a, b in zip(out, ref_w)), ms=ms, plain_ms=pms,
+                  bound=bound)
+        wr["extra"].update(steps=steps, group=G)
 
 
 def phase_parity_gpr(Xd, yd, res, C=8, md=8):
@@ -1921,6 +1982,17 @@ def check_launches(label, launches, expected):
     assert not missing, f"{label}: kernels of the path never launched: {missing}"
 
 
+SGPMC_GROUPED = ("sgpmc_group_", "sgpmc_warm_group")
+
+
+def check_sgpmc_grouped(label, launches):
+    """Every sgpmc launch of the path, the warm start's included, ran a
+    kernel of the grouped sgpmc core."""
+    other = [k for k, v in launches.items()
+             if v and k.startswith("sgpmc") and not k.startswith(SGPMC_GROUPED)]
+    assert not other, f"{label}: sgpmc launches off the grouped core: {other}"
+
+
 def phase_rounds(Xd, yd, Zd, num_chains, label, z_steps):
     """bench.py's headline protocol through the port (float32): warm start,
     NUTS rounds of ``num_chains`` chains with optimize_Z(z_steps) between,
@@ -2053,9 +2125,10 @@ def phase_joint(Xd, yd, Zd, Xte, yte, label, num_chains=1, algorithm="hmc",
           f"mean leapfrogs/draw {float(st['n_leapfrog'].float().mean()):.1f}{rhat}")
     print(f"{label} predictive ({means.shape[0]} components, {Xt.shape[0]} held-out rows): "
           f"{t_pred / 1e3:.3f} s; RMSE {r:.4f}; NLPD {nl:.4f}")
-    pot, chunk = (("sgpmc_potential", f"sgpmc_{algorithm}_chunk") if num_chains == 1
-                  else ("sgpmc_mc_potential", f"sgpmc_mc_{algorithm}_chunk"))
-    check_launches(label, launches, ["sgpmc_warm_chunk", pot, chunk])
+    pre = "sgpmc_group_" + ("" if num_chains == 1 else "mc_")
+    check_launches(label, launches, ["sgpmc_warm_group", pre + "potential",
+                                     f"{pre}{algorithm}_chunk"])
+    check_sgpmc_grouped(label, launches)
     assert trace.shape == (num_chains * num_samples, d + 2 + Z.shape[0])
     assert np.isfinite(trace).all()
     assert div <= 0.1, f"{label} divergence fraction {div}"
@@ -2792,26 +2865,42 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
     float64 and float32, each against its plain version, from the regression driver's
     Z_init and REGRESSION_REF's warm hypers with v = 0 (chains at + 0.1
     N(0, 1), step sizes from the batched search): the grouped sgpmc core
-    (csrc/sgpmc_group.cuh), where the wrappers route the sgpmc core past 2048
-    rows (one chain) and 1024 (C >= 2), as the JAX package streams it,
-    under vfe_potential (one chain) and mc_potential (C chains); a NUTS
-    chunk pair (warm, sample; K=2, max depth ``md``: the plain chunk is
-    host-bound at this n) at one chain (nuts_chunk) and C (mc_nuts_chunk);
-    HMC chunk pairs (K transitions of L leapfrogs) at one chain (hmc_chunk)
-    and C, and for the grouped vfe core at C and at hmc-large's 8 chains
-    (mc_hmc_chunk). Every grouped kernel is launched twice on the same
-    inputs (bit-identical). Then the warm start's one-block kernel
-    (sgpmc_warm_chunk, which joint-large runs at this n outside the JAX
-    package's fused envelope) against its plain version (float32 as the
-    grouped trainer is held at reg-large's shape): from the path's start
-    (SGPMC's initial state at the driver's Z_init) one step at a time for
-    ``warm_steps`` steps, each from the plain version's state; in float64
-    also a chunk of those steps in one launch, printed beside the plain
-    version's own spread there (:func:`chunk_from_start`); then a chunk of
-    ``warm_steps`` steps from the chains' state (the warm hypers, v = 0),
-    timed. Each line with the kernel's time, bound and plain time. Then
+    (csrc/sgpmc_group.cuh) under vfe_potential (one chain) and mc_potential
+    (C chains); a NUTS chunk pair (warm, sample; K=2, max depth ``md``: the
+    plain chunk is host-bound at this n) at one chain (nuts_chunk) and C
+    (mc_nuts_chunk); HMC chunk pairs (K transitions of L leapfrogs) at one
+    chain (hmc_chunk) and C, and for the grouped vfe core (where the JAX
+    package streams it) at C and at hmc-large's 8 chains (mc_hmc_chunk).
+    Every grouped kernel is launched twice on the same inputs
+    (bit-identical). Then the warm start (sgpmc_warm_chunk, the grouped
+    core; float32 as the grouped trainer is held at reg-large's shape):
+    :func:`warm_start_parity` from the path's start (SGPMC's initial state
+    at the driver's Z_init) ``warm_steps`` single steps, in float64 also a
+    chunk of those steps in one launch printed beside the plain version's
+    own spread there (:func:`chunk_from_start`), and a timed chunk of
+    ``warm_steps`` steps from the chains' state (the warm hypers, v = 0).
+    The sgpmc rows take these records as their extras ``n13279_*`` where
+    the N=404 parity filled them (else as the row). Then
     :func:`phase_sgpmc_scaling`."""
     ref = regression_ref()
+    big = "n13279_"
+
+    def put(row, rec, pre, f32, tag, G):
+        """rec into the kernel's row: the row itself where nothing filled
+        it and pre is empty, else the extras big + pre."""
+        r = res[row]
+        r["rel"][tag] = max(r["rel"].get(tag, 0.0), rec["rel"][tag])
+        if not f32:
+            return
+        if not pre and r["ms"] is None:
+            r.update(abs32=rec["abs32"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+                     bound=rec["bound"])
+            r["extra"]["group"] = G
+        else:
+            r["extra"].update({big + pre + "ms": rec["ms"], big + pre + "plain_ms":
+                               rec["plain_ms"], big + pre + "bound_ms": rec["bound"][0],
+                               big + pre + "group": G})
+
     for dt in (torch.float64, torch.float32):
         tag, f32 = ("f32", True) if dt == torch.float32 else ("f64", False)
         X, y, Zi, th, _, _ = large_inputs(dt, ref)
@@ -2825,7 +2914,6 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
         row = st0.z[0].contiguous()
 
         # the potential: one chain, and C chains
-        gp = res["sgpmc_group_potential"]
         before = _build.LAUNCHES["sgpmc_group_potential"]
         out = vfe_potential(row, X, y, Zi, jit, core="sgpmc")
         assert _build.LAUNCHES["sgpmc_group_potential"] == before + 1, \
@@ -2838,18 +2926,16 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
         pms = cuda_ms(lambda: sgpmc_neg_logpost_vg(row, X, y, Zi, jit), 5)
         bound = roofline(1, n, m, d, xyz + nbytes(row), (row.numel() + 1) * X.element_size(),
                          core="sgpmc")
-        G1 = vfe_group.geometry("potential", dt, 1, X.device, core="sgpmc_group")
+        G1 = vfe_group.geometry("potential", dt, 1, X.device, core="sgpmc_group", n=n)
         print(f"parity sgpmc_group_potential {tag} at n={n}, D={d}, M={m} (one chain, G={G1}): "
               f"max rel err {e:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
               f"{bound[0]:.6f} ms")
         assert e <= TOL[dt], f"sgpmc_group_potential {tag} n={n} rel err {e}"
-        gp["rel"][tag] = e
-        if f32:
-            gp.update(abs32=max(abs_err(a, b) for a, b in zip(out, ref_p)), ms=ms, plain_ms=pms,
-                      bound=bound)
-            gp["extra"]["group"] = G1
+        put("sgpmc_group_potential", dict(rel={tag: e}, abs32=max(abs_err(a, b) for a, b in
+                                                                  zip(out, ref_p)),
+                                          ms=ms, plain_ms=pms, bound=bound), "", f32, tag, G1)
         before = _build.LAUNCHES["sgpmc_group_mc_potential"]
-        potential_parity("sgpmc_mc_potential",
+        potential_parity("sgpmc_group_mc_potential",
                          lambda r: mc_potential(r, X, y, Zi, jit, core="sgpmc"),
                          lambda r: mc_potential_plain(r, X, y, Zi, jit, core="sgpmc"), st0.z,
                          tmp, 3, lambda o: (C, n, m, d, xyz + nbytes(st0.z), nbytes(*o), False,
@@ -2858,20 +2944,16 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
             "mc_potential(core='sgpmc') at this n did not run the grouped core"
         check_repeat(f"mc_potential {tag} (grouped sgpmc core, C={C})",
                      lambda: mc_potential(st0.z, X, y, Zi, jit, core="sgpmc"))
-        gp["rel"][tag] = max(gp["rel"][tag], tmp["sgpmc_mc_potential"]["rel"][tag])
-        if f32:
-            r = tmp["sgpmc_mc_potential"]
-            gp["extra"].update(c2_ms=r["ms"], c2_plain_ms=r["plain_ms"], c2_bound_ms=r["bound"][0],
-                               c2_group=vfe_group.geometry("potential", dt, C, X.device,
-                                                           core="sgpmc_group"))
+        put("sgpmc_group_potential", tmp["sgpmc_group_mc_potential"], f"c{C}_", f32, tag,
+            vfe_group.geometry("potential", dt, C, X.device, core="sgpmc_group", n=n))
 
-        # the chunks: (algorithm, chains, wrapper's key, the grouped row, main row or extra)
+        # the chunks: (algorithm, chains, core, the kernel's row, its extras' prefix)
         st_v, gen_v = mc_start(X, y, Zi, jit, C, seed=21, z0=th)
         st_v8, _ = mc_start(X, y, Zi, jit, 8, seed=23, z0=th)
         cases = [("nuts", 1, "sgpmc", "sgpmc_group_nuts_chunk", ""),
                  ("nuts", C, "sgpmc", "sgpmc_group_nuts_chunk", f"c{C}_"),
-                 ("hmc", C, "sgpmc", "sgpmc_group_hmc_chunk", ""),
-                 ("hmc", 1, "sgpmc", "sgpmc_group_hmc_chunk", "c1_"),
+                 ("hmc", C, "sgpmc", "sgpmc_group_hmc_chunk", f"c{C}_"),
+                 ("hmc", 1, "sgpmc", "sgpmc_group_hmc_chunk", ""),
                  ("hmc", C, "vfe", "vfe_group_hmc_chunk", ""),
                  ("hmc", 8, "vfe", "vfe_group_hmc_chunk", "c8_")]
         for algo, grid, core, row_name, pre in cases:
@@ -2884,17 +2966,22 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
                          algo=algo, grid=grid, K=2 if algo == "nuts" else K, L=L, md=md)
             assert key == f"{core}_group_{kind}" and _build.LAUNCHES[key] == before + 2, \
                 f"{core} {kind} at n={n}, C={grid} did not run the grouped core"
-            src = _build.launch_key(core, kind)
-            r = tmp[src]
-            res[row_name]["rel"][tag] = max(res[row_name]["rel"].get(tag, 0.0), r["rel"][tag])
-            if f32 and not pre:
-                res[row_name].update(abs32=r["abs32"], ms=r["ms"], plain_ms=r["plain_ms"],
-                                     bound=r["bound"])
-                res[row_name]["extra"]["group"] = vfe_group.geometry(
-                    algo + "_chunk", dt, grid, X.device, core=f"{core}_group")
-            elif f32:
-                res[row_name]["extra"].update({pre + "ms": r["ms"], pre + "plain_ms": r["plain_ms"],
-                                               pre + "bound_ms": r["bound"][0]})
+            G = vfe_group.geometry(algo + "_chunk", dt, grid, X.device, core=f"{core}_group",
+                                   n=n)
+            if core == "sgpmc":
+                put(row_name, tmp[key], pre, f32, tag, G)
+            else:                  # the vfe group runs only at this n: the row is its own
+                r = tmp[key]
+                res[row_name]["rel"][tag] = max(res[row_name]["rel"].get(tag, 0.0),
+                                                r["rel"][tag])
+                if f32 and not pre:
+                    res[row_name].update(abs32=r["abs32"], ms=r["ms"], plain_ms=r["plain_ms"],
+                                         bound=r["bound"])
+                    res[row_name]["extra"]["group"] = G
+                elif f32:
+                    res[row_name]["extra"].update({pre + "ms": r["ms"], pre + "plain_ms":
+                                                   r["plain_ms"], pre + "bound_ms":
+                                                   r["bound"][0]})
             if grid != 8:
                 sl = draw_mc_slabs(2, grid, st.z.shape[1], algorithm=algo, max_depth=md,
                                    generator=gen, dtype=dt, device="cuda")
@@ -2911,57 +2998,25 @@ def phase_parity_joint_large(res, C=2, K=4, L=10, md=4, warm_steps=5):
                     check_repeat(f"{kind} {tag} (grouped {core} core, C={grid})",
                                  lambda: fn(st, X, y, Zi, jit, **sl, **kw))
 
-        # the warm start's kernel (site 9, one block) at this n: from the path's start one
-        # step at a time along the plain version's trajectory, then a chunk of warm_steps
-        # from the chains' state
-        wr = res["sgpmc_warm_chunk"]
-        zz = torch.zeros_like(Zi)
-        start = SGPMC(X, y, Z_init=Zi, jitter=jit, dtype=dt, device="cuda").flat
-        S = (start, Zi, torch.zeros_like(start), torch.zeros_like(start), zz, zz)
-        worst = 0.0
-        for t in range(warm_steps):
-            akw = dict(t0=t, num_steps=1, lr=0.01)
-            out = sgpmc_warm_chunk(*S, X, y, jit, **akw)
-            ref_w = sgpmc_warm_chunk_plain(*S, X, y, jit, **akw)
-            e, ok, txt = warm_parity(out, ref_w, S + (X, y), jit, akw, f32)
-            assert ok, f"sgpmc_warm_chunk {tag} n={n} step {t + 1} from the path's start: " \
-                       f"rel err {e}{txt}"
-            worst, S = max(worst, e), ref_w[:6]
-        wr["rel"][tag] = max(wr["rel"].get(tag, 0.0), worst)
-        print(f"parity sgpmc_warm_chunk {tag} at n={n} from the path's start, {warm_steps} "
-              f"single steps along the plain version's trajectory: max rel err {worst:.3e}")
+        # the warm start (site 9) at this n: from the path's start one step at a
+        # time, in float64 a printed chunk there, then a timed chunk from the
+        # chains' state
+        pre = big if res["sgpmc_warm_group"]["ms"] is not None else ""
+        warm_start_parity(X, y, Zi, jit, res, from_start=warm_steps, state=zs0,
+                          steps=warm_steps, pre=pre)
         if not f32:
-            z0 = torch.zeros_like(start)
+            start = SGPMC(X, y, Z_init=Zi, jitter=jit, dtype=dt, device="cuda").flat
+            z0, zz = torch.zeros_like(start), torch.zeros_like(Zi)
             chunk_from_start(X, y, jit, (start, Zi, z0, z0, zz, zz), warm_steps)
-        st_w = zs0
-        zs = torch.zeros_like(st_w)
-        args = (st_w, Zi, zs, zs, zz, zz, X, y)
-        akw = dict(t0=0, num_steps=warm_steps, lr=0.01)
-        out, wms = once_ms(lambda: sgpmc_warm_chunk(*args, jit, **akw))
-        ref_w, wpms = once_ms(lambda: sgpmc_warm_chunk_plain(*args, jit, **akw))
-        e, ok, txt = warm_parity(out, ref_w, args, jit, akw, f32)
-        if f32:
-            wb = roofline(warm_steps, n, m, d, xyz + 3 * nbytes(st_w, Zi), nbytes(*out),
-                          want_z=True, core="sgpmc")
-            wr["extra"].update(n13279_ms_per_step=wms / warm_steps,
-                               n13279_plain_ms_per_step=wpms / warm_steps,
-                               n13279_bound_ms_per_step=wb[0] / warm_steps)
-            txt += f", bound {wb[0] / warm_steps:.6f} ms a step"
-        print(f"parity sgpmc_warm_chunk {tag} at n={n} ({warm_steps} steps from the chains' "
-              f"state, one block): max rel err {e:.3e}; kernel {wms / warm_steps:.3f} ms a step, "
-              f"plain {wpms / warm_steps:.3f} ms a step{txt}")
-        assert ok, f"sgpmc_warm_chunk {tag} n={n} rel err {e}"
-        wr["rel"][tag] = max(wr["rel"][tag], e)
     phase_sgpmc_scaling(ref, res)
 
 
 def phase_sgpmc_scaling(ref, res, sizes=(404, 1279, 4096, 13279)):
-    """Milliseconds per float32 evaluation of the sgpmc core on both
-    designs, one block per chain (``call_potential("sgpmc", ...)``) and a
-    group of blocks per chain (``"sgpmc_group"``), at C = 1 and 2 chains on
-    the first n rows of synthetic-large (calls of the kernels, not of the
-    wrappers: they count no launch); both designs must agree to TOL. The
-    routing thresholds stand in for the crossover this line measures."""
+    """Milliseconds per float32 evaluation of the grouped sgpmc core
+    (``call_potential("sgpmc_group", ...)``, a call of the kernel, not of the
+    wrapper: it counts no launch) at C = 1 and 2 chains on the first n rows
+    of synthetic-large, at the geometry the wrappers take (G at each n);
+    the time should grow little with n once the rows are spread."""
     X, y, Zi, th, _, _ = large_inputs(torch.float32, ref)
     jit = 1e-5
     m = Zi.shape[0]
@@ -2971,25 +3026,20 @@ def phase_sgpmc_scaling(ref, res, sizes=(404, 1279, 4096, 13279)):
     parts, table = [], {}
     for C in (1, 2):
         r = rows[:C].contiguous()
-        G = vfe_group.geometry("potential", torch.float32, C, X.device, core="sgpmc_group")
         for n in sizes:
             Xn, yn = X[:n].contiguous(), y[:n].contiguous()
-            one = call_potential("sgpmc", r, Xn, yn, Zi, jit)
-            grp = call_potential("sgpmc_group", r, Xn, yn, Zi, jit)
-            e = max(rel(a, b) for a, b in zip(grp, one))
-            assert e <= TOL[torch.float32], f"the two sgpmc designs at C={C}, n={n}: {e}"
-            t1 = cuda_ms(lambda: call_potential("sgpmc", r, Xn, yn, Zi, jit), 3)
-            tg = cuda_ms(lambda: call_potential("sgpmc_group", r, Xn, yn, Zi, jit), 10)
-            table[f"c{C}_n{n}"] = [t1, tg]
-            parts.append(f"C={C} n={n}: one block {t1:.4f} ms, group of {G} {tg:.4f} ms "
-                         f"({t1 / tg:.2f}x, {e:.1e} apart)")
+            G = vfe_group.geometry("potential", torch.float32, C, X.device, core="sgpmc_group",
+                                   n=n)
+            t = cuda_ms(lambda: call_potential("sgpmc_group", r, Xn, yn, Zi, jit), 10)
+            table[f"c{C}_n{n}"] = [t, G]
+            parts.append(f"C={C} n={n}: G={G} {t:.4f} ms")
     occ = {f"{k} {t}": vfe_group.blocks_per_sm(k, dt, core="sgpmc_group")
-           for k in ("potential", "nuts_chunk", "hmc_chunk")
+           for k in ("potential", "nuts_chunk", "hmc_chunk", "sgpmc_warm")
            for t, dt in (("f32", torch.float32), ("f64", torch.float64))}
     occ.update({f"vfe_group hmc_chunk {t}": vfe_group.blocks_per_sm("hmc_chunk", dt)
                 for t, dt in (("f32", torch.float32), ("f64", torch.float64))})
-    print("scaling sgpmc core f32 per evaluation, one block per chain against a group: "
-          + "; ".join(parts) + f" ({CARD})")
+    print("scaling the grouped sgpmc core f32 per evaluation: " + "; ".join(parts)
+          + f" ({CARD})")
     print(f"sgpmc_group occupancy, blocks per SM: {json.dumps(occ)}")
     res["sgpmc_group_potential"]["extra"].update(scaling_ms=table, blocks_per_sm=occ)
 
@@ -3000,28 +3050,30 @@ def sweep_values(G_max):
     return sorted({g for g in (8, 16, 33, 66, 132, 264) if g < G_max} | {G_max})
 
 
-def phase_sgpmc_crossover(Xd, yd, Zd, res, K=8, L=10, md=8, warm_steps=20, large_steps=5):
-    """Where the sgpmc designs cross, float32 at bench.py's shape (N=404,
-    D=13, M=100; the sgpmc state 115), through the kernels' launchers (they
-    count no launch): ms per leapfrog of a chain of the sampler chunks the
-    paths run, on one block per chain and on a group of G blocks per chain,
-    G swept over :func:`sweep_values` (the NUTS chunk, max depth ``md``, at
-    C = 1 and 4; the HMC chunk, L leapfrogs, at C = 1 and 4; K warmup
-    transitions from the same state and slabs for every design); the
-    potential at C = 8 rows (``phase_parity_sgpmc``'s call); the warm start
-    (site 9) over ``warm_steps`` steps at N=404 and ``large_steps`` at
-    n=13,279 (synthetic-large, the driver's Z_init from the path's start),
-    one block against the grouped trainer. The grouped potential and warm
-    start are held to the one-block design at each G (TOL, ADAM_TOL).
-    Prints one line per kernel and records the table in the kernels' rows."""
+def phase_sgpmc_sweep(Xd, yd, Zd, res, K=8, L=10, md=8, warm_steps=20, large_steps=5):
+    """The grouped sgpmc core's G at bench.py's shape (N=404, D=13, M=100;
+    the sgpmc state 115), float32, through the kernels' launchers (they
+    count no launch), G swept over :func:`sweep_values` and at the
+    wrappers' geometry (``vfe_group.geometry``, whose rule for small n
+    this sweep measures): ms per leapfrog of a chain of the sampler chunks
+    the paths run (the NUTS chunk, max depth ``md``, and the HMC chunk, L
+    leapfrogs, at C = 1 and 4; K warmup transitions from the same state and
+    slabs at every G); the potential at C = 8 rows (``phase_parity_sgpmc``'s
+    call); the warm start (site 9) over ``warm_steps`` steps at N=404 and
+    ``large_steps`` at n=13,279 (synthetic-large, from the path's start at
+    the driver's Z_init). In float64 first, at every G of the warm start's
+    sweep: the potential with dU/dZ and a warm chunk against their plain
+    versions, and a repeat bit-identical. (The same line with one block per
+    chain beside the groups decided the routing: PERF.md.) Prints one line
+    per kernel and records the table in the potential's row."""
     sms = torch.cuda.get_device_properties(Xd.device).multi_processor_count
 
     def gmax(kind, C, dt=torch.float32):
         return sms * vfe_group.blocks_per_sm(kind, dt, core="sgpmc_group") // C
 
-    # float64 at every G of the warm start's sweep: the grouped potential's
-    # dU/dZ (the warm start's options) and a warm chunk against their plain
-    # versions, and a repeat bit-identical
+    def rule(kind, C, n, dt=torch.float32):
+        return vfe_group.geometry(kind, dt, C, Xd.device, core="sgpmc_group", n=n)
+
     X, y, Z = Xd.double(), yd.double(), Zd.double()
     jit = 1e-5
     row0 = mc_start(X, y, Z, jit, 1, seed=47, core="sgpmc")[0].z
@@ -3036,13 +3088,13 @@ def phase_sgpmc_crossover(Xd, yd, Zd, res, K=8, L=10, md=8, warm_steps=20, large
     for G in g64:
         got = [a[0] for a in call_potential("sgpmc_group", row0, X, y, Z, jit, group=G, **wkw)]
         worst[0] = max(worst[0], max(rel(a, b) for a, b in zip(got, ref_p)))
-        got = call_sgpmc_warm("group", *args, jit, group=G, **akw)
+        got = call_sgpmc_warm(*args, jit, group=G, **akw)
         worst[1] = max(worst[1], max(rel(a, b) for a, b in zip(got, ref_w)))
         check_repeat(f"the grouped warm start f64 at G={G}",
-                     lambda: call_sgpmc_warm("group", *args, jit, group=G, **akw))
-    print(f"parity f64 at G in {g64}: the "
-          f"grouped sgpmc potential with dU/dZ {worst[0]:.3e}, the grouped warm start over "
-          f"{warm_steps} steps {worst[1]:.3e} from their plain versions")
+                     lambda: call_sgpmc_warm(*args, jit, group=G, **akw))
+    print(f"parity f64 at G in {g64}: the grouped sgpmc potential with dU/dZ {worst[0]:.3e}, "
+          f"the grouped warm start over {warm_steps} steps {worst[1]:.3e} from their plain "
+          f"versions")
     assert max(worst) <= TOL[torch.float64], worst
 
     dt = torch.float32
@@ -3050,7 +3102,6 @@ def phase_sgpmc_crossover(Xd, yd, Zd, res, K=8, L=10, md=8, warm_steps=20, large
     n, d = X.shape
     m = Z.shape[0]
     table, lines = {}, []
-
     stream = _build.stream_ptr(X.device)
     for algo, C in (("nuts", 1), ("nuts", 4), ("hmc", 1), ("hmc", 4)):
         st, gen = mc_start(X, y, Z, jit, C, seed=41, core="sgpmc")
@@ -3063,69 +3114,58 @@ def phase_sgpmc_crossover(Xd, yd, Zd, res, K=8, L=10, md=8, warm_steps=20, large
         slabs = tuple(sl[k] for k in (("mom", "mh") if algo == "hmc"
                                       else ("mom", "treeu", "leafu")))
 
-        def run(core, G=None):
-            return launch_chunk(kind, core, st, X, y, Z, jit, slabs, n_active=K, adapt=True,
-                                eps=None, in_window=no, window_end=no, prior_spec=None,
-                                stream=stream, group=G, **extra)
+        def run(G):
+            return launch_chunk(kind, "sgpmc_group", st, X, y, Z, jit, slabs, n_active=K,
+                                adapt=True, eps=None, in_window=no, window_end=no,
+                                prior_spec=None, stream=stream, group=G, **extra)
 
         row = {}
-        for core, G in [("sgpmc", None)] + [("sgpmc_group", g)
-                                             for g in sweep_values(gmax(kind, C))]:
-            run(core, G)                                       # warm-up
-            (_, _, stats), ms = once_ms(lambda: run(core, G))
+        for G in sweep_values(gmax(kind, C)):
+            run(G)                                             # warm-up
+            (_, _, stats), ms = once_ms(lambda: run(G))
             leaps = float(stats[..., 4].sum()) / C            # leapfrogs of a chain
-            row["one_block" if G is None else f"G{G}"] = [ms / leaps, leaps]
-        best = min((k for k in row if k != "one_block"), key=lambda k: row[k][0])
+            row[f"G{G}"] = [ms / leaps, leaps]
+        best = min(row, key=lambda k: row[k][0])
         table[f"{algo}_c{C}"] = row
         lines.append(f"{algo} chunk C={C} (ms a leapfrog of a chain, leapfrogs): "
                      + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.0f})" for k, v in row.items())
-                     + f"; best {best}, {row['one_block'][0] / row[best][0]:.2f}x one block")
+                     + f"; fastest {best}, the wrappers' G={rule(kind, C, n)}")
 
     C = 8
     st, gen = mc_start(X, y, Z, jit, C, seed=43, core="sgpmc")
     rows = st.z.contiguous()
-    ref = call_potential("sgpmc", rows, X, y, Z, jit)
-    row = {"one_block": cuda_ms(lambda: call_potential("sgpmc", rows, X, y, Z, jit), 10)}
+    ref = mc_potential_plain(rows, X, y, Z, jit, core="sgpmc")
+    row = {}
     for G in sweep_values(gmax("potential", C)):
         got = call_potential("sgpmc_group", rows, X, y, Z, jit, group=G)
         e = max(rel(a, b) for a, b in zip(got, ref))
-        assert e <= TOL[dt], f"the sgpmc designs' potential at C={C}, G={G}: {e}"
+        assert e <= TOL[dt], f"the grouped potential at C={C}, G={G}: {e}"
         row[f"G{G}"] = cuda_ms(lambda: call_potential("sgpmc_group", rows, X, y, Z, jit,
                                                       group=G), 20)
-    best = min((k for k in row if k != "one_block"), key=row.get)
     table[f"potential_c{C}"] = row
     lines.append(f"potential C={C} (ms a call): " + ", ".join(f"{k} {v:.4f}" for k, v in
                                                             row.items())
-                 + f"; best {best}, {row['one_block'] / row[best]:.2f}x one block")
+                 + f"; fastest {min(row, key=row.get)}, the wrappers' G="
+                 f"{rule('potential', C, n)}")
 
     big = large_inputs(dt, regression_ref())
-    for (Xw, yw, Zw), steps, tag in (((X, y, Z), warm_steps, f"n={n}"),
-                                     (big[:3], large_steps, f"n={big[0].shape[0]}")):
+    for (Xw, yw, Zw), steps in (((X, y, Z), warm_steps), (big[:3], large_steps)):
+        nw = Xw.shape[0]
         start = SGPMC(Xw, yw, Z_init=Zw, jitter=jit, dtype=dt, device="cuda").flat
         zs, zz = torch.zeros_like(start), torch.zeros_like(Zw)
         args = (start, Zw, zs, zs, zz, zz, Xw, yw)
         akw = dict(t0=0, num_steps=steps, lr=0.01)
-        ref = call_sgpmc_warm("block", *args, jit, **akw)
-        row = {"one_block": once_ms(lambda: call_sgpmc_warm("block", *args, jit, **akw))[1]
-               / steps}
-        apart = {}
-        for G in sweep_values(gmax("sgpmc_warm", 1)):
-            got = call_sgpmc_warm("group", *args, jit, group=G, **akw)
-            apart[G] = max(rel(a, b) for a, b in zip(got, ref))
-            row[f"G{G}"] = cuda_ms(lambda: call_sgpmc_warm("group", *args, jit, group=G,
-                                                           **akw), 3) / steps
-        best = min((k for k in row if k != "one_block"), key=row.get)
-        table[f"warm_{tag}"] = row
-        lines.append(f"warm start {tag}, {steps} steps from the path's start (ms a step): "
+        row = {f"G{G}": cuda_ms(lambda: call_sgpmc_warm(*args, jit, group=G, **akw), 3) / steps
+               for G in sweep_values(gmax("sgpmc_warm", 1))}
+        table[f"warm_n{nw}"] = row
+        lines.append(f"warm start n={nw}, {steps} steps from the path's start (ms a step): "
                      + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
-                     + f"; best {best}, {row['one_block'] / row[best]:.2f}x one block; the "
-                     f"designs apart by {max(apart.values()):.1e} (float32 from the path's "
-                     f"start: printed, the parity phases hold each to its plain version)")
-    print(f"crossover sgpmc f32 at N={n}, D={d}, M={m}, one block per chain against a group "
-          f"of G ({CARD}):")
+                     + f"; fastest {min(row, key=row.get)}, the wrappers' G="
+                     f"{rule('sgpmc_warm', 1, nw)}")
+    print(f"sweep of the grouped sgpmc core's G, f32 at N={n}, D={d}, M={m} ({CARD}):")
     for line in lines:
-        print(f"  crossover {line}")
-    res["sgpmc_group_potential"]["extra"]["crossover"] = table
+        print(f"  sweep {line}")
+    res["sgpmc_group_potential"]["extra"]["sweep"] = table
 
 
 def phase_reg_large():
@@ -3278,7 +3318,7 @@ def phase_joint_large():
     """The joint-large path: the port's regression driver
     (experiments/regression.py ``single_run("synthetic-large", 0,
     "JointHMC")``) in float32: 13,279 train rows, D=18, M=100, train_sgp_hmc's
-    100-step warm start (sgpmc_warm_chunk, one block: the JAX package runs
+    100-step warm start (sgpmc_warm_chunk, the grouped sgpmc core: the JAX package runs
     its XLA scan at this n), one chain of NUTS on the grouped sgpmc core
     (vfe_potential and nuts_chunk route there past 2048 rows), cut to
     JOINT_REF's warmup and draws, the 50-component observation-space
@@ -3321,10 +3361,9 @@ def phase_joint_large():
           f"{metrics['test_nlpd']:.4f} (JAX CPU keys: RMSE {ref['rmse']:.4f} +- "
           f"{ref['rmse_sd']:.4f}, NLPD {ref['nlpd']:.4f} +- {ref['nlpd_sd']:.4f}); hyper lane "
           f"means, max |port - JAX| {float(lane_gap.max()):.4f}, largest margin used {used:.3f}")
-    check_launches("joint-large", launches, ["sgpmc_warm_chunk", "sgpmc_group_potential",
+    check_launches("joint-large", launches, ["sgpmc_warm_group", "sgpmc_group_potential",
                                              "sgpmc_group_nuts_chunk"])
-    assert launches["sgpmc_potential"] == launches["sgpmc_nuts_chunk"] == 0, \
-        "joint-large ran a one-block sgpmc kernel where the grouped one belongs"
+    check_sgpmc_grouped("joint-large", launches)
     assert torch.isfinite(losses).all() and torch.isfinite(model.trace).all()
     assert div <= 0.1, f"joint-large divergence fraction {div}"
     assert acc >= 0.5, f"joint-large mean accept {acc}"
@@ -3400,10 +3439,9 @@ def phase_joint_large_c2(C=2, T=50):
           f"{t['ms'] / 1e3:.3f} ({t['ms'] / (2 * T * 10):.4f} ms a leapfrog of the {C} chains), "
           f"predictive {t_pred / 1e3:.3f}, total {ms / 1e3:.3f} ({CARD}); test RMSE {r:.4f}, "
           f"NLPD {nl:.4f} ({means.shape[0]} components)")
-    check_launches("joint-large-c2", launches, ["sgpmc_warm_chunk", "sgpmc_group_mc_potential",
+    check_launches("joint-large-c2", launches, ["sgpmc_warm_group", "sgpmc_group_mc_potential",
                                                 "sgpmc_group_mc_hmc_chunk"])
-    assert launches["sgpmc_mc_potential"] == launches["sgpmc_mc_hmc_chunk"] == 0, \
-        "joint-large-c2 ran a one-block sgpmc kernel where the grouped one belongs"
+    check_sgpmc_grouped("joint-large-c2", launches)
     assert model.trace.shape == (C * T, d + 2 + Z.shape[0])
     assert torch.isfinite(model.trace).all()
     assert div <= 0.1, f"joint-large-c2 divergence fraction {div}"
@@ -3619,15 +3657,16 @@ def main(argv):
     distinct = np.random.default_rng(174).choice(X.shape[0], Z.shape[0], replace=False)
     Zd = X[torch.as_tensor(distinct, device="cuda")]
     only = argv[0] if argv[:1] in (["co2"], ["reg-large"], ["gpr"], ["joint-large"],
-                                    ["crossover"]) else None
-    if only == "crossover":
-        phase_sgpmc_crossover(X, y, Zd, new_res())
+                                    ["sweep"]) else None
+    if only == "sweep":
+        phase_sgpmc_sweep(X, y, Zd, new_res())
         return
     res = new_res()
     if only is None:
         phase_parity(X, y, Zd, res)
         phase_parity_mc(X, y, Zd, res)
         phase_parity_sgpmc(X, y, Zd, res)
+        phase_sgpmc_sweep(X, y, Zd, res)
     if only in (None, "gpr"):
         phase_parity_gpr(X, y, res)
     if only is None:

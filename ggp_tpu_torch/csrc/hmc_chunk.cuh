@@ -3,7 +3,7 @@
 // cfg[C_GROUP] blocks of one cooperative launch, over a sampler potential
 // (template parameter `Core`: the collapsed bound of BayesianSGPR_HMC over
 // its d+2 log-hypers, VfeCore or VfeGroupCore, or the whitened JointHMC
-// target over d+2+m, SgpmcCore or SgpmcGroupCore), with per-chain Stan
+// target over d+2+m, SgpmcGroupCore), with per-chain Stan
 // warmup adaptation in-kernel (adapt=1) or at a fixed per-chain step size
 // (adapt=0).
 //
@@ -13,11 +13,12 @@
 // `_stan_adapt_rows` (grid C); and, at grid 1, the fixed-leapfrog HMC
 // chunks of ggp_tpu/ops/fused_nuts.py `_warm_chunk_kernel_body` /
 // `_sample_chunk_kernel_body` with algorithm="hmc"
-// (`_hmc_transition_inkernel`); each for targets "vfe" and "sgpmc"
-// (entries ggp_hmc_chunk_{vfe,sgpmc}_{f32,f64}), and, on the grouped
-// cores, where the JAX package streams them: past 1024 rows for C >= 2
-// chains (fused_multichain.py:1458-1463), past 2048 for one
-// (ggp_hmc_chunk_{vfe,sgpmc}_group_{f32,f64}).
+// (`_hmc_transition_inkernel`); each for targets "vfe" and "sgpmc": the
+// vfe core on one block per chain (ggp_hmc_chunk_vfe_{f32,f64}) and on its
+// group where the JAX package streams it, past 1024 rows for C >= 2 chains
+// (fused_multichain.py:1458-1463), past 2048 for one
+// (ggp_hmc_chunk_vfe_group_{f32,f64}); the sgpmc core on its group at
+// every n (ggp_hmc_chunk_sgpmc_group_{f32,f64}).
 //
 // What bounds it on the card: each chain is a latency chain of num_leapfrog
 // core evaluations per transition (barriers and L2 reads in one block,

@@ -1,6 +1,6 @@
 // The HMC chunk kernel (kernel 5) of hmc_chunk.cuh, instantiated for the
-// cores VfeCore, SgpmcCore and VfeGroupCore; the grouped sgpmc core's
-// instantiations are in sgpmc_group.cu.
+// cores VfeCore and VfeGroupCore; the grouped sgpmc core's instantiations
+// are in sgpmc_group.cu.
 #include "vfe_group.cuh"
 #include "hmc_chunk.cuh"
 
@@ -11,12 +11,6 @@ int ggp_hmc_chunk_vfe_f32(GGP_HMC_ARGS) {
 }
 int ggp_hmc_chunk_vfe_f64(GGP_HMC_ARGS) {
   return ggp::launch_hmc<ggp::VfeCore, double>(GGP_HMC_PASS);
-}
-int ggp_hmc_chunk_sgpmc_f32(GGP_HMC_ARGS) {
-  return ggp::launch_hmc<ggp::SgpmcCore, float>(GGP_HMC_PASS);
-}
-int ggp_hmc_chunk_sgpmc_f64(GGP_HMC_ARGS) {
-  return ggp::launch_hmc<ggp::SgpmcCore, double>(GGP_HMC_PASS);
 }
 // cfg[C_CHAINS] chains of cfg[C_GROUP] blocks each, one cooperative launch
 int ggp_hmc_chunk_vfe_group_f32(GGP_HMC_ARGS) {

@@ -1,7 +1,7 @@
 // The NUTS chunk kernel (kernel 2) and the one-transition kernel (kernel
-// 2b) of nuts_chunk.cuh, instantiated for the cores VfeCore, SgpmcCore,
-// VfeGroupCore, GprGroupCore, Co2M32Core and Co2RbfCore; the grouped
-// sgpmc core's instantiations are in sgpmc_group.cu.
+// 2b) of nuts_chunk.cuh, instantiated for the cores VfeCore, VfeGroupCore,
+// GprGroupCore, Co2M32Core and Co2RbfCore; the grouped sgpmc core's
+// instantiations are in sgpmc_group.cu.
 #include "co2_bound.cuh"
 #include "gpr_bound.cuh"
 #include "vfe_group.cuh"
@@ -25,12 +25,6 @@ int ggp_nuts_chunk_vfe_group_f64(GGP_NUTS_ARGS) {
 int ggp_nuts_chunk_vfe_group_occupancy(int f64) {
   return f64 ? ggp::chunk_group_blocks_per_sm<ggp::VfeGroupCore, double>()
              : ggp::chunk_group_blocks_per_sm<ggp::VfeGroupCore, float>();
-}
-int ggp_nuts_chunk_sgpmc_f32(GGP_NUTS_ARGS) {
-  return ggp::launch_nuts<ggp::SgpmcCore, float>(GGP_NUTS_PASS);
-}
-int ggp_nuts_chunk_sgpmc_f64(GGP_NUTS_ARGS) {
-  return ggp::launch_nuts<ggp::SgpmcCore, double>(GGP_NUTS_PASS);
 }
 // cfg[C_CHAINS] chains of cfg[C_GROUP] blocks each, one cooperative launch
 int ggp_nuts_chunk_gpr_f32(GGP_NUTS_ARGS) {

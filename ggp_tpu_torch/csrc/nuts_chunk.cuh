@@ -1,7 +1,7 @@
 // Kernel 2: K transitions of iterative multinomial NUTS over a sampler
 // potential (template parameter `Core`: the collapsed bound of
 // BayesianSGPR_HMC over its d+2 log-hypers, VfeCore; the whitened
-// JointHMC target over d+2+m, SgpmcCore; or the dense GP marginal of
+// JointHMC target over d+2+m, SgpmcGroupCore; or the dense GP marginal of
 // GPR_HMC over d+2, GprGroupCore), with Stan warmup adaptation
 // in-kernel (adapt=1) or at a fixed step size with per-draw outputs
 // (adapt=0), for one chain per block and cfg[C_CHAINS] chains per launch.
@@ -13,7 +13,8 @@
 // `_mc_nuts_sample_chunk_body` (the NUTS `warm_call`/`sample_call` of
 // `make_fused_hmc_multichain`, built on `_nuts_transition_batched`; grid
 // C); each for targets "vfe" and "sgpmc" (entries
-// ggp_nuts_chunk_{vfe,sgpmc}_{f32,f64}); and the grid-1 chunks with
+// ggp_nuts_chunk_{vfe,vfe_group,sgpmc_group}_{f32,f64}: the sgpmc target on
+// its group of blocks at every n); and the grid-1 chunks with
 // target="gpr" (ggp_nuts_chunk_gpr_{f32,f64}, a group of blocks per chain),
 // which the port also runs for C chains of GPR_HMC; and the grid-1 chunks with targets
 // "co2_m32" / "co2_rbf" (Co2M32Core / Co2RbfCore, co2_bound.cuh; entries

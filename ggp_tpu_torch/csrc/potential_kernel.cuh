@@ -2,8 +2,8 @@
 // on request, the inducing-location gradient) for each of gridDim.x =
 // cfg[C_CHAINS] state rows, one row per block. The potential is the
 // template parameter `Core`: the collapsed bound (VfeCore, vfe_bound.cuh),
-// the whitened JointHMC target (SgpmcCore, sgpmc_bound.cuh) or the dense
-// GP marginal (GprGroupCore, gpr_bound.cuh).
+// the whitened JointHMC target (SgpmcGroupCore, sgpmc_group.cuh) or the
+// dense GP marginal (GprGroupCore, gpr_bound.cuh).
 //
 // Replaces: ggp_tpu/ops/fused_nuts.py `_potential_kernel_body` (the
 // `pot_call` pallas_call of `make_fused_nuts`, grid 1), which serves the
@@ -11,7 +11,8 @@
 // ggp_tpu/ops/fused_multichain.py `_mc_potential_body` (the `pot_call` of
 // `make_fused_hmc_multichain`, grid C), which serves the C-chain initial
 // U/g and the batched step-size search; each for targets "vfe" and
-// "sgpmc" (entries ggp_potential_{vfe,sgpmc}_{f32,f64}); and the same
+// "sgpmc" (entries ggp_potential_{vfe,vfe_group,sgpmc_group}_{f32,f64},
+// the sgpmc target on its group of blocks at every n); and the same
 // single-row call with target="gpr" (ggp_potential_gpr_{f32,f64}), which
 // the port also runs at grid C for C chains of GPR_HMC (the JAX package
 // samples those with its XLA sampler); and the single-row call with
@@ -19,9 +20,9 @@
 // Mauna Loa CO2 composite (co2_bound.cuh).
 //
 // What bounds it on the card and what the design does about it: see
-// vfe_bound.cuh, sgpmc_bound.cuh, gpr_bound.cuh and co2_bound.cuh; each block runs the
+// vfe_bound.cuh, sgpmc_group.cuh, gpr_bound.cuh and co2_bound.cuh; each block runs the
 // core's device function once on its own row and its own scratch area (a
-// grouped core, vfe_group.cuh or gpr_bound.cuh: G blocks per row, launched
+// grouped core, vfe_group.cuh, sgpmc_group.cuh or gpr_bound.cuh: G blocks per row, launched
 // cooperatively), so a call's time is one evaluation's latency chain
 // (barriers and L2 reads), not bandwidth or FLOPs, as long as the blocks
 // fit on the 132 SMs and their scratch areas in L2.

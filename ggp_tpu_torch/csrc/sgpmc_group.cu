@@ -3,9 +3,10 @@
 // (kernel 2, nuts_chunk.cuh) and the HMC chunk kernel (kernel 5,
 // hmc_chunk.cuh): cfg[C_CHAINS] chains of cfg[C_GROUP] blocks each, one
 // cooperative launch. They replace the sites the JAX package runs on its
-// streamed sgpmc core: sites 1-3 (fused_nuts.py:807/780/792) for one chain
-// past 2048 rows and sites 10-14 (fused_multichain.py:1933/1954/1966/1985/
-// 1997) for C >= 2 chains past 1024. A translation unit of its own, so that
+// sgpmc core, resident or streamed, at every n: sites 1-3
+// (fused_nuts.py:807/780/792) for one chain and sites 10-14
+// (fused_multichain.py:1933/1954/1966/1985/1997) for C chains. A
+// translation unit of its own, so that
 // nvcc compiles it beside nuts_chunk.cu, the longest of the parallel builds.
 #include "sgpmc_group.cuh"
 #include "potential_kernel.cuh"

@@ -1,16 +1,20 @@
-// The whitened JointHMC (SGPMC) potential of sgpmc_bound.cuh spread over a
+// The whitened JointHMC (SGPMC) potential of the Scale(RBF-ARD) x Gaussian
+// x Zero-mean model, value and analytic gradient over the state row
+// [log_lengthscale (d), log_outputscale, log_noise, v (m)], spread over a
 // group of G thread blocks per chain: the core `SgpmcGroupCore` that the
 // potential kernel, the NUTS chunk kernel and the HMC chunk kernel take as
-// their `Core` where the JAX package streams the sgpmc core
-// (instantiations in sgpmc_group.cu).
+// their `Core` at every n (instantiations in sgpmc_group.cu), and that the
+// warm start (sgpmc_warm.cu) evaluates with dU/dZ.
 //
-// Replaces: ggp_tpu/ops/fused_bound.py `_sgpmc_neg_logpost_vg_streaming`
-// (:1577), the core of fused_nuts.py's pot/warm/sample calls (sites 1-3)
-// for one chain past MAX_N_RESIDENT = 2048 rows, and
-// ggp_tpu/ops/fused_multichain.py `_sgpmc_batched_vg_streaming` (:907), the
-// core of sites 10-14 for C >= 2 chains past MAX_N_MULTICHAIN = 1024 rows.
-// The function is sgpmc_bound's (plain twin ops/sgpmc_bound.py); the plain
-// model of this kernel's order of summation is ops/vfe_group.py
+// Replaces: ggp_tpu/ops/fused_bound.py `_sgpmc_neg_logpost_vg` (:1435), the
+// core of fused_nuts.py's pot/warm/sample calls (sites 1-3) with
+// target="sgpmc" and of fused_sgpmc.py's warm start (site 9, with
+// want_z_grad), and its streamed form `_sgpmc_neg_logpost_vg_streaming`
+// (:1577) past MAX_N_RESIDENT = 2048 rows; ggp_tpu/ops/fused_multichain.py
+// `_sgpmc_batched_vg` and `_sgpmc_batched_vg_streaming` (:907), the cores of
+// sites 10-14. The function's plain twin is ops/sgpmc_bound.py (its
+// docstring has the adjoint); the plain model of this kernel's order of
+// summation is ops/vfe_group.py
 // `sgpmc_group_neg_logpost_vg`. With cf.want_z block 0 also forms dU/dZ in
 // step D (the warm start's gradient, `_sgpmc_neg_logpost_vg` with
 // want_z_grad): for RBF it needs only sums the evaluation already forms,
@@ -19,9 +23,10 @@
 //
 // What bounds it on the card: at n = 13,279, M = 100, D = 18 an evaluation
 // is ~0.6 GFLOP of O(n M^2) row products (At = Knm V, (L^-T Abar)^T =
-// Abar^T V^T, T = Abar A^T), which one block walks in ~39 ms; and the M x M
-// part (one factorisation and inverse of Kmm, two M^3 products), a chain of
-// ~2M barrier steps on one block.
+// Abar^T V^T, T = Abar A^T), which one block walks in ~39 ms (1.5 ms at
+// n = 404); and the M x M part (one factorisation and inverse of Kmm, two
+// M^3 products), a chain of ~2M barrier steps on one block, which sets the
+// floor once the rows are spread.
 //
 // The design: the potential is block-additive (fused_bound.py:1587-1604):
 // given V = L^-T and v, every data-coupled quantity of the gradient is a sum
@@ -52,8 +57,10 @@
 //
 // Data one block writes and another reads (V, the partials, the sums, U and
 // g) is read from L2 with ld.global.cg: L1 is not coherent across SMs.
-// Float32: the sums over rows run in double; the epilogue in T, as
-// sgpmc_bound.
+// Float32: the sums over rows run in double; the epilogue in T.
+// Pivot policy: floor <= 0 gives NaN on a non-positive pivot (sampler
+// divergence), floor > 0 the trainers' modified Cholesky, relative to
+// max(sf2, 1).
 #pragma once
 
 #include "vfe_group.cuh"
@@ -346,8 +353,7 @@ __device__ void sgpmc_group_bound(const BoundCfg& cf, const T* st, const T* X, c
 }
 
 // The grouped sgpmc core as the sampler kernels take it (see CoreGroup): the
-// state row is [log_lengthscale (d), log_outputscale, log_noise, v (m)], as
-// SgpmcCore's.
+// state row is [log_lengthscale (d), log_outputscale, log_noise, v (m)].
 template <typename T>
 struct SgpmcGroupCore {
   using WorkT = SgpmcGroupWork<T>;

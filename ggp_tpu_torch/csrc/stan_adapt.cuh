@@ -10,7 +10,7 @@
 // ggp_tpu/inference/hmc.py `da_update` and `welford_*`.
 #pragma once
 
-#include "sgpmc_bound.cuh"
+#include "vfe_bound.cuh"
 
 namespace ggp {
 

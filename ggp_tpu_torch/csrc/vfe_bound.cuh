@@ -794,8 +794,8 @@ __device__ void vfe_bound(const BoundCfg& cf, const T* theta, const T* X,
 // `Core` of vfe_potential.cu, nuts_chunk.cu, mc_hmc_chunk.cu): the length
 // of a state row, the global scratch of one evaluation, and the block-wide
 // evaluation of U, dU/dz (and dU/dZ). This one is the collapsed bound over
-// the d+2 log-hypers; SgpmcCore (sgpmc_bound.cuh) the whitened JointHMC
-// target.
+// the d+2 log-hypers; SgpmcGroupCore (sgpmc_group.cuh) the whitened
+// JointHMC target.
 template <typename T>
 struct VfeCore {
   using WorkT = Work<T>;

@@ -1,22 +1,20 @@
 // The potential kernel (kernel 1) of potential_kernel.cuh, instantiated
-// for the cores VfeCore, SgpmcCore, VfeGroupCore, GprGroupCore, Co2M32Core
-// and Co2RbfCore; the grouped sgpmc core's instantiations are in
+// for the cores VfeCore, VfeGroupCore, GprGroupCore, Co2M32Core and
+// Co2RbfCore; the grouped sgpmc core's instantiations are in
 // sgpmc_group.cu.
 #include "co2_bound.cuh"
 #include "gpr_bound.cuh"
-#include "sgpmc_bound.cuh"
 #include "vfe_group.cuh"
 #include "potential_kernel.cuh"
 
 extern "C" {
 
 // elements of one evaluation's scratch area of a one-block core; core 0 =
-// vfe, 1 = sgpmc, 3 = co2_m32, 4 = co2_rbf (ggp_tpu_torch/ops/_build.py
-// _CORE_ID; the grouped cores size theirs by ggp_group_scratch_elems and
-// ggp_gpr_scratch_elems)
+// vfe, 3 = co2_m32, 4 = co2_rbf (ggp_tpu_torch/ops/_build.py _CORE_ID; the
+// grouped cores size theirs by ggp_group_scratch_elems,
+// ggp_sgpmc_group_scratch_elems and ggp_gpr_scratch_elems)
 long ggp_scratch_elems(int core, int n, int m, int d) {
-  if (core >= 3) return ggp::work_elems(n, m, 1);
-  return core == 1 ? ggp::sgpmc_work_elems(n, m, d) : ggp::work_elems(n, m, d);
+  return core >= 3 ? ggp::work_elems(n, m, 1) : ggp::work_elems(n, m, d);
 }
 
 // cfg[C_CHAINS] rows, one block each
@@ -41,12 +39,6 @@ int ggp_potential_vfe_group_occupancy(int f64) {
 long ggp_group_scratch_elems(int n, int m, int d, int C, int G, int f64) {
   return f64 ? ggp::group_scratch_elems<double>(n, m, d, C, G)
              : ggp::group_scratch_elems<float>(n, m, d, C, G);
-}
-int ggp_potential_sgpmc_f32(GGP_POT_ARGS) {
-  return ggp::launch_potential<ggp::SgpmcCore, float>(GGP_POT_PASS);
-}
-int ggp_potential_sgpmc_f64(GGP_POT_ARGS) {
-  return ggp::launch_potential<ggp::SgpmcCore, double>(GGP_POT_PASS);
 }
 // cfg[C_CHAINS] rows of cfg[C_GROUP] blocks each, one cooperative launch
 int ggp_potential_gpr_f32(GGP_POT_ARGS) {

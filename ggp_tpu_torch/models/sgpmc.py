@@ -14,10 +14,12 @@ phase runs through one of the port's kernels on the card:
   U/g, step-size search) and ``ops.nuts_chunk.nuts_chunk`` or
   ``ops.multichain.hmc_chunk``; C chains: ``ops.multichain.mc_potential``
   and ``mc_nuts_chunk`` or ``mc_hmc_chunk``; all with ``core="sgpmc"``.
-  Where the JAX package streams its sgpmc core (past 2048 rows for one
-  chain, past 1024 for C >= 2; ``ops.vfe_group.route``) these run the
-  grouped core ``"sgpmc_group"`` (``csrc/sgpmc_group.cuh``: G blocks per
-  chain in one cooperative launch), below it the one-block core.
+
+On the card every one of these runs on the grouped sgpmc core
+``"sgpmc_group"`` (``csrc/sgpmc_group.cuh``: G blocks per chain in one
+cooperative launch, ``ops.vfe_group.route`` and ``geometry``), at every n:
+the card then holds at most its resident blocks' worth of chains (264 at
+f32 for the potential, fewer for the chunks), and more chains raise.
 
 The port carries the configuration the JAX package fuses: Scale(RBF-ARD)
 kernel, Gaussian likelihood, zero mean, Gamma(2, 1) priors, and a state row

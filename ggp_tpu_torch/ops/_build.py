@@ -20,7 +20,8 @@ route to at large n and launch cooperatively; the ``"gpr"`` entries run the
 dense core on a group of blocks per chain at every n (``csrc/gpr_bound.cuh``);
 the ``"sgpmc_group"`` entries the whitened JointHMC core on a group of blocks
 per chain (``csrc/sgpmc_group.cuh``, built in ``csrc/sgpmc_group.cu``), which
-the sgpmc wrappers route to at large n.
+the sgpmc wrappers route to at every n: the ``"sgpmc"`` core has no kernel of
+its own (:data:`GROUP_ONLY`).
 The grouped trainer ``ggp_sgpr_adam_group`` runs the warm start's Adam steps
 on the grouped vfe core (``csrc/sgpr_adam.cu``), ``ggp_sgpmc_warm_group``
 the JointHMC warm start's on the grouped sgpmc core (``csrc/sgpmc_warm.cu``). Each source is
@@ -43,18 +44,21 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "launch_key", "build", "kernel_fn",
            "cfg_array", "check", "stream_ptr", "scratch", "ptr",
-           "require_cuda", "require_kind", "ptxas_report", "CFG", "CORE_KINDS", "GROUPED"]
+           "require_cuda", "require_kind", "ptxas_report", "CFG", "CORE_KINDS", "GROUPED",
+           "GROUP_ONLY"]
 
 # what a sampler wrapper launches, per core: one row or chain, or C of them
 _SAMPLER_KINDS = ("potential", "nuts_chunk", "hmc_chunk", "mc_potential",
                   "mc_nuts_chunk", "mc_hmc_chunk")
 _CO2_KINDS = ("potential", "nuts_chunk", "nuts_transition")
 _NUTS_KINDS = ("potential", "nuts_chunk", "mc_potential", "mc_nuts_chunk")
-CORE_KINDS = {"vfe": _SAMPLER_KINDS + ("nuts_transition",), "sgpmc": _SAMPLER_KINDS,
+CORE_KINDS = {"vfe": _SAMPLER_KINDS + ("nuts_transition",),
               "gpr": _NUTS_KINDS, "co2_m32": _CO2_KINDS, "co2_rbf": _CO2_KINDS,
               "vfe_group": _SAMPLER_KINDS, "sgpmc_group": _SAMPLER_KINDS}
+# the cores whose kernels are those of their group at every n
+GROUP_ONLY = {"sgpmc": "sgpmc_group"}
 # csrc vfe_potential.cu ggp_scratch_elems (the one-block cores)
-_CORE_ID = {"vfe": 0, "sgpmc": 1, "co2_m32": 3, "co2_rbf": 4}
+_CORE_ID = {"vfe": 0, "co2_m32": 3, "co2_rbf": 4}
 # the cores that run a chain on a group of blocks, launched cooperatively
 GROUPED = ("vfe_group", "sgpmc_group", "gpr")
 # the grouped kernels' occupancy queries, ggp_{kind}_{core}_occupancy
@@ -75,14 +79,15 @@ def launch_key(core: str, kind: str) -> str:
 
 LAUNCHES = {**{launch_key(c, k): 0 for c, kinds in CORE_KINDS.items() for k in kinds},
             "sgpr_adam_chunk": 0, "sgpr_adam_group": 0, "z_adam_stream": 0,
-            "sgpmc_warm_chunk": 0, "sgpmc_warm_group": 0,
+            "sgpmc_warm_group": 0,
             "svi_chunk": 0, "bsvgp_chunk": 0, "svi_softmax_chunk": 0,
             "vfe_stats_fwd": 0, "vfe_stats_bwd": 0}
 
 
 def require_kind(core: str, kind: str) -> None:
-    """Raise unless the kernels carry sampler ``kind`` for ``core``."""
-    if kind not in CORE_KINDS.get(core, ()):
+    """Raise unless the kernels carry sampler ``kind`` for ``core`` (for a
+    core of :data:`GROUP_ONLY`, its group's)."""
+    if kind not in CORE_KINDS.get(GROUP_ONLY.get(core, core), ()):
         raise ValueError(f"no {kind} kernel for the {core!r} core")
 
 
@@ -117,7 +122,6 @@ _SIGS = {
     "ggp_sgpr_adam": [_P] * 12,
     "ggp_sgpr_adam_group": [_P] * 12,
     "ggp_z_adam_stream": [_P] * 11,
-    "ggp_sgpmc_warm": [_P] * 12,
     "ggp_sgpmc_warm_group": [_P] * 12,
     "ggp_svi_chunk": [_P] * 19,
     "ggp_svi_softmax_chunk": [_P] * 20,

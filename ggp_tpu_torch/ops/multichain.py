@@ -4,8 +4,8 @@ GP marginal, which has no HMC chunk): plain PyTorch beside
 the CUDA kernels ``mc_potential`` (kernel 1 at grid C), ``mc_hmc_chunk``
 (kernel 5, ``csrc/mc_hmc_chunk.cu``) and ``mc_nuts_chunk`` (kernel 2 at
 grid C, ``csrc/nuts_chunk.cu``), one thread block per chain on the card (a
-group of blocks per chain where ``vfe_group.route`` sends the vfe and sgpmc
-cores);
+group of blocks per chain where ``vfe_group.route`` sends the vfe core, and
+for the sgpmc core at every n);
 and :func:`hmc_chunk`, one chain of fixed-leapfrog HMC on kernel 5 at
 grid 1.
 
@@ -95,9 +95,9 @@ def mc_potential_plain(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
 def mc_potential(thetas, X, y, Z, jitter, *, prior_spec=None, core="vfe"):
     """:func:`mc_potential_plain` on CPU tensors; on CUDA tensors one launch
     of kernel 1 (``csrc/potential_kernel.cuh``) with one block per row, or
-    for the vfe and sgpmc cores where :func:`~ggp_tpu_torch.ops.vfe_group.
-    route` sends them (past 1024 rows for C >= 2 rows) a group of blocks per
-    row; or a raise."""
+    for the cores :func:`~ggp_tpu_torch.ops.vfe_group.route` sends to a
+    group (the vfe core past 1024 rows for C >= 2 rows, the sgpmc core at
+    every n) a group of blocks per row; or a raise."""
     if thetas.ndim != 2:
         raise ValueError("mc_potential: thetas must be (C, dim)")
     _check_shapes(f"{core} mc_potential", thetas[0], X, y, Z, core)
@@ -285,9 +285,10 @@ def _state_tensors(state):
 
 def _hmc_launch(kind, state, X, y, Z, jitter, *, mom, mh, num_leapfrog,
                 target_accept, adapt_mass, prior_spec, core, chains, **kw):
-    """Kernel 5 on the C chains of ``state``: one block per chain, or for
-    the vfe and sgpmc cores where :func:`~ggp_tpu_torch.ops.vfe_group.route`
-    sends ``chains`` chains of n rows a group of blocks per chain; counted
+    """Kernel 5 on the C chains of ``state``: one block per chain, or where
+    :func:`~ggp_tpu_torch.ops.vfe_group.route` sends ``chains`` chains of n
+    rows of the core (the vfe core at large n, the sgpmc core at every n) a
+    group of blocks per chain; counted
     under ``kind`` ("hmc_chunk" or "mc_hmc_chunk") of the core it ran."""
     _build.require_cuda("hmc_chunk", X.dtype, *_state_tensors(state), X, y, Z,
                         mom, mh)
@@ -306,8 +307,8 @@ def mc_hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active,
                  prior_spec=None, core="vfe"):
     """:func:`mc_hmc_chunk_plain` on CPU tensors; on CUDA tensors kernel 5
     (``csrc/hmc_chunk.cuh``, the whole chunk of all C chains in one
-    launch, one block per chain, or past 1024 rows for C >= 2 a group of
-    blocks per chain), or a raise. ``eps`` (C,) is the fixed per-chain step
+    launch, one block per chain, or a group of blocks per chain where
+    ``vfe_group.route`` sends the core), or a raise. ``eps`` (C,) is the fixed per-chain step
     size of a sample chunk."""
     _build.require_kind(core, "mc_hmc_chunk")
     _check_chunk(f"{core} mc_hmc_chunk", state, X, y, Z, mom, adapt, adapt_mass,
@@ -331,8 +332,9 @@ def hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active, adapt,
     ``fused_nuts.make_fused_nuts(algorithm="hmc")``): ``state`` without a
     chain axis, ``mom`` (K, dim), Metropolis uniforms ``mh`` (K,), ``eps``
     a scalar. :func:`mc_hmc_chunk_plain` on a batch of one for CPU tensors;
-    kernel 5 at grid 1, or past 2048 rows on one group of blocks, for CUDA
-    tensors. Returns (state, draws (K, dim), stats (K, 6))."""
+    kernel 5 at grid 1, or on one group of blocks where ``vfe_group.route``
+    sends the core, for CUDA tensors. Returns (state, draws (K, dim), stats
+    (K, 6))."""
     _build.require_kind(core, "hmc_chunk")
     _check_shapes(f"{core} hmc_chunk", state.z, X, y, Z, core)
     if mom.shape[1:] != state.z.shape or mh.shape != mom.shape[:1]:
@@ -359,8 +361,8 @@ def mc_nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                   prior_spec=None, core="vfe"):
     """:func:`mc_nuts_chunk_plain` on CPU tensors; on CUDA tensors kernel 2
     (``csrc/nuts_chunk.cuh``) at grid C, one block per chain, or for the vfe
-    and sgpmc cores past 1024 rows (C >= 2) a group of blocks per chain; or
-    a raise."""
+    core past 1024 rows (C >= 2) and the sgpmc core at every n a group of
+    blocks per chain (``vfe_group.route``); or a raise."""
     _check_chunk(f"{core} mc_nuts_chunk", state, X, y, Z, mom, adapt, adapt_mass,
                  in_window, window_end, eps, core)
     K, C, _ = mom.shape

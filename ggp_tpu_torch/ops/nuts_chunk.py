@@ -284,8 +284,9 @@ def nuts_chunk(state: ChainState, X, y, Z, jitter, *, mom, treeu, leafu,
                prior_spec=None, core="vfe"):
     """:func:`nuts_chunk_plain` on CPU tensors; kernel 2
     (``csrc/nuts_chunk.cuh``, the whole chunk in one launch, grid 1; for the
-    vfe and sgpmc cores past ``vfe_group.GROUP_MIN_N`` rows, one group of
-    blocks) on CUDA tensors. ``state`` is not modified."""
+    vfe core past ``vfe_group.GROUP_MIN_N`` rows and the sgpmc core at every
+    n, one group of blocks: ``vfe_group.route``) on CUDA tensors. ``state``
+    is not modified."""
     K, dim = mom.shape
     _check_shapes(f"{core} nuts_chunk", state.z, X, y, Z, core)
     if dim != state.z.shape[0] or treeu.shape != (K, max_depth, 2) \

@@ -1,6 +1,8 @@
 """Whitened JointHMC (SGPMC) potential of the Scale(RBF-ARD) x Gaussian x
 Zero-mean model: value and analytic gradient, plain PyTorch beside the
-``"sgpmc"`` core of the CUDA kernels (``csrc/sgpmc_bound.cuh``).
+``"sgpmc"`` core of the CUDA kernels, which runs on a group of blocks per
+chain (``csrc/sgpmc_group.cuh``; the plain model of its order is
+``ops.vfe_group.sgpmc_group_neg_logpost_vg``).
 
 Counterpart of ``ggp_tpu/ops/fused_bound.py`` ``_sgpmc_neg_logpost_vg``
 (the core the fused sampler kernels run with ``target="sgpmc"`` and the

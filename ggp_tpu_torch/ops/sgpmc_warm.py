@@ -11,10 +11,10 @@ non-finite entries one by one; scales by min(1, clip_norm / ||g||) over
 (state, Z) together; and takes the Adam step at t = t0 + step + 1. Unlike
 the SGPR trainers there is no box on the log-hypers and no noise floor.
 
-On the card the chunk runs on kernel 6g (``sgpmc_warm_group_kernel``), each
-step one evaluation of the grouped sgpmc core over G blocks of one
-cooperative launch; :func:`sgpmc_warm_group_chunk_plain` is the plain model
-of its order.
+On the card the chunk runs on kernel 6 (``sgpmc_warm_group_kernel``) at
+every n, each step one evaluation of the grouped sgpmc core over G blocks
+of one cooperative launch; :func:`sgpmc_warm_group_chunk_plain` is the plain
+model of its order.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from .sgpr_adam import PIVOT_FLOOR, _finite, adam_update
 from .vfe_bound import _check_shapes, bound_cfg
 
 __all__ = ["sgpmc_warm_chunk_plain", "sgpmc_warm_group_chunk_plain", "sgpmc_warm_chunk",
-           "call_sgpmc_warm", "warm_route", "CLIP_NORM"]
+           "call_sgpmc_warm", "CLIP_NORM"]
 
 CLIP_NORM = 10.0
 
@@ -56,7 +56,7 @@ def sgpmc_warm_chunk_plain(state, Z, m_st, v_st, m_z, v_z, X, y, jitter, *, t0,
 
 def sgpmc_warm_group_chunk_plain(state, Z, m_st, v_st, m_z, v_z, X, y, jitter, G, *, t0,
                                  num_steps, lr, clip_norm=CLIP_NORM):
-    """The grouped warm start (kernel 6g, ``csrc/sgpmc_warm.cu``) in plain
+    """The grouped warm start (kernel 6, ``csrc/sgpmc_warm.cu``) in plain
     PyTorch, step for step in its order: each step's evaluation is
     ``vfe_group.sgpmc_group_neg_logpost_vg`` on G row blocks with dU/dZ; the
     masked squares summed in float64, dU/dZ's and then the state's; the
@@ -79,12 +79,6 @@ def sgpmc_warm_group_chunk_plain(state, Z, m_st, v_st, m_z, v_z, X, y, jitter, G
     return state, Z, m_st, v_st, m_z, v_z, torch.stack(losses)
 
 
-def warm_route(n: int) -> str:
-    """The warm-start kernel for n rows on the card: ``"group"`` (kernel 6g,
-    the grouped sgpmc core) at every n."""
-    return "group"
-
-
 def warm_scratch(n, m, d, G, like):
     """The grouped warm start's scratch (the count from the C side), its
     barrier zeroed."""
@@ -95,43 +89,36 @@ def warm_scratch(n, m, d, G, like):
     return work
 
 
-def call_sgpmc_warm(kernel, state, Z, m_st, v_st, m_z, v_z, X, y, jitter, *, t0, num_steps,
-                    lr, clip_norm=CLIP_NORM, group=None):
-    """One launch of the warm-start kernel ``kernel`` ("block": kernel 6 on
-    one block; "group": kernel 6g, launched cooperatively on G blocks,
-    ``group`` or ``vfe_group.geometry``'s) on CUDA tensors; counts no launch
-    (the wrapper :func:`sgpmc_warm_chunk` does). Returns (state, Z, m_st,
-    v_st, m_z, v_z, losses); the inputs are not modified, and the returned Z
-    is contiguous, ready for the sampler's launches."""
+def call_sgpmc_warm(state, Z, m_st, v_st, m_z, v_z, X, y, jitter, *, t0, num_steps, lr,
+                    clip_norm=CLIP_NORM, group=None):
+    """One launch of kernel 6, cooperative on G blocks (``group``, or
+    ``vfe_group.geometry``'s), on CUDA tensors; counts no launch (the
+    wrapper :func:`sgpmc_warm_chunk` does). Returns (state, Z, m_st, v_st,
+    m_z, v_z, losses); the inputs are not modified, and the returned Z is
+    contiguous, ready for the sampler's launches."""
     n, d = X.shape
     m = Z.shape[0]
     outs = [a.clone(memory_format=torch.contiguous_format)
             for a in (state, Z, m_st, v_st, m_z, v_z)]
     losses = torch.empty(int(num_steps), dtype=X.dtype, device=X.device)
-    extra = {}
-    if kernel == "group":
-        G = group or vfe_group.geometry("sgpmc_warm", X.dtype, 1, X.device, core="sgpmc_group")
-        work, extra = warm_scratch(n, m, d, G, X), {"GROUP": G}
-    else:
-        work = _build.scratch(n, m, d, m * d, X, core="sgpmc")
+    G = group or vfe_group.geometry("sgpmc_warm", X.dtype, 1, X.device, core="sgpmc_group", n=n)
     cfg = bound_cfg(n, m, d, jitter, want_z_grad=True, want_prior=False,
                     pivot_floor=PIVOT_FLOOR, prior_spec=None, K=int(num_steps),
-                    LR=lr, CLIP=clip_norm, T0=float(t0), **extra)
+                    LR=lr, CLIP=clip_norm, T0=float(t0), GROUP=G)
     P = _build.ptr
-    name = "ggp_sgpmc_warm_group" if kernel == "group" else "ggp_sgpmc_warm"
-    err = _build.kernel_fn(name, X.dtype)(
+    err = _build.kernel_fn("ggp_sgpmc_warm_group", X.dtype)(
         ctypes.cast(cfg, ctypes.c_void_p), *[P(a) for a in outs], P(X), P(y),
-        P(losses), P(work), _build.stream_ptr(X.device))
-    _build.check(err, name)
+        P(losses), P(warm_scratch(n, m, d, G, X)), _build.stream_ptr(X.device))
+    _build.check(err, "ggp_sgpmc_warm_group")
     return (*outs, losses)
 
 
 def sgpmc_warm_chunk(state, Z, m_st, v_st, m_z, v_z, X, y, jitter, *, t0,
                      num_steps, lr, clip_norm=CLIP_NORM):
     """:func:`sgpmc_warm_chunk_plain` on CPU tensors; on CUDA tensors the
-    whole chunk in one launch of the kernel :func:`warm_route` names, or a
-    raise. Inputs are not modified; the returned Z is contiguous, ready for
-    the sampler's launches."""
+    whole chunk in one launch of kernel 6 (:func:`call_sgpmc_warm`), at every
+    n, or a raise. Inputs are not modified; the returned Z is contiguous,
+    ready for the sampler's launches."""
     _check_shapes("sgpmc_warm_chunk", state, X, y, Z, "sgpmc")
     kw = dict(t0=t0, num_steps=num_steps, lr=lr, clip_norm=clip_norm)
     if X.device.type == "cpu":
@@ -139,7 +126,6 @@ def sgpmc_warm_chunk(state, Z, m_st, v_st, m_z, v_z, X, y, jitter, *, t0,
                                       jitter, **kw)
     _build.require_cuda("sgpmc_warm_chunk", X.dtype, state, Z, m_st, v_st, m_z,
                         v_z, X, y)
-    kernel = warm_route(X.shape[0])
-    out = call_sgpmc_warm(kernel, state, Z, m_st, v_st, m_z, v_z, X, y, jitter, **kw)
-    _build.LAUNCHES["sgpmc_warm_group" if kernel == "group" else "sgpmc_warm_chunk"] += 1
+    out = call_sgpmc_warm(state, Z, m_st, v_st, m_z, v_z, X, y, jitter, **kw)
+    _build.LAUNCHES["sgpmc_warm_group"] += 1
     return out

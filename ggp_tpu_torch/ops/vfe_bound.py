@@ -354,9 +354,10 @@ def vfe_potential(theta, X, y, Z, jitter, *, want_z_grad=False,
     of ``core`` (the potential kernel, site 1, of each core).
 
     CPU tensors run the plain version; CUDA tensors launch the potential
-    kernel (``csrc/vfe_potential.cu``) at grid 1, or, for the vfe and sgpmc
-    cores past ``vfe_group.GROUP_MIN_N`` rows, on one group of blocks (the
-    sgpmc group has no dU/dZ: ``want_z_grad`` raises there); or raise."""
+    kernel (``csrc/vfe_potential.cu``) at grid 1, or on one group of blocks
+    where ``vfe_group.route`` sends the core (the vfe core past
+    ``vfe_group.GROUP_MIN_N`` rows, the sgpmc core at every n, dU/dZ
+    included); or raise."""
     _check_shapes(f"{core} potential", theta, X, y, Z, core)
     if core == "gpr":
         _check_gpr_options(want_z_grad, want_prior, pivot_floor)

@@ -2,13 +2,17 @@
 per chain, in one cooperative launch. The grouped vfe core
 (``csrc/vfe_group.cuh``, ``VfeGroupCore``) computes the collapsed bound,
 the grouped sgpmc core (``csrc/sgpmc_group.cuh``, ``SgpmcGroupCore``) the
-whitened JointHMC potential; the potential kernel, the NUTS chunk kernel
-and the HMC chunk kernel run each where the JAX package streams its core:
-past 1024 rows for C >= 2 chains (``fused_multichain.MAX_N_MULTICHAIN``),
-past 2048 for one chain (``fused_nuts.MAX_N_RESIDENT``); below that the
-one-block cores run. The grouped trainer (``csrc/sgpr_adam.cu``,
-``ops/sgpr_adam.py``) runs the vfe group past 2048 rows too. The dense gpr
-core (``csrc/gpr_bound.cuh``, ``GprGroupCore``) runs on a group at every n.
+whitened JointHMC potential. The potential kernel, the NUTS chunk kernel
+and the HMC chunk kernel run the vfe group where the JAX package streams
+its core: past 1024 rows for C >= 2 chains
+(``fused_multichain.MAX_N_MULTICHAIN``), past 2048 for one chain
+(``fused_nuts.MAX_N_RESIDENT``); below that the one-block vfe core runs.
+They run the sgpmc group at every n, where it is faster than one block per
+chain at every (n, C) measured (PERF.md). The grouped trainers run the vfe
+group past 2048 rows (``csrc/sgpr_adam.cu``, ``ops/sgpr_adam.py``) and the
+sgpmc group at every n (``csrc/sgpmc_warm.cu``, ``ops/sgpmc_warm.py``). The
+dense gpr core (``csrc/gpr_bound.cuh``, ``GprGroupCore``) runs on a group at
+every n.
 
 Here is what a launch needs and the CPU can check: the routing rule
 (:func:`route`), the launch geometry (:func:`group_size`, :func:`row_blocks`,
@@ -32,27 +36,35 @@ from .linalg import capped_inv_ls, chol_upper
 
 __all__ = ["route", "group_size", "row_blocks", "blocks_per_sm", "geometry", "group_scratch",
            "launch_work", "group_neg_logpost_vg", "sgpmc_group_neg_logpost_vg",
-           "GROUP_MIN_N", "GROUP_MIN_N_MC"]
+           "sgpmc_group_size", "GROUP_MIN_N", "GROUP_MIN_N_MC", "SGPMC_MIN_ROWS"]
 
 # The JAX package's streaming thresholds, kept as the switch between the two
-# designs; per evaluation the groups are faster at every n measured (404 to
-# 13,279, PERF.md), the sampler chunks' crossover is not measured.
-GROUP_MIN_N = 2048            # one chain: the grouped core past this many rows
+# vfe designs; per evaluation the vfe group is faster at every n measured
+# (1279 to 13,279, PERF.md), the NUTS chunk's crossover is not measured.
+GROUP_MIN_N = 2048            # one chain: the grouped vfe core past this many rows
 GROUP_MIN_N_MC = 1024         # C >= 2 chains
+# The least rows a block of the grouped sgpmc core takes: G is what the card
+# holds, cut at small n so that no block's share falls below this. The G
+# sweep at N=404 (chip_smoke.py's sweep, PERF.md: H100, f32) found more
+# blocks faster down to ~3 rows a block for every sgpmc kernel the paths run
+# (the NUTS chunk at G = 8 .. 132: 0.589 .. 0.457 ms a leapfrog), so the cut
+# only keeps a block from having no rows.
+SGPMC_MIN_ROWS = 1
 _BAR_WORDS = 32               # csrc/vfe_group.cuh kBarWords: one chain's barrier
 _OCCUPANCY: dict = {}
-# the grouped core of each core the JAX package streams
-_GROUPS = {"vfe": "vfe_group", "sgpmc": "sgpmc_group"}
 
 
 def route(core: str, n: int, chains: int) -> str:
-    """The core whose kernel runs ``core`` on n rows for ``chains`` chains:
-    ``"vfe_group"`` or ``"sgpmc_group"`` where the JAX package streams the
-    vfe or the sgpmc core (n > 1024 with C >= 2 chains, n > 2048 with one),
-    for every sampler kernel (potential, NUTS and HMC chunks), else ``core``
-    itself (the gpr core is grouped at every n)."""
-    if core in _GROUPS and n > (GROUP_MIN_N_MC if chains >= 2 else GROUP_MIN_N):
-        return _GROUPS[core]
+    """The core whose kernel runs ``core`` on n rows for ``chains`` chains,
+    for every sampler kernel (potential, NUTS and HMC chunks): ``"vfe_group"``
+    where the JAX package streams the vfe core (n > 1024 with C >= 2 chains,
+    n > 2048 with one); ``"sgpmc_group"`` for the sgpmc core at every n
+    (``_build.GROUP_ONLY``: it has no one-block kernel); else ``core`` itself
+    (the gpr core is grouped at every n)."""
+    if core in _build.GROUP_ONLY:
+        return _build.GROUP_ONLY[core]
+    if core == "vfe" and n > (GROUP_MIN_N_MC if chains >= 2 else GROUP_MIN_N):
+        return "vfe_group"
     return core
 
 
@@ -91,12 +103,22 @@ def blocks_per_sm(kind: str, dtype: torch.dtype, core: str = "vfe_group") -> int
     return _OCCUPANCY[key]
 
 
-def geometry(kind: str, dtype: torch.dtype, chains: int, device, core: str = "vfe_group") -> int:
+def sgpmc_group_size(n: int, G: int) -> int:
+    """G of the grouped sgpmc core on n rows, where the card holds ``G``
+    blocks a chain: at most one block per SGPMC_MIN_ROWS rows, at least
+    one."""
+    return max(1, min(G, -(-n // SGPMC_MIN_ROWS)))
+
+
+def geometry(kind: str, dtype: torch.dtype, chains: int, device, core: str = "vfe_group",
+             n: int | None = None) -> int:
     """G for one launch of the grouped ``kind`` kernel of ``core`` on
-    ``chains`` chains: :func:`group_size` from the card's SM count and
-    :func:`blocks_per_sm`."""
+    ``chains`` chains of n rows: :func:`group_size` from the card's SM count
+    and :func:`blocks_per_sm`; for the sgpmc group, at most
+    :func:`sgpmc_group_size` of n."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return group_size(chains, sms, blocks_per_sm(kind, dtype, core))
+    G = group_size(chains, sms, blocks_per_sm(kind, dtype, core))
+    return sgpmc_group_size(n, G) if core == "sgpmc_group" and n is not None else G
 
 
 def group_scratch(n: int, m: int, d: int, C: int, G: int, like: torch.Tensor,
@@ -127,7 +149,7 @@ def launch_work(kind: str, core: str, n: int, m: int, d: int, C: int,
     if core not in _build.GROUPED:
         return _build.scratch(n, m, d, 0, like, chains=C, core=core), {}
     if G is None:
-        G = geometry(kind, like.dtype, C, like.device, core=core)
+        G = geometry(kind, like.dtype, C, like.device, core=core, n=n)
     return group_scratch(n, m, d, C, G, like, core=core), {"GROUP": G}
 
 

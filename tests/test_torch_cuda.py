@@ -16,14 +16,15 @@ import torch
 from ggp_tpu_torch import (GPR_HMC, SGPMC, BayesianSparseGPR_HMC,
                            BayesianStochasticVariationalGP, StochasticVariationalGP)
 from ggp_tpu_torch.likelihoods import BernoulliProbit, PoissonLogCox, Softmax
-from ggp_tpu_torch.ops import _build
+from ggp_tpu_torch.ops import _build, vfe_group
 from ggp_tpu_torch.ops.gpr_bound import gpr_neg_logpost_vg
 from ggp_tpu_torch.ops.multichain import (draw_mc_slabs, hmc_chunk, mc_hmc_chunk,
                                           mc_hmc_chunk_plain, mc_nuts_chunk,
                                           mc_nuts_chunk_plain, mc_potential,
                                           mc_potential_plain)
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
-from ggp_tpu_torch.ops.sgpmc_warm import sgpmc_warm_chunk, sgpmc_warm_chunk_plain
+from ggp_tpu_torch.ops.sgpmc_warm import (call_sgpmc_warm, sgpmc_warm_chunk,
+                                          sgpmc_warm_chunk_plain, sgpmc_warm_group_chunk_plain)
 from ggp_tpu_torch.ops.nuts_chunk import (ChainState, as_batch, draw_slabs,
                                           first_chain, nuts_chunk, nuts_chunk_plain,
                                           nuts_transition, nuts_transition_plain)
@@ -379,10 +380,9 @@ def test_group_nuts_chunk_matches_plain(dev, dt):
 def test_group_grid_that_does_not_fit_raises(dev, monkeypatch):
     """A cooperative grid larger than the card holds is refused by the
     launch and raises; nothing falls back to the one-block kernel."""
-    from ggp_tpu_torch.ops import vfe_group
     th, X, y, Z = _problem(dev, torch.float64, n=4096, m=16, d=5, seed=11)
     monkeypatch.setattr(vfe_group, "geometry",
-                        lambda kind, dtype, chains, device, core="vfe_group": 100000)
+                        lambda kind, dtype, chains, device, core="vfe_group", n=None: 100000)
     before = dict(_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         vfe_potential(th, X, y, Z, 1e-6)
@@ -393,11 +393,10 @@ def test_gpr_and_trainer_grids_that_do_not_fit_raise(dev, monkeypatch):
     """The grouped gpr core (one chain and C chains) and the grouped
     warm-start trainer refuse a cooperative grid larger than the card holds
     and raise; nothing falls back to a one-block kernel."""
-    from ggp_tpu_torch.ops import vfe_group
     th, X, y, Z = _problem(dev, torch.float64, n=2500, m=16, d=5, seed=11)
     Ze = X.new_empty((0, X.shape[1]))
     monkeypatch.setattr(vfe_group, "geometry",
-                        lambda kind, dtype, chains, device, core="vfe_group": 100000)
+                        lambda kind, dtype, chains, device, core="vfe_group", n=None: 100000)
     before = dict(_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         vfe_potential(th, X[:300].contiguous(), y[:300].contiguous(), Ze, 1e-6, core="gpr")
@@ -490,18 +489,21 @@ def _sgpmc_start(dev, dt, C, seed=4, log_eps=-3.0):
 @pytest.mark.parametrize("opts", [dict(), dict(want_z_grad=True, want_prior=False,
                                                pivot_floor=1e-6)])
 def test_sgpmc_potential_kernel_matches_plain(dev, dt, opts):
+    """The sgpmc potential on its grouped core at n=120 (the warm start's
+    options give dU/dZ too), one row and C=8 rows, against the plain
+    version."""
     st, X, y, Z = _sgpmc_problem(dev, dt)
-    before = _build.LAUNCHES["sgpmc_potential"]
+    before = _build.LAUNCHES["sgpmc_group_potential"]
     out = vfe_potential(st, X, y, Z, 1e-6, core="sgpmc", **opts)
-    assert _build.LAUNCHES["sgpmc_potential"] == before + 1
+    assert _build.LAUNCHES["sgpmc_group_potential"] == before + 1
     ref = sgpmc_neg_logpost_vg(st, X, y, Z, 1e-6, **opts)
     for a, b in zip(out, ref):
         assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
     rows = st + 0.1 * torch.randn((8, st.shape[0]), dtype=dt, device=dev,
                                   generator=torch.Generator(device=dev).manual_seed(2))
-    before = _build.LAUNCHES["sgpmc_mc_potential"]
+    before = _build.LAUNCHES["sgpmc_group_mc_potential"]
     out = mc_potential(rows, X, y, Z, 1e-6, core="sgpmc")
-    assert _build.LAUNCHES["sgpmc_mc_potential"] == before + 1
+    assert _build.LAUNCHES["sgpmc_group_mc_potential"] == before + 1
     ref = mc_potential_plain(rows, X, y, Z, 1e-6, core="sgpmc")
     for a, b in zip(out, ref):
         assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
@@ -509,16 +511,42 @@ def test_sgpmc_potential_kernel_matches_plain(dev, dt, opts):
 
 @pytest.mark.parametrize("dt", DTYPES)
 def test_sgpmc_warm_chunk_kernel_matches_plain(dev, dt):
+    """The warm start's kernel (the grouped sgpmc core) over 10 steps
+    against the plain chunk and the plain model of its order at its G; two
+    launches bit-identical; a forced G of 3 computes the same chunk."""
     st, X, y, Z = _sgpmc_problem(dev, dt, seed=3)
     zs, zz = torch.zeros_like(st), torch.zeros_like(Z)
     kw = dict(t0=2, num_steps=10, lr=0.01)
-    before = _build.LAUNCHES["sgpmc_warm_chunk"]
+    before = _build.LAUNCHES["sgpmc_warm_group"]
     a = sgpmc_warm_chunk(st, Z, zs, zs, zz, zz, X, y, 1e-6, **kw)
-    assert _build.LAUNCHES["sgpmc_warm_chunk"] == before + 1
+    assert _build.LAUNCHES["sgpmc_warm_group"] == before + 1
     b = sgpmc_warm_chunk_plain(st, Z, zs, zs, zz, zz, X, y, 1e-6, **kw)
-    for u, v in zip(a, b):
-        assert _rel(u, v) <= 10 * TOL[dt]
+    G = vfe_group.geometry("sgpmc_warm", dt, 1, X.device, core="sgpmc_group", n=X.shape[0])
+    c = sgpmc_warm_group_chunk_plain(st, Z, zs, zs, zz, zz, X, y, 1e-6, G, **kw)
+    for u, v, w in zip(a, b, c):
+        assert _rel(u, v) <= 10 * TOL[dt] and _rel(u, w) <= 10 * TOL[dt]
     assert a[1].is_contiguous() and not torch.equal(a[1], Z)
+    again = sgpmc_warm_chunk(st, Z, zs, zs, zz, zz, X, y, 1e-6, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(a, again))
+    three = call_sgpmc_warm(st, Z, zs, zs, zz, zz, X, y, 1e-6, group=3, **kw)
+    for u, v in zip(three, b):
+        assert _rel(u, v) <= 10 * TOL[dt]
+
+
+def test_sgpmc_warm_group_scratch_layout_matches_the_kernel(dev):
+    """The C side's count of the warm start's scratch
+    (``ggp_sgpmc_warm_group_elems``) against the layout its pointers walk:
+    the grouped core's scratch of one chain rounded to 16 bytes, then dU/dZ
+    (m d) and each block's Z, m_z, v_z (3 m d)."""
+    lib = _build.build()
+    for n, m, d, G in [(13279, 100, 18, 264), (404, 100, 13, 33), (120, 24, 5, 1)]:
+        for dt in DTYPES:
+            f64 = int(dt == torch.float64)
+            itemsize = torch.empty(0, dtype=dt).element_size()
+            core = -(-lib.ggp_sgpmc_group_scratch_elems(n, m, d, 1, G, f64) * itemsize
+                     // 16) * 16
+            want = -(-(core + m * d * (1 + 3 * G) * itemsize) // itemsize)
+            assert lib.ggp_sgpmc_warm_group_elems(n, m, d, G, f64) == want
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -536,13 +564,13 @@ def test_sgpmc_hmc_chunk_kernel_matches_plain(dev, dt, C, adapt):
               window_end=torch.arange(K, device=dev) == 3)
     ref = mc_hmc_chunk_plain(st, X, y, Z, 1e-6, eps=torch.exp(st.log_eps), **kw, **sl)
     if C == 1:
-        key = "sgpmc_hmc_chunk"
+        key = "sgpmc_group_hmc_chunk"
         before = _build.LAUNCHES[key]
         s1, d1, x1 = hmc_chunk(first_chain(st), X, y, Z, 1e-6, mom=sl["mom"][:, 0],
                                mh=sl["mh"][:, 0], eps=torch.exp(st.log_eps[0]), **kw)
         s_k, d_k, x_k = as_batch(s1), d1[:, None], x1[:, None]
     else:
-        key = "sgpmc_mc_hmc_chunk"
+        key = "sgpmc_group_mc_hmc_chunk"
         before = _build.LAUNCHES[key]
         s_k, d_k, x_k = mc_hmc_chunk(st, X, y, Z, 1e-6, eps=torch.exp(st.log_eps),
                                      **kw, **sl)
@@ -569,14 +597,14 @@ def test_sgpmc_nuts_chunk_kernel_matches_plain(dev, dt, C):
               in_window=torch.arange(K, device=dev) >= 1,
               window_end=torch.arange(K, device=dev) == 1)
     if C == 1:
-        key = "sgpmc_nuts_chunk"
+        key = "sgpmc_group_nuts_chunk"
         before = _build.LAUNCHES[key]
         slabs = dict(mom=sl["mom"][:, 0], treeu=sl["treeu"][:, 0], leafu=sl["leafu"][:, 0])
         s1, d1, x1 = nuts_chunk(first_chain(st), X, y, Z, 1e-6, **slabs, **kw)
         s2, d2, x2 = nuts_chunk_plain(first_chain(st), X, y, Z, 1e-6, **slabs, **kw)
         d_k, x_k, d_p, x_p = d1[:, None], x1[:, None], d2[:, None], x2[:, None]
     else:
-        key = "sgpmc_mc_nuts_chunk"
+        key = "sgpmc_group_mc_nuts_chunk"
         before = _build.LAUNCHES[key]
         _, d_k, x_k = mc_nuts_chunk(st, X, y, Z, 1e-6, **kw, **sl)
         _, d_p, x_p = mc_nuts_chunk_plain(st, X, y, Z, 1e-6, **kw, **sl)
@@ -600,7 +628,7 @@ def test_sgpmc_model_runs_on_the_card(dev, num_chains, algorithm):
     assert tr.shape == (12 * num_chains, st.shape[0]) and torch.isfinite(tr).all()
     kind = ("" if num_chains == 1 else "mc_") + f"{algorithm}_chunk"
     pot = "potential" if num_chains == 1 else "mc_potential"
-    for k in ("sgpmc_warm_chunk", f"sgpmc_{kind}", f"sgpmc_{pot}"):
+    for k in ("sgpmc_warm_group", f"sgpmc_group_{kind}", f"sgpmc_group_{pot}"):
         assert _build.LAUNCHES[k] > before[k], k
     means, vars_ = model.mixture_posterior_predictive(X[:10])
     assert torch.isfinite(means).all() and (vars_ > 0).all()
@@ -648,18 +676,17 @@ def test_sgpmc_group_scratch_layout_matches_the_kernels(dev):
 
 @pytest.mark.parametrize("dt", DTYPES)
 def test_sgpmc_group_potential_matches_plain(dev, dt):
-    """Past both thresholds the sgpmc potential runs on the grouped core, at
-    one chain (vfe_potential) and two (mc_potential): U and dU/dstate
-    against the plain version; two launches on the same inputs give the
-    same bits; the one-block kernels are not launched."""
+    """At n=2500 the sgpmc potential runs on the grouped core, at one chain
+    (vfe_potential) and two (mc_potential): U and dU/dstate against the
+    plain version; two launches on the same inputs give the same bits; no
+    other kernel is launched."""
     st, X, y, Z, _ = _group_start(dev, dt, "sgpmc", 2)
     before = dict(_build.LAUNCHES)
     one = vfe_potential(st.z[0].contiguous(), X, y, Z, 1e-6, core="sgpmc")
     two = mc_potential(st.z, X, y, Z, 1e-6, core="sgpmc")
     assert _build.LAUNCHES["sgpmc_group_potential"] == before["sgpmc_group_potential"] + 1
     assert _build.LAUNCHES["sgpmc_group_mc_potential"] == before["sgpmc_group_mc_potential"] + 1
-    assert _build.LAUNCHES["sgpmc_potential"] == before["sgpmc_potential"]
-    assert _build.LAUNCHES["sgpmc_mc_potential"] == before["sgpmc_mc_potential"]
+    assert sum(_build.LAUNCHES[k] - before[k] for k in before) == 2
     for a, b in zip(two, (st.U, st.g)):
         assert a.shape == b.shape and _rel(a, b) <= TOL[dt]
     for a, b in zip(one, (st.U[0], st.g[0])):
@@ -743,12 +770,11 @@ def test_sgpmc_group_nuts_chunk_matches_plain(dev, dt, C):
 def test_grouped_hmc_grid_that_does_not_fit_raises(dev, monkeypatch):
     """A grouped HMC chunk whose cooperative grid the card cannot hold is
     refused and raises; nothing falls back to the one-block kernel."""
-    from ggp_tpu_torch.ops import vfe_group
     st, X, y, Z, gen = _group_start(dev, torch.float64, "sgpmc", 2)
     sl = draw_mc_slabs(2, 2, st.z.shape[1], algorithm="hmc", max_depth=0, generator=gen,
                        dtype=torch.float64, device=dev)
     monkeypatch.setattr(vfe_group, "geometry",
-                        lambda kind, dtype, chains, device, core="vfe_group": 100000)
+                        lambda kind, dtype, chains, device, core="vfe_group", n=None: 100000)
     before = dict(_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         mc_hmc_chunk(st, X, y, Z, 1e-6, n_active=2, adapt=False, eps=torch.exp(st.log_eps),
@@ -758,8 +784,8 @@ def test_grouped_hmc_grid_that_does_not_fit_raises(dev, monkeypatch):
 
 @pytest.mark.parametrize("num_chains,algorithm", [(1, "nuts"), (2, "hmc")])
 def test_sgpmc_model_runs_on_the_grouped_core(dev, num_chains, algorithm):
-    """The model past both thresholds: warm start (one block), then the
-    sampler's potential and chunks on the grouped sgpmc core."""
+    """The model at n=2500: warm start, potential and chunks all on the
+    grouped sgpmc core, and no other kernel launched."""
     st, X, y, Z = _sgpmc_problem(dev, torch.float32, n=2500, seed=32)
     model = SGPMC(X, y, Z_init=Z)
     before = dict(_build.LAUNCHES)
@@ -768,11 +794,11 @@ def test_sgpmc_model_runs_on_the_grouped_core(dev, num_chains, algorithm):
                            num_leapfrog=5)
     assert tr.shape == (10 * num_chains, st.shape[0]) and torch.isfinite(tr).all()
     pre = "" if num_chains == 1 else "mc_"
-    for k in ("sgpmc_warm_chunk", f"sgpmc_group_{pre}{algorithm}_chunk",
-              f"sgpmc_group_{pre}potential"):
+    want = {"sgpmc_warm_group", f"sgpmc_group_{pre}{algorithm}_chunk",
+            f"sgpmc_group_{pre}potential"}
+    for k in want:
         assert _build.LAUNCHES[k] > before[k], k
-    for k in (f"sgpmc_{pre}{algorithm}_chunk", f"sgpmc_{pre}potential"):
-        assert _build.LAUNCHES[k] == before[k], k
+    assert {k for k in before if _build.LAUNCHES[k] != before[k]} == want
 
 
 # -- the gpr core: the dense GP marginal over d+2 --------------------------------

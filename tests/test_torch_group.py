@@ -109,29 +109,29 @@ class _CountingLib:
 @pytest.mark.parametrize("dt", [torch.float32, F64])
 @pytest.mark.parametrize("kind,core,n,m,d,C", [
     ("potential", "vfe_group", 13279, 100, 18, 1), ("nuts_chunk", "vfe_group", 1025, 24, 5, 8),
-    ("potential", "vfe", 404, 100, 2, 2), ("nuts_chunk", "sgpmc", 3000, 7, 13, 4),
+    ("potential", "vfe", 404, 100, 2, 2), ("nuts_chunk", "co2_m32", 541, 480, 1, 4),
     ("potential", "gpr", 404, 0, 13, 1), ("nuts_chunk", "gpr", 1279, 0, 11, 4),
     ("potential", "sgpmc_group", 13279, 100, 18, 1), ("nuts_chunk", "sgpmc_group", 2049, 24, 5, 2),
     ("hmc_chunk", "sgpmc_group", 13279, 100, 18, 8), ("hmc_chunk", "vfe_group", 1025, 24, 5, 8)])
 def test_launch_work(kind, core, n, m, d, C, dt, monkeypatch):
-    """A grouped launch (the vfe and sgpmc cores past their threshold, the
-    gpr core at every n) takes G from the geometry of its core's kernel
-    kind and the chain count, passes it as cfg GROUP, and sizes its scratch
+    """A grouped launch (the vfe core past its threshold, the sgpmc and gpr
+    cores at every n) takes G from the geometry of its core's kernel kind,
+    the chain count and n, passes it as cfg GROUP, and sizes its scratch
     by the C side's count for that core (for the sgpmc group, with G full
     M x M partials a chain) with each chain's 128-byte barrier zeroed; any
     other core takes one evaluation's area per chain and no GROUP."""
     lib = _CountingLib()
     monkeypatch.setattr(_build, "build", lambda: lib)
     seen = []
-    monkeypatch.setattr(vfe_group, "geometry", lambda k, t, chains, device, core:
-                        seen.append((k, t, chains, core)) or 7 * chains)
+    monkeypatch.setattr(vfe_group, "geometry", lambda k, t, chains, device, core, n:
+                        seen.append((k, t, chains, core, n)) or 7 * chains)
     like = torch.ones(3, dtype=dt)
     work, cfg = vfe_group.launch_work(kind, core, n, m, d, C, like)
     assert work.dtype == dt and work.device == like.device
     f64 = int(dt == F64)
     if core in ("vfe_group", "sgpmc_group", "gpr"):
         G = 7 * C
-        assert seen == [(kind, dt, C, core)] and cfg == {"GROUP": G}
+        assert seen == [(kind, dt, C, core, n)] and cfg == {"GROUP": G}
         if core == "gpr":
             assert lib.calls == [("gpr", n, d, C, G, f64)]
             assert work.numel() == lib.ggp_gpr_scratch_elems(n, d, C, G, f64)
@@ -156,14 +156,16 @@ def test_launch_work(kind, core, n, m, d, C, dt, monkeypatch):
     ("vfe", 404, 1, "vfe"), ("vfe", 2048, 1, "vfe"), ("vfe", 2049, 1, "vfe_group"),
     ("vfe", 1024, 2, "vfe"), ("vfe", 1025, 2, "vfe_group"), ("vfe", 1025, 8, "vfe_group"),
     ("vfe", 13279, 2, "vfe_group"), ("sgpmc", 13279, 2, "sgpmc_group"), ("gpr", 1279, 4, "gpr"),
-    ("co2_m32", 4096, 1, "co2_m32"), ("sgpmc", 2048, 1, "sgpmc"), ("sgpmc", 2049, 1, "sgpmc_group"),
-    ("sgpmc", 1024, 2, "sgpmc"), ("sgpmc", 1025, 2, "sgpmc_group"), ("sgpmc", 1025, 1, "sgpmc"),
+    ("co2_m32", 4096, 1, "co2_m32"), ("sgpmc", 2048, 1, "sgpmc_group"),
+    ("sgpmc", 2049, 1, "sgpmc_group"), ("sgpmc", 1024, 2, "sgpmc_group"),
+    ("sgpmc", 1025, 2, "sgpmc_group"), ("sgpmc", 1025, 1, "sgpmc_group"),
     ("sgpmc", 13279, 8, "sgpmc_group")])
 def test_route(core, n, C, want):
-    """The grouped core where the JAX package streams the vfe and sgpmc
-    cores: past 1024 rows for C >= 2 chains (MAX_N_MULTICHAIN), past 2048
-    for one (MAX_N_RESIDENT); the co2 cores keep their one-block kernels,
-    the gpr core is grouped at every n under its own name."""
+    """The grouped vfe core where the JAX package streams the vfe core:
+    past 1024 rows for C >= 2 chains (MAX_N_MULTICHAIN), past 2048 for one
+    (MAX_N_RESIDENT); the grouped sgpmc core at every n (it has no one-block
+    kernel); the co2 cores keep their one-block kernels, the gpr core is
+    grouped at every n under its own name."""
     assert route(core, n, C) == want
 
 

@@ -2,8 +2,8 @@
 driver, on the CPU.
 
 ``ops/vfe_group.py`` routes the sgpmc core to its grouped kernels
-(``csrc/sgpmc_group.cuh``, ``SgpmcGroupCore``) where the JAX package
-streams it (the rule and the scratch: ``tests/test_torch_group.py``) and
+(``csrc/sgpmc_group.cuh``, ``SgpmcGroupCore``) at every n (the rule and the
+scratch: ``tests/test_torch_group.py``; the group's size at small n here) and
 holds a plain model of the kernel's order of summation (``sgpmc_group_neg_logpost_vg``: row-block
 partials in float64 summed p = 0 .. G-1, then the M x M epilogue). The
 model is held against the port's plain potential, against the JAX
@@ -18,6 +18,8 @@ the JAX package's; and the warm start's float64 sensitivity at the path's
 start, on a cut of synthetic-large, is shown in both packages.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,7 @@ from ggp_tpu.ops.fused_bound import (_default_chol_inv, _sgpmc_neg_logpost_vg,
 from ggp_tpu.ops.fused_multichain import _sgpmc_batched_vg_streaming
 from ggp_tpu_torch import SGPMC
 from ggp_tpu_torch.experiments import regression
-from ggp_tpu_torch.ops import _build, multichain, nuts_chunk, vfe_bound
+from ggp_tpu_torch.ops import _build, multichain, nuts_chunk, vfe_bound, vfe_group
 from ggp_tpu_torch.ops.nuts_chunk import ChainState
 from ggp_tpu_torch.ops.sgpmc_bound import sgpmc_neg_logpost_vg
 from ggp_tpu_torch.ops.sgpmc_warm import CLIP_NORM
@@ -201,10 +203,10 @@ def _meta_state(C, dim):
 @pytest.mark.parametrize("n", [1024, 1025, 2048, 2049])
 def test_wrappers_route_both_cores_at_both_thresholds(core, n, monkeypatch):
     """Every sampler wrapper (potential, NUTS and HMC chunks; one chain and
-    C=2) sends a tensor that is not on the CPU to the grouped kernel past
-    its threshold and to the one-block kernel at or below it, and counts the
-    launch under the kernel it ran (stubbed launches on the ``meta``
-    device)."""
+    C=2) sends a tensor that is not on the CPU to the grouped kernel: the
+    vfe core's past its threshold and the one-block kernel at or below it,
+    the sgpmc core's at every n; and counts the launch under the kernel it
+    ran (stubbed launches on the ``meta`` device)."""
     launched = []
 
     def fake_chunk(kind, kernel, state, X, y, Z, jitter, slabs, **kw):
@@ -246,8 +248,8 @@ def test_wrappers_route_both_cores_at_both_thresholds(core, n, monkeypatch):
                          mh=torch.zeros(K, **slab), **dict(kw, eps=torch.ones((), **slab)))
     multichain.mc_hmc_chunk(st2, X, y, Z, JITTER, mom=torch.zeros((K, 2, dim), **slab),
                             mh=torch.zeros((K, 2), **slab), **kw)
-    one = f"{core}_group" if n > 2048 else core
-    two = f"{core}_group" if n > 1024 else core
+    one = f"{core}_group" if n > 2048 or core == "sgpmc" else core
+    two = f"{core}_group" if n > 1024 or core == "sgpmc" else core
     assert launched == [("potential", one, 1), ("potential", two, 2), ("nuts_chunk", one, 1),
                         ("nuts_chunk", two, 2), ("hmc_chunk", one, 1), ("hmc_chunk", two, 2)]
     grew = {k for k in _build.LAUNCHES if _build.LAUNCHES[k] != before[k]}
@@ -255,13 +257,60 @@ def test_wrappers_route_both_cores_at_both_thresholds(core, n, monkeypatch):
         | {_build.launch_key(two, k) for k in ("mc_potential", "mc_nuts_chunk", "mc_hmc_chunk")}
 
 
-def test_grouped_sgpmc_core_has_no_z_gradient():
-    """The grouped sgpmc core, as the JAX package's streamed core, has no
-    dU/dZ: a launch asking for it raises before anything is built."""
-    X, y, Z, sts = _problem()
-    t = [torch.tensor(a) for a in (sts[:1], X, y, Z)]
-    with pytest.raises(ValueError, match="no dU/dZ"):
-        vfe_bound.call_potential("sgpmc_group", *t, JITTER, want_z_grad=True)
+def test_grouped_sgpmc_core_has_no_z_gradient(monkeypatch):
+    """The grouped sgpmc core's sampler launches (the NUTS and HMC chunks)
+    ask for no dU/dZ (cfg WANT_ZGRAD 0, no dZ buffer), as the JAX package's
+    sampler cores form none; the potential kernel forms it on request, the
+    warm start's options (WANT_ZGRAD 1 and a (C, m, d) buffer, three
+    outputs). Launches stubbed on the ``meta`` device."""
+    seen = []
+
+    def fake_kernel(name, dt):
+        def run(cfg, *ptrs):
+            arr = ctypes.cast(cfg, ctypes.POINTER(ctypes.c_double))
+            seen.append((name, arr[_build.CFG["WANT_ZGRAD"]], len(ptrs)))
+            return 0
+        return run
+
+    monkeypatch.setattr(_build, "kernel_fn", fake_kernel)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(vfe_group, "launch_work",
+                        lambda *a, **kw: (torch.zeros(0, device="meta"), {"GROUP": 3}))
+    meta = dict(device="meta", dtype=F64)
+    n, C, K, md = 404, 2, 2, 3
+    X, y, Z = torch.zeros((n, D), **meta), torch.zeros(n, **meta), torch.zeros((M, D), **meta)
+    st = _meta_state(C, DIM)
+    kw = dict(n_active=K, adapt=True, eps=None, in_window=None, window_end=None,
+              prior_spec=None, stream=None)
+    nuts_chunk.launch_chunk("nuts_chunk", "sgpmc_group", st, X, y, Z, JITTER,
+                            (torch.zeros((K, C, DIM), **meta), torch.zeros((K, C, md, 2), **meta),
+                             torch.zeros((K, C, 1 << md), **meta)), MAX_DEPTH=md, **kw)
+    nuts_chunk.launch_chunk("hmc_chunk", "sgpmc_group", st, X, y, Z, JITTER,
+                            (torch.zeros((K, C, DIM), **meta), torch.zeros((K, C), **meta)),
+                            LEAPFROG=2, **kw)
+    out = vfe_bound.call_potential("sgpmc_group", st.z, X, y, Z, JITTER, want_z_grad=True,
+                                   want_prior=False, pivot_floor=PIVOT_FLOOR)
+    assert [(s[0], s[1]) for s in seen] == [("ggp_nuts_chunk_sgpmc_group", 0.0),
+                                            ("ggp_hmc_chunk_sgpmc_group", 0.0),
+                                            ("ggp_potential_sgpmc_group", 1.0)]
+    assert len(out) == 3 and out[2].shape == (C, M, D)
+
+
+@pytest.mark.parametrize("n,G_card,want", [(404, 264, -(-404 // vfe_group.SGPMC_MIN_ROWS)),
+                                           (13279, 264, 264), (13279, 33, 33), (1, 132, 1)])
+def test_sgpmc_group_size_at_small_n(n, G_card, want, monkeypatch):
+    """The grouped sgpmc core takes what the card holds, but at small n no
+    more blocks than leave each SGPMC_MIN_ROWS rows (at least one block);
+    the vfe group is not cut."""
+    want = min(want, G_card)
+    assert vfe_group.sgpmc_group_size(n, G_card) == want
+    monkeypatch.setattr(vfe_group, "blocks_per_sm", lambda kind, dt, core: G_card // 132 or 1)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: type("P", (), {"multi_processor_count": 132})())
+    card = 132 * (G_card // 132 or 1)
+    assert vfe_group.geometry("nuts_chunk", F64, 1, "meta", core="sgpmc_group", n=n) \
+        == vfe_group.sgpmc_group_size(n, card)
+    assert vfe_group.geometry("nuts_chunk", F64, 1, "meta", core="vfe_group", n=n) == card
 
 
 # -- the regression driver's JointHMC branch ---------------------------------------------

@@ -127,14 +127,13 @@ def test_group_warm_chunk_matches_jax_warm_start():
 
 @pytest.mark.parametrize("n", [404, 13279])
 def test_warm_wrapper_sends_device_tensors_to_the_grouped_kernel(n, monkeypatch):
-    """A tensor that is not on the CPU goes to kernel 6g, the grouped
-    warm start, at every n, and the launch counts under
-    ``sgpmc_warm_group`` (launch stubbed on the ``meta`` device); on the CPU
-    the wrapper runs the plain chunk and launches nothing."""
-    assert sgpmc_warm.warm_route(n) == "group"
+    """A tensor that is not on the CPU goes to kernel 6, the grouped warm
+    start, at every n (its geometry from the card), and the launch counts
+    under ``sgpmc_warm_group`` (launch stubbed on the ``meta`` device); on
+    the CPU the wrapper runs the plain chunk and launches nothing."""
     calls = []
     monkeypatch.setattr(sgpmc_warm, "call_sgpmc_warm",
-                        lambda kernel, *a, **kw: calls.append(kernel) or a[:6])
+                        lambda *a, **kw: calls.append((a[6].shape[0], kw.get("group"))) or a[:6])
     monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
     meta = dict(device="meta", dtype=F64)
     d, m = 3, 4
@@ -144,7 +143,8 @@ def test_warm_wrapper_sends_device_tensors_to_the_grouped_kernel(n, monkeypatch)
     before = dict(_build.LAUNCHES)
     sgpmc_warm_chunk(st, Z, st, st, Z, Z, X, y, JITTER, **kw)
     grew = {k for k in _build.LAUNCHES if _build.LAUNCHES[k] != before[k]}
-    assert calls == ["group"] and grew == {"sgpmc_warm_group"}
+    assert calls == [(n, None)] and grew == {"sgpmc_warm_group"}
+    assert _build.LAUNCHES["sgpmc_warm_group"] == before["sgpmc_warm_group"] + 1
     Xc, yc, Zc, stc = (torch.tensor(a) for a in _problem(seed=3, n=40))
     zs, zz = torch.zeros_like(stc), torch.zeros_like(Zc)
     before = dict(_build.LAUNCHES)
