@@ -2689,7 +2689,7 @@ def phase_parity_large(res, steps=20):
         chunk_parity(X, y, Zi, jit, st0, gen, tmp, core="vfe", algo="nuts", grid=2, K=2)
         assert _build.LAUNCHES["vfe_group_mc_nuts_chunk"] \
             == before["vfe_group_mc_nuts_chunk"] + 2, "mc_nuts_chunk did not run the grouped core"
-        take_row(res, "vfe_group_nuts_chunk", tmp, "mc_nuts_chunk", tag, f32)
+        take_row(res, "vfe_group_nuts_chunk", tmp, "vfe_group_mc_nuts_chunk", tag, f32)
         sl = draw_mc_slabs(2, 2, d + 2, algorithm="nuts", max_depth=8, generator=gen, dtype=dt,
                            device="cuda")
         no = torch.zeros(2, dtype=torch.bool, device="cuda")

@@ -36,20 +36,13 @@ from .linalg import capped_inv_ls, chol_upper
 
 __all__ = ["route", "group_size", "row_blocks", "blocks_per_sm", "geometry", "group_scratch",
            "launch_work", "group_neg_logpost_vg", "sgpmc_group_neg_logpost_vg",
-           "sgpmc_group_size", "GROUP_MIN_N", "GROUP_MIN_N_MC", "SGPMC_MIN_ROWS"]
+           "GROUP_MIN_N", "GROUP_MIN_N_MC"]
 
 # The JAX package's streaming thresholds, kept as the switch between the two
 # vfe designs; per evaluation the vfe group is faster at every n measured
 # (1279 to 13,279, PERF.md), the NUTS chunk's crossover is not measured.
 GROUP_MIN_N = 2048            # one chain: the grouped vfe core past this many rows
 GROUP_MIN_N_MC = 1024         # C >= 2 chains
-# The least rows a block of the grouped sgpmc core takes: G is what the card
-# holds, cut at small n so that no block's share falls below this. The G
-# sweep at N=404 (chip_smoke.py's sweep, PERF.md: H100, f32) found more
-# blocks faster down to ~3 rows a block for every sgpmc kernel the paths run
-# (the NUTS chunk at G = 8 .. 132: 0.589 .. 0.457 ms a leapfrog), so the cut
-# only keeps a block from having no rows.
-SGPMC_MIN_ROWS = 1
 _BAR_WORDS = 32               # csrc/vfe_group.cuh kBarWords: one chain's barrier
 _OCCUPANCY: dict = {}
 
@@ -103,22 +96,19 @@ def blocks_per_sm(kind: str, dtype: torch.dtype, core: str = "vfe_group") -> int
     return _OCCUPANCY[key]
 
 
-def sgpmc_group_size(n: int, G: int) -> int:
-    """G of the grouped sgpmc core on n rows, where the card holds ``G``
-    blocks a chain: at most one block per SGPMC_MIN_ROWS rows, at least
-    one."""
-    return max(1, min(G, -(-n // SGPMC_MIN_ROWS)))
-
-
 def geometry(kind: str, dtype: torch.dtype, chains: int, device, core: str = "vfe_group",
              n: int | None = None) -> int:
     """G for one launch of the grouped ``kind`` kernel of ``core`` on
     ``chains`` chains of n rows: :func:`group_size` from the card's SM count
-    and :func:`blocks_per_sm`; for the sgpmc group, at most
-    :func:`sgpmc_group_size` of n."""
+    and :func:`blocks_per_sm`; for the sgpmc group at most n, so that no
+    block is left without rows. More blocks are no slower down to a few
+    rows each: the G sweep at N=404 (chip_smoke.py's sweep, PERF.md; H100,
+    f32) found every sgpmc kernel the paths run fastest at the most blocks
+    the card holds, ~3 rows a block (the NUTS chunk 0.589 .. 0.457 ms a
+    leapfrog at G = 8 .. 132)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     G = group_size(chains, sms, blocks_per_sm(kind, dtype, core))
-    return sgpmc_group_size(n, G) if core == "sgpmc_group" and n is not None else G
+    return min(G, n) if core == "sgpmc_group" and n is not None else G
 
 
 def group_scratch(n: int, m: int, d: int, C: int, G: int, like: torch.Tensor,

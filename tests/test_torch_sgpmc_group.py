@@ -296,21 +296,17 @@ def test_grouped_sgpmc_core_has_no_z_gradient(monkeypatch):
     assert len(out) == 3 and out[2].shape == (C, M, D)
 
 
-@pytest.mark.parametrize("n,G_card,want", [(404, 264, -(-404 // vfe_group.SGPMC_MIN_ROWS)),
-                                           (13279, 264, 264), (13279, 33, 33), (1, 132, 1)])
-def test_sgpmc_group_size_at_small_n(n, G_card, want, monkeypatch):
-    """The grouped sgpmc core takes what the card holds, but at small n no
-    more blocks than leave each SGPMC_MIN_ROWS rows (at least one block);
-    the vfe group is not cut."""
-    want = min(want, G_card)
-    assert vfe_group.sgpmc_group_size(n, G_card) == want
-    monkeypatch.setattr(vfe_group, "blocks_per_sm", lambda kind, dt, core: G_card // 132 or 1)
+@pytest.mark.parametrize("n,bps,want", [(404, 2, 264), (13279, 1, 132), (100, 2, 100), (1, 1, 1)])
+def test_sgpmc_group_size_at_small_n(n, bps, want, monkeypatch):
+    """The grouped sgpmc core takes the blocks the card holds (132 SMs of
+    ``bps``), but no more than its n rows, so that no block is left without
+    rows; the vfe group's G is not cut."""
+    monkeypatch.setattr(vfe_group, "blocks_per_sm", lambda kind, dt, core: bps)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: type("P", (), {"multi_processor_count": 132})())
-    card = 132 * (G_card // 132 or 1)
-    assert vfe_group.geometry("nuts_chunk", F64, 1, "meta", core="sgpmc_group", n=n) \
-        == vfe_group.sgpmc_group_size(n, card)
-    assert vfe_group.geometry("nuts_chunk", F64, 1, "meta", core="vfe_group", n=n) == card
+    assert vfe_group.geometry("nuts_chunk", F64, 1, "meta", core="sgpmc_group", n=n) == want
+    assert vfe_group.geometry("nuts_chunk", F64, 1, "meta", core="vfe_group", n=n) == 132 * bps
+    assert vfe_group.geometry("nuts_chunk", F64, 1, "meta", core="sgpmc_group") == 132 * bps
 
 
 # -- the regression driver's JointHMC branch ---------------------------------------------
