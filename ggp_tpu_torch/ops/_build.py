@@ -24,8 +24,8 @@ the sgpmc wrappers route to at every n: the ``"sgpmc"`` core has no kernel of
 its own (:data:`GROUP_ONLY`).
 The grouped trainer ``ggp_sgpr_adam_group`` runs the warm start's Adam steps
 on the grouped vfe core (``csrc/sgpr_adam.cu``), ``ggp_sgpmc_warm_group``
-the JointHMC warm start's on the grouped sgpmc core (``csrc/sgpmc_warm.cu``). Each source is
-compiled with ``-Xptxas -v``;
+the JointHMC warm start's on the grouped sgpmc core (``csrc/sgpmc_warm.cu``).
+Each source is compiled with ``-Xptxas -v``;
 the compiler's report of registers, shared memory and spills, and the
 seconds each source took to compile, are kept beside the library
 (:func:`ptxas_report`).

@@ -288,8 +288,8 @@ def _hmc_launch(kind, state, X, y, Z, jitter, *, mom, mh, num_leapfrog,
     """Kernel 5 on the C chains of ``state``: one block per chain, or where
     :func:`~ggp_tpu_torch.ops.vfe_group.route` sends ``chains`` chains of n
     rows of the core (the vfe core at large n, the sgpmc core at every n) a
-    group of blocks per chain; counted
-    under ``kind`` ("hmc_chunk" or "mc_hmc_chunk") of the core it ran."""
+    group of blocks per chain; counted under ``kind`` ("hmc_chunk" or
+    "mc_hmc_chunk") of the core it ran."""
     _build.require_cuda("hmc_chunk", X.dtype, *_state_tensors(state), X, y, Z,
                         mom, mh)
     kernel = vfe_group.route(core, X.shape[0], chains)
@@ -308,8 +308,8 @@ def mc_hmc_chunk(state: ChainState, X, y, Z, jitter, *, mom, mh, n_active,
     """:func:`mc_hmc_chunk_plain` on CPU tensors; on CUDA tensors kernel 5
     (``csrc/hmc_chunk.cuh``, the whole chunk of all C chains in one
     launch, one block per chain, or a group of blocks per chain where
-    ``vfe_group.route`` sends the core), or a raise. ``eps`` (C,) is the fixed per-chain step
-    size of a sample chunk."""
+    ``vfe_group.route`` sends the core), or a raise. ``eps`` (C,) is the
+    fixed per-chain step size of a sample chunk."""
     _build.require_kind(core, "mc_hmc_chunk")
     _check_chunk(f"{core} mc_hmc_chunk", state, X, y, Z, mom, adapt, adapt_mass,
                  in_window, window_end, eps, core)

@@ -1,5 +1,5 @@
 """The JointHMC (SGPMC) warm start: whole chunks of Adam steps on (state,
-Z), plain PyTorch beside the CUDA kernels of ``csrc/sgpmc_warm.cu``.
+Z), plain PyTorch beside the CUDA kernel of ``csrc/sgpmc_warm.cu``.
 
 Counterpart of ``ggp_tpu/ops/fused_sgpmc.py`` ``_warm_chunk_body`` (the
 pallas_call of ``make_fused_sgpmc_warm``), which replicates the optax chain

@@ -323,11 +323,12 @@ def call_potential(core, zs, X, y, Z, jitter, *, want_z_grad=False,
     on the C rows of ``zs`` (C, dim): one block each, or for a grouped core
     (``"vfe_group"``, ``"sgpmc_group"``: the vfe or sgpmc core on a group of
     blocks per row, ``ops/vfe_group.py``; ``"gpr"``) G blocks each, launched
-    cooperatively. Returns (U (C,), g (C, dim)[, dU/dZ (C, m, d)]). ``stages`` > 0 stops
-    the gpr core after that many of its six parts (``csrc/gpr_bound.cuh``),
-    whose outputs are then not filled: it exists to time where one
-    evaluation's time goes. ``group`` forces a grouped core's G (a sweep
-    of the geometry); by default ``vfe_group.geometry`` sets it."""
+    cooperatively. Returns (U (C,), g (C, dim)[, dU/dZ (C, m, d)]).
+    ``stages`` > 0 stops the gpr core after that many of its six parts
+    (``csrc/gpr_bound.cuh``), whose outputs are then not filled: it exists
+    to time where one evaluation's time goes. ``group`` forces a grouped
+    core's G (a sweep of the geometry); by default ``vfe_group.geometry``
+    sets it."""
     n, d = X.shape
     m = Z.shape[0]
     C, dim = zs.shape
